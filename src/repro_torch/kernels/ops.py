@@ -1,0 +1,73 @@
+"""Dispatch to the port's kernels — counterpart of ``repro.kernels.ops``.
+
+The reference chooses between Pallas interpret mode and Mosaic codegen by
+backend and environment (``ops.py:32-60``). Here one device test decides,
+inside each kernel wrapper: a CUDA tensor launches the kernel, a CPU
+tensor takes the kernel's plain PyTorch version. This slice has no
+``use_fused_decode``: decode layers never take the QKV-prologue path.
+"""
+from __future__ import annotations
+
+from repro_torch.core import transforms as T
+
+from .fused_cat_matmul import GEMV_M, fused_cat_gemv_w4, fused_cat_matmul_w4
+from .paged_attention import (paged_attention_decode,
+                              paged_attention_fallback,
+                              paged_attention_ragged,
+                              paged_attention_ragged_fallback)
+
+
+def fused_transform_operands(t):
+    """Decompose a CAT transform into the fused kernel's ``(blocks, ha, hb,
+    sign)`` operands, or None when it doesn't fit: a bare ``Hadamard``, or
+    a ``Compose`` of (``Scale`` | ``BlockDiag`` | ``Identity``,
+    ``Hadamard``). A ``Scale`` folds into the pre-Hadamard sign."""
+    if isinstance(t, T.Hadamard):
+        return None, t.ha, t.hb, t.sign
+    if not isinstance(t, T.Compose) or len(t.parts) != 2:
+        return None
+    first, had = t.parts
+    if not isinstance(had, T.Hadamard):
+        return None
+    if isinstance(first, T.Scale):
+        return None, had.ha, had.hb, had.sign * first.s
+    if isinstance(first, T.BlockDiag):
+        return first.blocks, had.ha, had.hb, had.sign
+    if isinstance(first, T.Identity):
+        return None, had.ha, had.hb, had.sign
+    return None
+
+
+def fused_cat_matmul(x, blocks, ha, hb, sign, qw, sw, act_bits: int = 8,
+                     packed: bool = True):
+    """Serving linear y ≈ W·T⁻¹·Q(T x): the GEMV kernel for M <= 8 rows,
+    the tiled kernel above. x (..., D) -> (..., N) in x's dtype."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, d)
+    run = fused_cat_gemv_w4 if xf.shape[0] <= GEMV_M else fused_cat_matmul_w4
+    y = run(xf, blocks, ha, hb, sign, qw, sw, act_bits=act_bits,
+            packed=packed)
+    return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+
+
+def paged_attention(q, k_pages, k_scale, v_pages, v_scale, page_table,
+                    lengths):
+    """Paged decode attention: int8 pools go to the decode kernel, fp pools
+    (no scales) to the gather fallback."""
+    if k_scale is None or v_scale is None:
+        return paged_attention_fallback(q, k_pages, k_scale, v_pages,
+                                        v_scale, page_table, lengths)
+    return paged_attention_decode(q, k_pages, k_scale, v_pages, v_scale,
+                                  page_table, lengths)
+
+
+def ragged_paged_attention(q, k_pages, k_scale, v_pages, v_scale,
+                           page_table, lengths, q_pos):
+    """Mixed-q_len paged attention for the unified step: int8 pools go to
+    the ragged kernel, fp pools to the gather fallback."""
+    if k_scale is None or v_scale is None:
+        return paged_attention_ragged_fallback(q, k_pages, k_scale,
+                                               v_pages, v_scale, page_table,
+                                               lengths, q_pos)
+    return paged_attention_ragged(q, k_pages, k_scale, v_pages, v_scale,
+                                  page_table, lengths, q_pos)

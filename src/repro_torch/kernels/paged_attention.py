@@ -1,0 +1,227 @@
+"""Paged attention over the int8 KV page pool.
+
+Replaces the Pallas TPU kernels ``paged_attention_ragged`` and
+``paged_attention_decode`` of ``src/repro/kernels/paged_attention.py``.
+The CUDA source is ``src/repro_torch/csrc/paged_attention.cu``: one CTA
+per (work item, KV head, 128 query rows) walks the item's page-table row,
+stages each int8 K/V page dequantized in shared memory, and keeps each
+query row's online-softmax state in f32 registers. What bounds it on the
+H100 is the page bytes of the attended prefix (int8 codes + f32 scales)
+over HBM bandwidth; each page streams once per (item, head, row block),
+and a CTA of padding rows reads nothing.
+
+Contracts (as in the reference):
+
+    q           (R, Q, KVH, g, hd) per-item query blocks (decode: (B, KVH,
+                g, hd)), scaled by hd^-½ in f32 and rounded back to q's
+                dtype inside the kernel
+    k/v_pages   (n_pages, G, KVH, hd) int8 codes
+    k/v_scale   (n_pages, G, KVH, 1) f32 per-(token, head) scales
+    page_table  (R, n_ptab) int32 physical page ids (0 = null page)
+    lengths     (R,) int32 valid kv rows per item
+    q_pos       (R, Q) int32 absolute query positions; -1 = padding row
+
+A query row attends kv p with p <= q_pos and p < length (decode: p <
+length). Only valid rows are defined: padding rows come back as zeros from
+the kernel and as the masked softmax's uniform mix from the plain version.
+
+Each wrapper launches its kernel for CUDA tensors (counted in
+``<wrapper>.launches``) and takes its plain PyTorch version only for CPU
+tensors. The gather fallbacks (``*_fallback``) are the reference's jnp
+paths for fp pools: they keep the scaled q in f32, so they differ from the
+kernels by that one rounding.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+_NEG_INF = -1e30
+
+_C = ctypes.c_int
+_P = ctypes.c_void_p
+_F = ctypes.c_float
+_SIGNATURES = {
+    "paged_attention_ragged": [_P, _C, _P, _P, _P, _P, _P, _C, _P, _P, _C,
+                               _C, _C, _C, _C, _C, _F, _P, _P],
+    "paged_attention_decode": [_P, _C, _P, _P, _P, _P, _P, _C, _P, _C, _C,
+                               _C, _C, _C, _F, _P, _P],
+}
+
+
+# ----------------------------------------------------------- gather paths
+
+def _logical(pages, scale, page_table, hd, kvh):
+    """(n_pages, G, KVH, hd) pool -> (R, n_ptab*G, KVH, hd) f32 view."""
+    b = page_table.shape[0]
+    view = pages[page_table.long()].reshape(b, -1, kvh, hd)
+    if scale is None:
+        return view.to(torch.float32)
+    sc = scale[page_table.long()].reshape(b, -1, kvh, 1)
+    return view.to(torch.float32) * sc
+
+
+def _ragged_gather(qf, k_pages, k_scale, v_pages, v_scale, page_table,
+                   lengths, q_pos):
+    """Masked f32 softmax attention of pre-scaled f32 queries qf
+    (R, Q, KVH, g, hd) over each item's gathered logical view."""
+    b, nq, kvh, g, hd = qf.shape
+    k = _logical(k_pages, k_scale, page_table, hd, kvh)
+    v = _logical(v_pages, v_scale, page_table, hd, kvh)
+    skv = k.shape[1]
+    s = torch.einsum("bqkgd,bskd->bqkgs", qf, k)
+    kv = torch.arange(skv, dtype=torch.int32, device=qf.device)
+    q_pos = q_pos.to(torch.int32)
+    mask = ((kv[None, None, :] <= q_pos[:, :, None])
+            & (kv[None, None, :] < lengths.to(torch.int32)[:, None, None])
+            & (q_pos[:, :, None] >= 0))
+    s = torch.where(mask[:, :, None, None, :], s,
+                    torch.full_like(s, _NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqkgs,bskd->bqkgd", p, v)
+
+
+def _decode_as_ragged(q, lengths):
+    """Decode operands as one-query ragged items at q_pos = length - 1."""
+    return q[:, None], (lengths.to(torch.int32) - 1)[:, None]
+
+
+def paged_attention_ragged_fallback(q, k_pages, k_scale, v_pages, v_scale,
+                                    page_table, lengths, q_pos):
+    """The reference's gather path (``repro.kernels.paged_attention.
+    paged_attention_ragged_fallback``): q scaled in f32; also serves fp
+    pools (``k_scale``/``v_scale`` None)."""
+    hd = q.shape[-1]
+    qf = q.to(torch.float32) * hd ** -0.5
+    return _ragged_gather(qf, k_pages, k_scale, v_pages, v_scale,
+                          page_table, lengths, q_pos).to(q.dtype)
+
+
+def paged_attention_fallback(q, k_pages, k_scale, v_pages, v_scale,
+                             page_table, lengths):
+    """The reference's decode gather path (q (B, KVH, g, hd)): the
+    ragged one at q_len 1 with q_pos = length - 1 (the mask
+    kv <= length - 1 is kv < length)."""
+    q1, qpos = _decode_as_ragged(q, lengths)
+    return paged_attention_ragged_fallback(q1, k_pages, k_scale, v_pages,
+                                           v_scale, page_table, lengths,
+                                           qpos)[:, 0]
+
+
+def paged_attention_ragged_plain(q, k_pages, k_scale, v_pages, v_scale,
+                                 page_table, lengths, q_pos):
+    """Plain version of the ragged kernel: q scaled by hd^-½ in f32 and
+    rounded back to q's dtype, as the kernel does, then the gather."""
+    hd = q.shape[-1]
+    qs = (q.to(torch.float32) * hd ** -0.5).to(q.dtype).to(torch.float32)
+    return _ragged_gather(qs, k_pages, k_scale, v_pages, v_scale,
+                          page_table, lengths, q_pos).to(q.dtype)
+
+
+def paged_attention_decode_plain(q, k_pages, k_scale, v_pages, v_scale,
+                                 page_table, lengths):
+    """Plain version of the decode kernel (q (B, KVH, g, hd))."""
+    q1, qpos = _decode_as_ragged(q, lengths)
+    return paged_attention_ragged_plain(q1, k_pages, k_scale, v_pages,
+                                        v_scale, page_table, lengths,
+                                        qpos)[:, 0]
+
+
+# ------------------------------------------------------------ CUDA launch
+
+def _validate(q, k_pages, k_scale, v_pages, v_scale, page_table, lengths,
+              q_pos, kvh):
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
+    hd = q.shape[-1]
+    if hd not in (32, 64, 128):
+        raise ValueError(f"head_dim {hd} not in (32, 64, 128)")
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
+        if t.dtype != torch.int8 or t.ndim != 4 or t.shape[2:] != (kvh, hd):
+            raise TypeError(f"{name} must be int8 (n_pages, G, {kvh}, {hd}),"
+                            f" got {t.dtype} {tuple(t.shape)}")
+    for name, t in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if (t.dtype != torch.float32
+                or t.shape != k_pages.shape[:3] + (1,)):
+            raise TypeError(f"{name} must be f32 {tuple(k_pages.shape[:3])}"
+                            f"+(1,), got {t.dtype} {tuple(t.shape)}")
+    n = page_table.shape[0]
+    for name, t in (("page_table", page_table), ("lengths", lengths),
+                    ("q_pos", q_pos)):
+        if t is not None and t.dtype != torch.int32:
+            raise TypeError(f"{name} must be int32, got {t.dtype}")
+    if lengths.shape != (n,):
+        raise ValueError(f"lengths {tuple(lengths.shape)} must be ({n},)")
+    if q_pos is not None and q_pos.shape != (n, q.shape[1]):
+        raise ValueError(f"q_pos {tuple(q_pos.shape)} must be "
+                         f"({n}, {q.shape[1]})")
+    for t in (k_pages, k_scale, v_pages, v_scale, page_table, lengths):
+        if t.device != q.device:
+            raise TypeError(f"all operands must be on {q.device}")
+
+
+def _contig(*ts):
+    return [None if t is None else t.contiguous() for t in ts]
+
+
+def paged_attention_ragged(q, k_pages, k_scale, v_pages, v_scale,
+                           page_table, lengths, q_pos) -> torch.Tensor:
+    """Mixed-q_len paged attention (one launch for a unified step's work
+    items) -> (R, Q, KVH, g, hd) in q's dtype."""
+    if not q.is_cuda:
+        return paged_attention_ragged_plain(q, k_pages, k_scale, v_pages,
+                                            v_scale, page_table, lengths,
+                                            q_pos)
+    r, nq, kvh, g, hd = q.shape
+    _validate(q, k_pages, k_scale, v_pages, v_scale, page_table, lengths,
+              q_pos, kvh)
+    q, k_pages, k_scale, v_pages, v_scale, page_table, lengths, q_pos = \
+        _contig(q, k_pages, k_scale, v_pages, v_scale, page_table, lengths,
+                q_pos)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = build.load("paged_attention", _SIGNATURES)
+    code = lib.paged_attention_ragged(
+        build.ptr(q), int(q.dtype == torch.bfloat16), build.ptr(k_pages),
+        build.ptr(k_scale), build.ptr(v_pages), build.ptr(v_scale),
+        build.ptr(page_table), page_table.shape[1], build.ptr(lengths),
+        build.ptr(q_pos), r, nq, kvh, g, hd, k_pages.shape[1],
+        float(hd ** -0.5), build.ptr(out), build.stream_of(q))
+    build.check(code, "paged_attention_ragged")
+    paged_attention_ragged.launches += 1
+    return out
+
+
+def paged_attention_decode(q, k_pages, k_scale, v_pages, v_scale,
+                           page_table, lengths) -> torch.Tensor:
+    """Single-token paged decode attention: q (B, KVH, g, hd), lengths =
+    pos + 1 -> (B, KVH, g, hd) in q's dtype."""
+    if not q.is_cuda:
+        return paged_attention_decode_plain(q, k_pages, k_scale, v_pages,
+                                            v_scale, page_table, lengths)
+    b, kvh, g, hd = q.shape
+    _validate(q, k_pages, k_scale, v_pages, v_scale, page_table, lengths,
+              None, kvh)
+    q, k_pages, k_scale, v_pages, v_scale, page_table, lengths = _contig(
+        q, k_pages, k_scale, v_pages, v_scale, page_table, lengths)
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = build.load("paged_attention", _SIGNATURES)
+    code = lib.paged_attention_decode(
+        build.ptr(q), int(q.dtype == torch.bfloat16), build.ptr(k_pages),
+        build.ptr(k_scale), build.ptr(v_pages), build.ptr(v_scale),
+        build.ptr(page_table), page_table.shape[1], build.ptr(lengths), b,
+        kvh, g, hd, k_pages.shape[1], float(hd ** -0.5), build.ptr(out),
+        build.stream_of(q))
+    build.check(code, "paged_attention_decode")
+    paged_attention_decode.launches += 1
+    return out
+
+
+paged_attention_ragged.launches = 0
+paged_attention_decode.launches = 0

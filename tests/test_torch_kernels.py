@@ -1,0 +1,302 @@
+"""The port's kernel modules against the JAX reference kernels, on the CPU.
+
+On the CPU each port wrapper takes its plain PyTorch version (the CUDA
+kernels run only on the card, where ``chip_smoke.py`` holds them against
+these same plain versions). Here the plain versions are held against the
+reference's Pallas kernels in interpret mode and its ``kernels.ref``
+oracles, on inputs drawn from numpy seeds and handed to both packages:
+
+- fused CAT linear (``fused_cat_gemv_w4`` M <= 8, ``fused_cat_matmul_w4``
+  M > 8) over the edge cases of ``tests/test_fused_cat.py``: M in
+  {7, 8, 9}, odd K, K not a multiple of the CAT block, packed/unpacked
+  weights, act_bits 4/8. Activation codes are compared with
+  ``ref.kernel_transform_quant`` (the kernel's op order): equal, except
+  that f32 dot association may move a value across a rounding boundary —
+  at most 1 code step on at most 0.1 % of entries. Outputs agree at rtol
+  1e-5 (the JAX suite's kernel-vs-oracle bound) on rows whose codes are
+  equal.
+- paged attention (ragged and decode) over the cases of
+  ``tests/test_ragged_attention.py``: mixed q_len, ragged pages, one
+  page, padding rows, exact causal horizon, q_len=1 vs decode, fp-pool
+  dispatch. Valid rows only, rtol 1e-5 / atol 1e-5 for f32 queries; bf16
+  queries at bf16 resolution (rtol 1e-2, one bf16 ulp of the output).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.quantizers import pack_int4 as j_pack_int4
+from repro.kernels import ref
+from repro.kernels.fused_cat_matmul import (fused_cat_gemv_w4 as j_gemv,
+                                            fused_cat_matmul_w4 as j_matmul)
+from repro.kernels.paged_attention import (
+    paged_attention_decode as j_decode,
+    paged_attention_ragged as j_ragged,
+    paged_attention_ragged_fallback as j_ragged_fallback)
+from repro_torch.kernels import fused_cat_matmul as F
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as P
+
+torch.set_num_threads(1)
+
+RTOL = 1e-5
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+# ------------------------------------------------------- fused CAT linear
+
+def _factor(d):
+    a = int(np.sqrt(d))
+    while d % a:
+        a -= 1
+    return a, d // a
+
+
+def _fused_operands(m, d, n, seed, n_blocks=0, packed=True):
+    r = np.random.default_rng(seed)
+    x = r.standard_normal((m, d)).astype(np.float32)
+    blocks = None
+    if n_blocks:
+        bk = d // n_blocks
+        blocks = (r.standard_normal((n_blocks, bk, bk)) * 0.3
+                  + np.eye(bk)).astype(np.float32)
+    a, b = _factor(d)
+    ha = (r.standard_normal((a, a)) / np.sqrt(a)).astype(np.float32)
+    hb = (r.standard_normal((b, b)) / np.sqrt(b)).astype(np.float32)
+    sign = (r.integers(0, 2, d) * 2 - 1).astype(np.float32)
+    qw = r.integers(-8, 8, (d, n)).astype(np.int8)
+    if packed:
+        qw = np.asarray(j_pack_int4(jnp.asarray(qw), axis=0))
+    sw = r.uniform(0.01, 0.1, (1, n)).astype(np.float32)
+    return x, blocks, ha, hb, sign, qw, sw
+
+
+def _check_fused(m, d, n, seed, n_blocks=0, packed=True, act_bits=8):
+    ops_np = _fused_operands(m, d, n, seed, n_blocks, packed)
+    x, blocks, ha, hb, sign, qw, sw = ops_np
+    jx = [None if a is None else jnp.asarray(a) for a in ops_np]
+    tx = [None if a is None else _t(a) for a in ops_np]
+    # activation codes: port plain transform-quant vs the reference's
+    # kernel-order helper
+    q_ref, s_ref, z_ref = (np.asarray(v) for v in ref.kernel_transform_quant(
+        *jx[:5], act_bits=act_bits))
+    q_pt, s_pt, z_pt = (v.numpy() for v in F.transform_quant_plain(
+        *tx[:5], act_bits))
+    diff = np.abs(q_pt.astype(np.int32) - q_ref.astype(np.int32))
+    assert diff.max() <= 1
+    assert (diff > 0).mean() <= 1e-3
+    same = (diff == 0).all(axis=1)
+    # outputs: the port wrapper (plain on the CPU) vs the Pallas kernel in
+    # interpret mode and vs the composed oracle
+    run_j = j_gemv if m <= F.GEMV_M else j_matmul
+    run_t = F.fused_cat_gemv_w4 if m <= F.GEMV_M else F.fused_cat_matmul_w4
+    got = run_t(*tx, act_bits=act_bits, packed=packed).numpy()
+    kern = np.asarray(run_j(*jx, act_bits=act_bits, packed=packed,
+                            interpret=True))
+    want = np.asarray(ref.fused_cat_matmul_w4(*jx, act_bits=act_bits,
+                                              packed=packed))
+    assert got.shape == (m, n)
+    np.testing.assert_allclose(got[same], kern[same], rtol=RTOL, atol=RTOL)
+    np.testing.assert_allclose(got[same], want[same], rtol=RTOL, atol=RTOL)
+    np.testing.assert_allclose(s_pt[same], s_ref[same], rtol=1e-6)
+    np.testing.assert_array_equal(z_pt[same], z_ref[same])
+
+
+@pytest.mark.parametrize("m", [7, 8, 9])
+def test_fused_gemv_tiled_boundary(m):
+    _check_fused(m, 64, 96, seed=m, n_blocks=4)
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("m,d,n,n_blocks", [
+    (5, 64, 96, 0),        # bare Hadamard transform
+    (17, 96, 80, 6),       # tiled, blocks, K not a multiple of 64
+    (33, 63, 40, 0),       # odd K: the padded nibble stays inert
+    (3, 63, 40, 7),        # odd K through the GEMV variant, with blocks
+])
+def test_fused_matches_reference(packed, m, d, n, n_blocks):
+    _check_fused(m, d, n, seed=m * 100 + d, n_blocks=n_blocks,
+                 packed=packed)
+
+
+@pytest.mark.parametrize("act_bits", [4, 8])
+def test_fused_act_bits(act_bits):
+    _check_fused(9, 64, 48, seed=act_bits, n_blocks=4, act_bits=act_bits)
+
+
+def test_fused_dispatch_and_counters():
+    """ops picks the GEMV variant up to 8 rows and the tiled one above;
+    on CPU tensors neither counts a kernel launch."""
+    x, blocks, ha, hb, sign, qw, sw = (
+        None if a is None else _t(a)
+        for a in _fused_operands(12, 64, 32, 5, n_blocks=4))
+    before = (F.fused_cat_gemv_w4.launches, F.fused_cat_matmul_w4.launches)
+    y_small = ops.fused_cat_matmul(x[:8], blocks, ha, hb, sign, qw, sw,
+                                   act_bits=4)
+    y_big = ops.fused_cat_matmul(x, blocks, ha, hb, sign, qw, sw, act_bits=4)
+    assert torch.equal(y_small, y_big[:8])
+    assert (F.fused_cat_gemv_w4.launches,
+            F.fused_cat_matmul_w4.launches) == before
+    with pytest.raises(ValueError, match="M <= 8"):
+        F.fused_cat_gemv_w4(x, blocks, ha, hb, sign, qw, sw, act_bits=4)
+
+
+def test_fused_transform_operands_decomposes():
+    from repro_torch.core import transforms as T
+    r = np.random.default_rng(3)
+    had = T.make_hadamard(32, r)
+    s = torch.from_numpy(r.uniform(0.5, 2.0, 32).astype(np.float32))
+    blocks, ha, hb, sign = ops.fused_transform_operands(
+        T.Compose((T.Scale(s), had)))
+    assert blocks is None
+    assert torch.equal(sign, had.sign * s)
+    bd = T.BlockDiag(torch.eye(8).repeat(4, 1, 1), torch.eye(8).repeat(4, 1, 1))
+    assert ops.fused_transform_operands(T.Compose((bd, had)))[0] is bd.blocks
+    assert ops.fused_transform_operands(T.Dense(torch.eye(4),
+                                                torch.eye(4))) is None
+    assert ops.fused_transform_operands(T.Identity()) is None
+
+
+# -------------------------------------------------------- paged attention
+
+def _attn_case(seed, b, nq, kvh, g, hd, page_size, n_ptab, q_lens, lengths):
+    r = np.random.default_rng(seed)
+    n_pages = 1 + b * n_ptab
+    k_pages = r.integers(-127, 128, (n_pages, page_size, kvh, hd)).astype(
+        np.int8)
+    v_pages = r.integers(-127, 128, (n_pages, page_size, kvh, hd)).astype(
+        np.int8)
+    k_scale = r.uniform(0.01, 0.1, (n_pages, page_size, kvh, 1)).astype(
+        np.float32)
+    v_scale = r.uniform(0.01, 0.1, (n_pages, page_size, kvh, 1)).astype(
+        np.float32)
+    q = r.standard_normal((b, nq, kvh, g, hd)).astype(np.float32)
+    table = np.zeros((b, n_ptab), np.int32)
+    nxt = 1
+    for i in range(b):
+        for j in range(-(-int(lengths[i]) // page_size)):
+            table[i, j] = nxt
+            nxt += 1
+    qpos = np.full((b, nq), -1, np.int32)
+    for i, (ql, ln) in enumerate(zip(q_lens, lengths)):
+        qpos[i, :ql] = ln - ql + np.arange(ql)
+    return [q, k_pages, k_scale, v_pages, v_scale, table,
+            np.asarray(lengths, np.int32), qpos]
+
+
+CASES = {
+    "mixed": ((1, 3, 6), (9, 7, 6), 4, 3),
+    "ragged-pages": ((2, 5, 1), (11, 5, 13), 4, 4),
+    "one-page": ((1, 2, 2), (1, 2, 8), 8, 1),
+}
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ragged_matches_reference_kernel(seed, case):
+    q_lens, lengths, page_size, n_ptab = CASES[case]
+    args = _attn_case(seed, len(q_lens), max(q_lens), 2, 2, 8, page_size,
+                      n_ptab, q_lens, lengths)
+    got = P.paged_attention_ragged(*map(_t, args)).numpy()
+    want = np.asarray(j_ragged(*map(jnp.asarray, args), interpret=True))
+    valid = args[-1] >= 0
+    np.testing.assert_allclose(got[valid], want[valid], rtol=RTOL, atol=RTOL)
+
+
+def test_ragged_bf16_queries_round_like_the_kernel():
+    """bf16 q: the kernel scales by hd^-½ in f32 and rounds back to bf16
+    before the dots; the port's plain version does the same."""
+    q_lens, lengths, page_size, n_ptab = CASES["mixed"]
+    args = _attn_case(4, 3, 6, 2, 2, 32, page_size, n_ptab, q_lens, lengths)
+    jq = jnp.asarray(args[0]).astype(jnp.bfloat16)
+    want = np.asarray(j_ragged(jq, *map(jnp.asarray, args[1:]),
+                               interpret=True).astype(jnp.float32))
+    tq = _t(np.asarray(jq.astype(jnp.float32))).to(torch.bfloat16)
+    got = P.paged_attention_ragged(tq, *map(_t, args[1:])).float().numpy()
+    valid = args[-1] >= 0
+    np.testing.assert_allclose(got[valid], want[valid], rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_padded_query_rows_do_not_contaminate():
+    """Padding rows (q_pos = -1) added to a query block leave the real rows
+    as they were, up to f32 association: the plain version's batched
+    einsum may block the sum differently for a wider block (rtol 1e-6)."""
+    args = _attn_case(3, 2, 2, 2, 2, 8, 4, 2, (2, 1), (6, 3))
+    small = P.paged_attention_ragged(*map(_t, args)).numpy()
+    wide = list(args)
+    pad = np.random.default_rng(9).standard_normal((2, 3, 2, 2, 8))
+    wide[0] = np.concatenate([args[0], pad.astype(np.float32)], axis=1)
+    wide[-1] = np.concatenate([args[-1], np.full((2, 3), -1, np.int32)],
+                              axis=1)
+    out_wide = P.paged_attention_ragged(*map(_t, wide)).numpy()
+    valid = args[-1] >= 0
+    np.testing.assert_allclose(small[valid], out_wide[:, :2][valid],
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_causal_horizon_masking_is_exact():
+    """Poisoned rows past every query's horizon (and the null page) get
+    exactly zero weight."""
+    args = _attn_case(5, 2, 3, 2, 2, 8, 4, 3, (3, 1), (5, 9))
+    out = P.paged_attention_ragged(*map(_t, args)).numpy()
+    q, kp, ks, vp, vs, table, ln, qpos = [np.array(a) for a in args]
+    page_size = kp.shape[1]
+    for i in range(2):
+        horizon = int(qpos[i].max())
+        for j in range(table.shape[1]):
+            page = table[i, j]
+            for r in range(page_size):
+                if page and j * page_size + r > horizon:
+                    kp[page, r], vp[page, r] = 127, -127
+                    ks[page, r], vs[page, r] = 1e8, 1e8
+    kp[0], vp[0], ks[0], vs[0] = 127, -127, 1e8, 1e8
+    out2 = P.paged_attention_ragged(*map(_t, (q, kp, ks, vp, vs, table, ln,
+                                              qpos))).numpy()
+    valid = qpos >= 0
+    np.testing.assert_array_equal(out[valid], out2[valid])
+
+
+def test_qlen1_reduces_to_decode():
+    """q_len=1 rows at q_pos = length-1 are the decode contract: the port's
+    decode path matches the reference decode kernel and the ragged path."""
+    args = _attn_case(7, 3, 1, 2, 2, 8, 4, 3, (1, 1, 1), (5, 12, 1))
+    q, kp, ks, vp, vs, table, ln, qpos = args
+    dec = P.paged_attention_decode(*map(_t, (q[:, 0], kp, ks, vp, vs, table,
+                                             ln))).numpy()
+    ragged = P.paged_attention_ragged(*map(_t, args)).numpy()[:, 0]
+    want = np.asarray(j_decode(*map(jnp.asarray, (q[:, 0], kp, ks, vp, vs,
+                                                  table, ln)),
+                               interpret=True))
+    np.testing.assert_allclose(dec, want, rtol=RTOL, atol=1e-6)
+    np.testing.assert_allclose(ragged, dec, rtol=RTOL, atol=1e-6)
+
+
+def test_ops_dispatch_fp_pool_falls_back():
+    """fp pools (no scales) go to the gather fallback, which matches the
+    reference's fallback and a quantized pool dequantized up front."""
+    args = _attn_case(11, 2, 3, 2, 2, 8, 4, 2, (3, 2), (7, 4))
+    q, kp, ks, vp, vs, table, ln, qpos = args
+    k_fp = kp.astype(np.float32) * ks
+    v_fp = vp.astype(np.float32) * vs
+    via_ops = ops.ragged_paged_attention(*map(_t, (q, k_fp)), None,
+                                         _t(v_fp), None,
+                                         *map(_t, (table, ln, qpos))).numpy()
+    want = np.asarray(j_ragged_fallback(
+        *map(jnp.asarray, (q, k_fp)), None, jnp.asarray(v_fp), None,
+        *map(jnp.asarray, (table, ln, qpos))))
+    valid = qpos >= 0
+    np.testing.assert_allclose(via_ops[valid], want[valid], rtol=RTOL,
+                               atol=RTOL)
+    quant = ops.ragged_paged_attention(*map(_t, args)).numpy()
+    np.testing.assert_allclose(via_ops[valid], quant[valid], rtol=1e-4,
+                               atol=1e-5)
+    before = (P.paged_attention_ragged.launches,
+              P.paged_attention_decode.launches)
+    ops.paged_attention(*map(_t, (q[:, 0], kp, ks, vp, vs, table, ln)))
+    assert (P.paged_attention_ragged.launches,
+            P.paged_attention_decode.launches) == before
