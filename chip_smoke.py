@@ -9,22 +9,32 @@ Phases (any failure exits non-zero before the final line):
              and power limit as ``nvidia-smi`` reports them.
 2. build   — compile every CUDA kernel of the serving path from
              ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel).
-3. kernels — each kernel at the serving path's shapes against its plain
-             PyTorch version on the same card, with its stated tolerance,
+3. kernels — each kernel (the fused CAT linear's two entry points, both
+             paged attentions, the decode QKV prologue) at the serving
+             path's shapes against its plain PyTorch version on the same
+             card, with its stated tolerance,
              its time, its plain version's time and its lower bound
              (bytes over 3.35 TB/s or operations over the peak rate for
              their type, H100 SXM data sheet).
 4. serving — full-width catlm-60m (8 layers, d 512, 8/4 heads, d_ff 1536,
              vocab 8192), seeded random init, CAT W4A4 int4-packed PTQ on
              the card, 8 mixed requests (32 new tokens each) through the
-             unified paged engine with the kernels; every kernel must have
-             launched during that run. The reference routes (route 2
-             ``w_eff`` fake quant and gather attention, on the card), run
-             teacher-forced over the served sequences, must predict >= 90 %
-             of the served tokens. The same requests served free-running
-             through the reference routes are reported too: on random
-             weights one different token changes every later one, so that
-             number measures divergence more than the path.
+             unified paged engine with the kernels, in two configurations:
+             (a) the synchronous loop with composed decode layers
+             (``REPRO_DECODE_FUSED=0``, ``pipeline=False``) and (b) the
+             default: the pipelined loop with the two-launch decode. Every
+             kernel must have launched during (b)'s counted pass, and (b)
+             must be token-identical to its synchronous loop. Warm
+             passes of (a), (b) and (b) with the synchronous loop then
+             alternate five times (host time varies between passes). The
+             synchronising CUDA calls in (b)'s dispatch half are counted
+             (``torch.cuda.set_sync_debug_mode("warn")``). The reference
+             routes (route 2 ``w_eff`` fake quant and gather attention, on
+             the card), run teacher-forced over the served sequences, must
+             predict >= 90 % of (a)'s and (b)'s tokens. (b) served
+             free-running through the reference routes is reported too: on
+             random weights one different token changes every later one,
+             so that number measures divergence more than the path.
 
 The second line from the end is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -51,6 +61,7 @@ LINEAR_SHAPES = [(512, 1024), (512, 512), (512, 3072), (1536, 512)]
 GEMV_ROWS = (4, 8)            # decode steps run n_slots = 8 rows
 TILED_ROWS = (64, 128, 256)   # the unified step packs 128 rows
 CAT_BLOCK = 32                # min(cfg.cat_block, 32), as the PTQ uses
+PROLOGUE_N = 1024             # wqkv columns: 8 q + 4 k + 4 v heads of 64
 
 
 def fail(msg: str) -> None:
@@ -238,6 +249,115 @@ def check_attention(name, run, plain, items, nq, card, gen, dev, decode):
     return [rec]
 
 
+def prologue_operands(m, gen, dev, targets):
+    """Decode-prologue operands at the path's shapes (D 512, N 1024 = 8 q
+    + 4 k + 4 v heads of 64) over a pool of 40 pages of 16 rows, and the
+    rows' (page, row, position) targets."""
+    import torch
+    args = fused_linear_operands(m, 512, PROLOGUE_N, gen, dev)
+    kvh, hd, ps = 4, 64, 16
+    shape = (40, ps, kvh, hd)
+    pools = [torch.randint(-127, 128, shape, generator=gen,
+                           dtype=torch.int8),
+             torch.rand(shape[:3] + (1,), generator=gen) * 0.02 + 0.001,
+             torch.randint(-127, 128, shape, generator=gen,
+                           dtype=torch.int8),
+             torch.rand(shape[:3] + (1,), generator=gen) * 0.02 + 0.001]
+    ids = [torch.tensor([t[i] for t in targets], dtype=torch.int32)
+           for i in range(3)]
+    return args, [t.to(dev) for t in pools], [t.to(dev) for t in ids]
+
+
+def check_prologue(card, gen, dev):
+    """Hold the decode QKV prologue against its plain version at the
+    path's shapes for B = 1, 4 and 8, with padded rows (page 0) and rows on
+    the ragged last slot of a page. Tolerances: q within rtol 1e-5 of its
+    row's largest |q| (the two versions associate the f32 transform dots
+    differently, which moves the act scale by ulps, and RoPE's two terms
+    cancel near zero); KV codes bitwise and scales at rtol 1e-5 on the
+    targeted rows — except where that association moves an activation
+    code: then codes may differ by 1 on at most 0.1 % of entries and q
+    stays within two activation-code steps; every page other than 0 and
+    every untargeted row unchanged."""
+    import torch
+
+    from repro_torch.kernels import decode_layer as L
+    from repro_torch.kernels import fused_cat_matmul as F
+    out = []
+    layouts = {1: [(5, 15, 15)],
+               4: [(3, 15, 31), (7, 0, 32), (9, 4, 4), (0, 0, 0)],
+               8: [(1 + i, (5 * i) % 16, 16 * i + (5 * i) % 16)
+                   for i in range(6)] + [(0, 0, 0), (0, 0, 0)]}
+    kw = dict(n_q=512, head_dim=64, rope_theta=10000.0, kv_bits=8,
+              act_bits=4, packed=True)
+    for m, targets in layouts.items():
+        args, pools, ids = prologue_operands(m, gen, dev, targets)
+        got_pools = [t.clone() for t in pools]
+        want_pools = [t.clone() for t in pools]
+        q = L.decode_qkv_prologue(*args, *got_pools, *ids, **kw)[0]
+        q_want = L.decode_qkv_prologue_plain(*args, *want_pools, *ids,
+                                             **kw)[0]
+        torch.cuda.synchronize()
+        real = [(p, r) for p, r, _ in targets if p != 0]
+        sel = (torch.tensor([p for p, _ in real], device=dev).long(),
+               torch.tensor([r for _, r in real], device=dev).long())
+        codes_got = torch.cat([got_pools[i][sel].flatten() for i in (0, 2)])
+        codes_want = torch.cat([want_pools[i][sel].flatten()
+                                for i in (0, 2)])
+        dcode = (codes_got.int() - codes_want.int()).abs()
+        code_frac = (dcode > 0).float().mean().item()
+        scale_err = max(((got_pools[i][sel] - want_pools[i][sel]).abs()
+                         / want_pools[i][sel].abs()).max().item()
+                        for i in (1, 3))
+        # rtol 1e-5 of each row's scale: f32 dot association moves the
+        # act scale by ulps, and RoPE's differences cancel near zero
+        row_scale = q_want.abs().amax(dim=1, keepdim=True)
+        rows_off = int(((q - q_want).abs() > 1e-5 * row_scale)
+                       .any(dim=1).sum().item())
+        _, sx, _ = F.transform_quant_plain(*args[:5], 4)
+        step_tol = 2 * sx.max().item() * args[6].max().item() * 8
+        q_err = (q - q_want).abs().max().item()
+        # untouched: every page but 0 outside the targeted rows
+        mask = torch.ones(pools[0].shape[:2], dtype=torch.bool, device=dev)
+        mask[0] = False
+        mask[sel] = False
+        untouched = all(torch.equal(g[mask], o[mask])
+                        for g, o in zip(got_pools, pools))
+        exact = rows_off == 0 and code_frac == 0 and scale_err <= 1e-5
+        code_moved = (dcode.max().item() <= 1 and code_frac <= 1e-3
+                      and q_err <= step_tol)
+        ok = untouched and (exact or code_moved)
+        targets_t = [t.clone() for t in pools]
+        call = lambda: L.decode_qkv_prologue(  # noqa: E731
+            *args, *targets_t, *ids, **kw)
+        ms, per_call = device_ms(call), call_ms(call)
+        plain_ms = device_ms(lambda: L.decode_qkv_prologue_plain(
+            *args, *targets_t, *ids, **kw))
+        d, n, bk, hd = 512, PROLOGUE_N, CAT_BLOCK, 64
+        a, b = args[2].shape[0], args[3].shape[0]
+        nbytes = (m * d * 2 + d * bk * 4 + (a * a + b * b) * 4 + d * 4
+                  + (d // 2) * n + n * 4 + hd // 2 * 4 + 3 * m * 4
+                  + m * 512 * 4 + m * 2 * 4 * (hd + 4))
+        f32_flops = (m * (2 * d * bk + 2 * d * (a + b) + 6 * d)
+                     + m * n * 4 + m * 768 * 6 + m * 512 * 3)
+        b_ms, b_by = bound(nbytes, f32_flops / F32_FLOP_S
+                           + 2 * m * d * n / INT8_OP_S)
+        rec = {"kernel": "decode_qkv_prologue", "m": m, "d": d, "n": n,
+               "max_err": q_err, "tol": "q within 1e-5 of its row's max |q|; "
+               "KV codes bitwise, scales rtol 1e-5; where an act code moved:"
+               " codes |d|<=1 on <=0.1%, q within two code steps",
+               "q_rows_off": rows_off, "code_diff_frac": code_frac,
+               "scale_max_rel_err": scale_err, "two_step_tol": step_tol,
+               "untouched": untouched, "kernel_ms": ms, "call_ms": per_call,
+               "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
+               "bound_by": b_by, "card": card}
+        print(json.dumps(rec))
+        if not ok:
+            fail(f"decode_qkv_prologue m={m}: {json.dumps(rec)}")
+        out.append(rec)
+    return out
+
+
 # ---------------------------------------------------------------- serving
 
 def agreement(reqs, a, b) -> float:
@@ -308,7 +428,8 @@ def profile_serving(engine, reqs) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    groups = {"transform_quant": "fused linear stage 1",
+    groups = {"decode_qkv_prologue": "decode prologue",
+              "transform_quant": "fused linear stage 1",
               "contract_gemv": "fused linear GEMV contraction",
               "contract_tiled": "fused linear tiled contraction",
               "paged_attn": "paged attention"}
@@ -339,12 +460,138 @@ def profile_serving(engine, reqs) -> dict:
             "other_device_ms": other}
 
 
+def serve_config(label, model, params, reqs, kw, counters, card,
+                 decode_fused, pipeline):
+    """One serving configuration: a warm-up pass, then the counted and
+    timed pass (every counter set to 0 just before it, read just after),
+    then a profiled pass. -> (engine, results, record)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.engine import ServeEngine
+    if decode_fused is None:
+        os.environ.pop("REPRO_DECODE_FUSED", None)
+    else:
+        os.environ["REPRO_DECODE_FUSED"] = decode_fused
+    engine = ServeEngine(model, params, paged_kernel=True, pipeline=pipeline,
+                         **kw)
+    engine.run(reqs)
+    engine.reset()
+    for fn in counters:
+        fn.launches = 0
+    res = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    s = engine.summary()
+    out = {"config": label, "pipeline": s["pipeline"],
+           "decode_fused_env": decode_fused,
+           "tok_per_s": s["tok_per_s"], "ttft_s_mean": s["ttft_s_mean"],
+           "itl_p50_s": s["itl_p50_s"], "itl_p95_s": s["itl_p95_s"],
+           "device_ms_mean": s["device_ms_mean"],
+           "host_ms_mean": s["host_ms_mean"],
+           "overlap_frac": s["overlap_frac"],
+           "host_ms_hidden": s["host_ms_hidden"],
+           "mispredicts": s["mispredicts"], "steps": s["steps"],
+           "decode_steps": s["decode_steps"],
+           "generated_tokens": s["generated_tokens"],
+           "wall_s": s["wall_s"], "launches": launches, "card": card}
+    print(f"serving {label}: " + json.dumps(out))
+    out["profile"] = profile_serving(engine, reqs)
+    print(f"serving {label}: profiled pass " + json.dumps(out["profile"]))
+    if s["generated_tokens"] != 8 * 32:
+        fail(f"{label}: served {s['generated_tokens']} tokens, expected "
+             f"{8 * 32}")
+    for r in reqs:
+        toks = np.asarray(res[r["rid"]].tokens)
+        if not (len(toks) == len(r["tokens"]) + 32
+                and (0 <= toks).all() and (toks < model.cfg.vocab).all()):
+            fail(f"{label} request {r['rid']}: malformed output {toks}")
+    return engine, res, out
+
+
+def alternate_passes(engines: dict, reqs, rounds: int = 5) -> dict:
+    """Host time varies from pass to pass on a shared host, so compare
+    the configurations on warm engines in alternation: ``rounds`` drained
+    passes each, the order rotated every round. -> per configuration the
+    median and quartiles of tok/s, ITL p50 and TTFT (ms) and the raw
+    values."""
+    import os
+
+    import numpy as np
+    names = list(engines)
+    runs = {n: {"tok_per_s": [], "itl_p50_ms": [], "ttft_ms": []}
+            for n in names}
+    for i in range(rounds):
+        for n in names[i % len(names):] + names[:i % len(names)]:
+            engine, fused_env = engines[n]
+            if fused_env is None:
+                os.environ.pop("REPRO_DECODE_FUSED", None)
+            else:
+                os.environ["REPRO_DECODE_FUSED"] = fused_env
+            engine.reset()
+            engine.run(reqs)
+            s = engine.summary()
+            runs[n]["tok_per_s"].append(s["tok_per_s"])
+            runs[n]["itl_p50_ms"].append(1e3 * s["itl_p50_s"])
+            runs[n]["ttft_ms"].append(1e3 * s["ttft_s_mean"])
+    os.environ.pop("REPRO_DECODE_FUSED", None)
+    out = {}
+    for n, r in runs.items():
+        out[n] = {}
+        for k, v in r.items():
+            q1, med, q3 = np.percentile(v, [25, 50, 75])
+            out[n][k] = {"median": float(med), "q1": float(q1),
+                         "q3": float(q3), "runs": v}
+    return out
+
+
+def count_dispatch_syncs(engine, reqs) -> dict:
+    """Synchronising CUDA calls in the dispatch half of each pipelined
+    cycle (``_plan_and_dispatch`` under ``torch.cuda.set_sync_debug_mode(
+    "warn")``), over one drained pass: the count for the first cycle (a
+    ragged prefill step), the largest over the pure-decode cycles, and the
+    distinct warning texts."""
+    import warnings
+
+    import torch
+    real = engine._plan_and_dispatch
+    per_cycle, texts = [], set()
+
+    def counted():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                plan, inf = real()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        hits = [str(w.message) for w in caught
+                if "called a synchronizing" in str(w.message)]
+        texts.update(h.splitlines()[0][:200] for h in hits)
+        per_cycle.append((bool(inf is not None and inf.slot_major),
+                          len(hits)))
+        return plan, inf
+
+    engine.reset()
+    engine._plan_and_dispatch = counted
+    try:
+        engine.run(reqs)
+    finally:
+        del engine._plan_and_dispatch
+    decode = [n for slot_major, n in per_cycle if slot_major]
+    return {"first_cycle": per_cycle[0][1],
+            "decode_cycle_max": max(decode) if decode else None,
+            "cycles": len(per_cycle), "total": sum(n for _, n in per_cycle),
+            "texts": sorted(texts)}
+
+
 def serve(counters, card):
     import numpy as np
     import torch
 
     from repro_torch.data import request_workload
-    from repro_torch.launch.engine import ServeEngine
     from repro_torch.launch.serve import build_served_model
 
     t0 = time.perf_counter()
@@ -362,52 +609,72 @@ def serve(counters, card):
     kw = dict(n_slots=8, max_len=max_len, schedule="unified",
               max_batch_tokens=128, page_size=16, device="cuda")
 
-    # the main path through the kernels: a warm-up pass, then the counted
-    # and timed pass
-    engine = ServeEngine(model, params, paged_kernel=True, **kw)
-    engine.run(reqs)
-    engine.reset()
-    for fn in counters:
-        fn.launches = 0
-    res = engine.run(reqs)
-    torch.cuda.synchronize()
-    launches = {fn.__name__: fn.launches for fn in counters}
-    s = engine.summary()
-    out = {"tok_per_s": s["tok_per_s"], "ttft_s_mean": s["ttft_s_mean"],
-           "itl_p50_s": s["itl_p50_s"], "itl_p95_s": s["itl_p95_s"],
-           "device_ms_mean": s["device_ms_mean"],
-           "host_ms_mean": s["host_ms_mean"], "steps": s["steps"],
-           "decode_steps": s["decode_steps"],
-           "generated_tokens": s["generated_tokens"],
-           "wall_s": s["wall_s"], "launches": launches, "card": card}
-    print("serving: " + json.dumps(out))
-    out["profile"] = profile_serving(engine, reqs)
-    print("serving: profiled pass " + json.dumps(out["profile"]))
-    for name, n in launches.items():
+    # (a) the slice-1 configuration: synchronous, composed decode layers
+    eng_a, res_a, out_a = serve_config("(a) sync, fused decode off", model,
+                                       params, reqs, kw, counters, card, "0",
+                                       False)
+    # (b) the default: pipelined, two-launch decode — the main path
+    eng_b, res_b, out_b = serve_config("(b) default", model, params, reqs,
+                                       kw, counters, card, None, None)
+    out = {"a": out_a, "b": out_b}
+    for name, n in out_b["launches"].items():
         if n <= 0:
-            fail(f"kernel {name} never launched while serving")
-    if s["generated_tokens"] != 8 * 32:
-        fail(f"served {s['generated_tokens']} tokens, expected {8 * 32}")
-    for r in reqs:
-        toks = np.asarray(res[r["rid"]].tokens)
-        if not (len(toks) == len(r["tokens"]) + 32
-                and (0 <= toks).all() and (toks < cfg.vocab).all()):
-            fail(f"request {r['rid']}: malformed output {toks}")
+            fail(f"kernel {name} never launched in the default serving "
+                 f"configuration")
+    if not out_b["pipeline"]:
+        fail("the default configuration did not run the pipelined loop")
+
+    # (b) with the synchronous loop: the same tokens; its warm pass's
+    # summary separates the two-launch decode's share of (b)'s gain from
+    # the pipelined loop's
+    from repro_torch.launch.engine import ServeEngine
+    eng_bs = ServeEngine(model, params, paged_kernel=True, pipeline=False,
+                         **kw)
+    eng_bs.run(reqs)
+    eng_bs.reset()
+    res_sync = eng_bs.run(reqs)
+    s_bs = eng_bs.summary()
+    out["b_sync"] = {k: s_bs[k] for k in (
+        "tok_per_s", "ttft_s_mean", "itl_p50_s", "itl_p95_s",
+        "device_ms_mean", "host_ms_mean")}
+    diff = [r["rid"] for r in reqs
+            if not np.array_equal(res_sync[r["rid"]].tokens,
+                                  res_b[r["rid"]].tokens)]
+    out["b_pipelined_equals_sync"] = not diff
+    print(f"serving: (b) with pipeline=False {json.dumps(out['b_sync'])}; "
+          f"token-identical to (b): {not diff}")
+    if diff:
+        fail(f"(b) pipelined and synchronous tokens differ for {diff}")
+
+    out["alternating"] = alternate_passes(
+        {"a": (eng_a, "0"), "b": (eng_b, None), "b_sync": (eng_bs, None)},
+        reqs)
+    print("serving: alternating warm passes " + json.dumps(
+        out["alternating"]))
+
+    out["dispatch_syncs"] = count_dispatch_syncs(eng_b, reqs)
+    print("serving: synchronising calls in the dispatch half (b) "
+          + json.dumps(out["dispatch_syncs"]))
 
     # the reference routes (route 2 w_eff fake quant + gather attention):
     # teacher-forced on the served sequences (held), and free-running
     # (reported: on random weights one changed token changes every later
     # one, so free-running agreement measures divergence, not the path)
-    out["reference_agreement_teacher_forced"] = teacher_forced_reference(
-        model, params, reqs, res)
-    out["reference_agreement_free_running"] = agreement(
-        reqs, res, reference_run(model, params, reqs, kw))
+    for key, res in (("a", res_a), ("b", res_b)):
+        out[key]["reference_agreement_teacher_forced"] = \
+            teacher_forced_reference(model, params, reqs, res)
+    out["b"]["reference_agreement_free_running"] = agreement(
+        reqs, res_b, reference_run(model, params, reqs, kw))
     print("serving: token agreement with the reference routes " + json.dumps(
-        {k: out[k] for k in ("reference_agreement_teacher_forced",
-                             "reference_agreement_free_running")}))
-    if out["reference_agreement_teacher_forced"] < 0.9:
-        fail(f"teacher-forced agreement with the reference routes "
-             f"{out['reference_agreement_teacher_forced']} < 0.9")
+        {"a_teacher_forced":
+         out["a"]["reference_agreement_teacher_forced"],
+         "b_teacher_forced": out["b"]["reference_agreement_teacher_forced"],
+         "b_free_running": out["b"]["reference_agreement_free_running"]}))
+    for key in ("a", "b"):
+        agree = out[key]["reference_agreement_teacher_forced"]
+        if agree < 0.9:
+            fail(f"({key}) teacher-forced agreement with the reference "
+                 f"routes {agree} < 0.9")
     return out
 
 
@@ -433,6 +700,7 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{sorted(report)} (parallel nvcc)")
 
+    from repro_torch.kernels import decode_layer as L
     from repro_torch.kernels import fused_cat_matmul as F
     from repro_torch.kernels import paged_attention as P
     dev = torch.device("cuda")
@@ -457,16 +725,19 @@ def main() -> None:
             P.paged_attention_decode_plain,
             [(1, ln) for ln in (160, 1, 17, 64, 100, 33, 5, 128)], 1, card,
             gen, dev, decode=True),
+        "decode_qkv_prologue": check_prologue(card, gen, dev),
     }
     counters = [F.fused_cat_gemv_w4, F.fused_cat_matmul_w4,
-                P.paged_attention_ragged, P.paged_attention_decode]
+                P.paged_attention_ragged, P.paged_attention_decode,
+                L.decode_qkv_prologue]
     serving = serve(counters, card)
 
     # the summary: the main-path shape of each kernel (decode GEMV at 8
     # rows, the 128-row unified step, wgu's D=512 x N=3072), errors over
     # every checked shape
     pick = {"fused_cat_gemv_w4": dict(m=8, d=512, n=3072),
-            "fused_cat_matmul_w4": dict(m=128, d=512, n=3072)}
+            "fused_cat_matmul_w4": dict(m=128, d=512, n=3072),
+            "decode_qkv_prologue": dict(m=8)}
     sources = {
         "fused_cat_gemv_w4": ("src/repro_torch/csrc/fused_cat_matmul.cu",
                               "src/repro/kernels/fused_cat_matmul.py:235"),
@@ -476,6 +747,8 @@ def main() -> None:
                                    "src/repro/kernels/paged_attention.py:190"),
         "paged_attention_decode": ("src/repro_torch/csrc/paged_attention.cu",
                                    "src/repro/kernels/paged_attention.py:88"),
+        "decode_qkv_prologue": ("src/repro_torch/csrc/decode_layer.cu",
+                                "src/repro/kernels/decode_layer.py:162"),
     }
     kernels = []
     for name, recs in results.items():
@@ -487,7 +760,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": serving["launches"][name],
+            "launches": serving["b"]["launches"][name],
             "max_abs_err": max(r["max_err"] for r in recs),
             "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],

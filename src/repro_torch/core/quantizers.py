@@ -125,8 +125,31 @@ def dequantize(q, scale, zp, dtype=torch.float32):
 def fake_quant(x: torch.Tensor, spec: QuantSpec, scale=None,
                zp=None) -> torch.Tensor:
     """Quantize-dequantize in the input dtype (the analysis workhorse)."""
+    if (scale is None and not spec.symmetric and spec.range_p is None
+            and x.dtype in (torch.bfloat16, torch.float16)):
+        return _fake_quant_asym_lowp(x, spec)
     q, scale, zp = quantize(x, spec, scale, zp)
     return dequantize(q, scale, zp, x.dtype)
+
+
+def _fake_quant_asym_lowp(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Dynamic asymmetric fake quant of bf16/f16 ``x`` as the reference
+    computes it under ``jax.jit``: XLA folds ``range / n_levels`` into a
+    multiply by the f32 reciprocal, rounds that scale to ``x``'s dtype
+    only for the division, and dequantizes with the unrounded f32 scale.
+    Every other op rounds to ``x``'s dtype, as torch's low-precision ops
+    do."""
+    dims = _reduce_dims(x, spec)
+    xmin = _amin(x, dims)
+    rng = torch.clamp_min(_amax(x, dims) - xmin, _EPS)
+    recip = torch.tensor(1.0, dtype=torch.float32) / spec.n_levels
+    scale_f32 = rng.to(torch.float32) * recip.to(x.device)
+    scale = scale_f32.to(x.dtype)
+    zp = torch.round(-xmin / scale)
+    q = torch.clamp(torch.round(x / scale + zp), spec.qmin, spec.qmax)
+    q = q.to(_store_dtype(spec))
+    return ((q.to(torch.float32) - zp.to(torch.float32)) * scale_f32
+            ).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

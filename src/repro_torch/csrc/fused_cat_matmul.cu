@@ -23,10 +23,7 @@
 // still the larger stream (D/2 x N vs m x D x 2), so bytes bound both.
 // The design reads each weight byte once per M tile, keeps codes on chip,
 // and uses plain int32 FMAs (no wgmma yet).
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-#include <math.h>
+#include "transform_quant.cuh"
 
 namespace {
 
@@ -36,11 +33,6 @@ constexpr int kGemvSlices = 8;  // K-slices per GEMV CTA
 constexpr int kTM = 32, kTN = 64, kTK = 64;   // tiled contraction tile
 constexpr int kStage1Threads = 256;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
 __device__ __forceinline__ int lo_nibble(int byte) {
   return ((byte & 0xF) ^ 8) - 8;
 }
@@ -48,8 +40,8 @@ __device__ __forceinline__ int hi_nibble(int byte) {
   return (((byte >> 4) & 0xF) ^ 8) - 8;
 }
 
-// Stage 1: transform + dynamic per-token asymmetric quant of one row.
-// Dynamic shared memory: 2*d + a*a + b*b floats.
+// Stage 1: transform + dynamic per-token asymmetric quant of one row
+// (transform_quant.cuh). Dynamic shared memory: 2*d + a*a + b*b floats.
 template <typename T>
 __global__ void transform_quant_kernel(
     const T* __restrict__ x, int d, int k_pad,
@@ -67,76 +59,13 @@ __global__ void transform_quant_kernel(
   __shared__ float red_min[32], red_max[32];
   const int row = blockIdx.x;
   const int tid = threadIdx.x, nt = blockDim.x;
-  const T* xr = x + (size_t)row * d;
-  for (int i = tid; i < d; i += nt) s_x[i] = to_f32(xr[i]);
   for (int i = tid; i < a * a; i += nt) s_ha[i] = ha[i];
   for (int i = tid; i < b * b; i += nt) s_hb[i] = hb[i];
-  __syncthreads();
-  // block-diagonal CAT, then the elementwise sign
-  for (int i = tid; i < d; i += nt) {
-    float v;
-    if (blocks != nullptr) {
-      const int blk = i / bk, r = i - blk * bk;
-      const float* brow = blocks + ((size_t)blk * bk + r) * bk;
-      const float* xb = s_x + blk * bk;
-      float acc = 0.f;
-      for (int j = 0; j < bk; ++j) acc = fmaf(xb[j], brow[j], acc);
-      v = acc;
-    } else {
-      v = s_x[i];
-    }
-    s_y[i] = v * sign[i];
-  }
-  __syncthreads();
-  // Z = Y Hb^T on Y = y viewed (a, b)
-  for (int idx = tid; idx < d; idx += nt) {
-    const int i = idx / b, l = idx - i * b;
-    const float* yr = s_y + i * b;
-    const float* hr = s_hb + l * b;
-    float acc = 0.f;
-    for (int j = 0; j < b; ++j) acc = fmaf(yr[j], hr[j], acc);
-    s_x[idx] = acc;
-  }
-  __syncthreads();
-  // out[p*b + l] = sum_i Ha[p][i] Z[i][l], with the row's min and max
-  float lmin = INFINITY, lmax = -INFINITY;
-  for (int idx = tid; idx < d; idx += nt) {
-    const int p = idx / b, l = idx - p * b;
-    const float* hr = s_ha + p * a;
-    float acc = 0.f;
-    for (int i = 0; i < a; ++i) acc = fmaf(s_x[i * b + l], hr[i], acc);
-    s_y[idx] = acc;
-    lmin = fminf(lmin, acc);
-    lmax = fmaxf(lmax, acc);
-  }
-  for (int off = 16; off > 0; off >>= 1) {
-    lmin = fminf(lmin, __shfl_xor_sync(0xffffffffu, lmin, off));
-    lmax = fmaxf(lmax, __shfl_xor_sync(0xffffffffu, lmax, off));
-  }
-  const int warp = tid >> 5, lane = tid & 31, nwarps = (nt + 31) >> 5;
-  if (lane == 0) { red_min[warp] = lmin; red_max[warp] = lmax; }
-  __syncthreads();
-  float ymin = red_min[0], ymax = red_max[0];
-  for (int w = 1; w < nwarps; ++w) {
-    ymin = fminf(ymin, red_min[w]);
-    ymax = fmaxf(ymax, red_max[w]);
-  }
-  const float levels = (float)((1 << act_bits) - 1);
-  const float half = (float)(1 << (act_bits - 1));
-  const float scale = fmaxf(__fsub_rn(ymax, ymin), 1e-12f) / levels;
-  const float zp = rintf(-ymin / scale);
-  for (int k = tid; k < k_pad; k += nt) {
-    float q = 0.f;   // the K padding carries code 0 against zero weights
-    if (k < d) {
-      const float v = rintf(__fadd_rn(s_y[k] / scale, zp));
-      q = fminf(fmaxf(v, 0.f), levels) - half;
-    }
-    qx[(size_t)row * k_pad + k] = (int8_t)q;
-  }
-  if (tid == 0) {
-    sx[row] = scale;
-    zx[row] = zp - half;
-  }
+  tq::transform_quant_rows<T, 1>(x + (size_t)row * d, 1, d, k_pad, blocks,
+                                 bk, sign, s_ha, a, s_hb, b, act_bits, s_x,
+                                 s_y, red_min, red_max,
+                                 qx + (size_t)row * k_pad, sx + row,
+                                 zx + row);
 }
 
 __device__ __forceinline__ float epilogue(float sxv, float swv, int acc,

@@ -3,18 +3,38 @@
 The reference chooses between Pallas interpret mode and Mosaic codegen by
 backend and environment (``ops.py:32-60``). Here one device test decides,
 inside each kernel wrapper: a CUDA tensor launches the kernel, a CPU
-tensor takes the kernel's plain PyTorch version. This slice has no
-``use_fused_decode``: decode layers never take the QKV-prologue path.
+tensor takes the kernel's plain PyTorch version. ``use_fused_decode``
+decides, as the reference's does, whether decode layers take the
+two-launch path (``decode_qkv_prologue`` + paged attention).
 """
 from __future__ import annotations
 
+import os
+
 from repro_torch.core import transforms as T
 
+from .decode_layer import decode_qkv_prologue  # noqa: F401
 from .fused_cat_matmul import GEMV_M, fused_cat_gemv_w4, fused_cat_matmul_w4
 from .paged_attention import (paged_attention_decode,
                               paged_attention_fallback,
                               paged_attention_ragged,
                               paged_attention_ragged_fallback)
+
+_FALSY = ("", "0", "false", "no", "off")
+
+
+def use_fused_decode(device) -> bool:
+    """Whether decode layers on ``device`` route through the two-launch
+    fused path (``decode_qkv_prologue`` + paged attention).
+
+    ``REPRO_DECODE_FUSED`` overrides in both directions (``1`` enables it
+    on the CPU, where the kernels' plain versions run; ``0`` pins the
+    composed path); unset, it is on for CUDA devices and off on the CPU,
+    as the reference's is on its TPU and off elsewhere."""
+    env = os.environ.get("REPRO_DECODE_FUSED")
+    if env is not None:
+        return env.strip().lower() not in _FALSY
+    return getattr(device, "type", device) == "cuda"
 
 
 def fused_transform_operands(t):

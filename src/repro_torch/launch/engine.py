@@ -6,12 +6,19 @@ the reference's) packs up to ``max_batch_tokens`` of work — one decode
 token per running slot plus prefill chunks for admitting ones — into one
 ragged model invocation against the paged KV pool
 (``launch/executor.py``); plans that are pure decode run as one batched
-``model.decode`` instead. This slice runs the synchronous loop: dispatch,
-block on the step's token ids, observe.
+``model.decode`` instead (two launches per layer's attention block where
+``ops.use_fused_decode`` allows the decode prologue).
+
+The loop is pipelined at depth 1 by default, as the reference's: plan,
+pack and dispatch step N+1 while step N runs, then observe step N's
+tokens, rolling back step N+1's rows of any slot whose prediction failed
+(``TokenBudgetScheduler.observe(ahead=)``). ``pipeline=False``, or
+``REPRO_SYNC_STEP`` set with ``pipeline=None``, runs the synchronous
+loop: dispatch, block on the step's token ids, observe.
 
 The legacy prefill-on-admit schedule, prefix caching, speculative
-decoding, tensor-parallel meshes and the pipelined loop are later slices
-of the port and raise ``NotImplementedError``.
+decoding and tensor-parallel meshes are later slices of the port and
+raise ``NotImplementedError``.
 
 The engine runs on ``device`` (default ``"cuda"``); params are moved
 there. Without a CUDA device it raises unless ``device="cpu"`` was asked
@@ -19,13 +26,15 @@ for.
 """
 from __future__ import annotations
 
+import dataclasses
+import os
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.launch.executor import RaggedExecutor
+from repro_torch.launch.executor import RaggedExecutor, TokenFetch
 from repro_torch.launch.paged import PagePool, SlotPageTables
 from repro_torch.launch.scheduler import (RequestResult, Request, SeqState,
                                           TokenBudgetScheduler)
@@ -40,6 +49,16 @@ def resolve_device(device) -> torch.device:
         raise RuntimeError("no CUDA device found; pass device='cpu' (or "
                            "--device cpu) to run on the host")
     return dev
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """One dispatched-but-unobserved step: its plan, its token fetch, and
+    whether the token vector is slot-major (pure-decode fast path) or
+    consumer-row major (ragged step)."""
+    plan: object
+    toks: TokenFetch
+    slot_major: bool
 
 
 def _later_slice(what: str):
@@ -66,9 +85,6 @@ class ServeEngine:
         if schedule != "unified":
             raise ValueError(f"schedule must be 'legacy' or 'unified', "
                              f"got {schedule!r}")
-        if pipeline:
-            raise _later_slice("pipeline=True (the depth-1 asynchronous "
-                               "loop)")
         if prefix_cache:
             raise _later_slice("prefix_cache")
         if speculative_k or draft is not None:
@@ -86,7 +102,14 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.model = model
         self.schedule = schedule
-        self.pipeline = False
+        # depth-1 pipelined loop by default, as the reference's;
+        # REPRO_SYNC_STEP selects the synchronous loop when pipeline=None
+        if pipeline is None:
+            pipeline = not os.environ.get("REPRO_SYNC_STEP")
+        self.pipeline = bool(pipeline)
+        self._inflight: Optional[_InFlight] = None
+        self._host_s = 0.0      # host planning/pack/observe seconds
+        self._hidden_s = 0.0    # ... of which while a step was in flight
         self.n_slots, self.max_len, self.eos_id = n_slots, max_len, eos_id
         self.paged = True
         self.prefill_chunk, self.paged_kernel = prefill_chunk, paged_kernel
@@ -139,6 +162,8 @@ class ServeEngine:
                                "(drain the queue first)")
         self.step_count = 0
         self._next_rid = 0
+        self._inflight = None
+        self._host_s = self._hidden_s = 0.0
         self.exec.reset_pipeline()
         self.exec.n_dispatch = 0
         self.events = []
@@ -189,44 +214,107 @@ class ServeEngine:
         return self.pool.in_use * self._page_bytes
 
     def step(self) -> dict:
-        """One synchronous unified cycle: plan, dispatch, block on the
-        step's token ids, observe and retire."""
-        t0 = time.perf_counter()
+        """One unified engine cycle: plan one token-budgeted step, run it,
+        feed tokens back, retire (pipelined: one step ahead)."""
+        if self.pipeline:
+            return self._step_pipelined()
+        return self._step_sync()
+
+    def _plan_and_dispatch(self):
+        """Front half of a cycle: plan, account metrics and dispatch the
+        packed step without blocking. -> (plan, in_flight or None for an
+        empty plan)."""
         plan = self.sched.plan(self.step_count)
         for rid, slot in plan.admitted:
             self.events.append(("admit", rid, slot, self.step_count))
         self.metrics["queue_depth"].append(len(self._queue))
         self.metrics["occupancy"].append(len(self._active) / self.n_slots)
         self.metrics["resident_kv_bytes"].append(self.resident_kv_bytes())
-        if plan.n_tokens:
-            slot_major = bool(plan.decode and not plan.prefill
-                              and self.exec.supports_decode_step)
-            if slot_major:
-                # pure-decode fast path: one batched model.decode
-                tok, dpos, table, src = self.sched.pack_decode(plan)
-                dev_toks = self.exec.decode_step(tok, dpos, table, src)
-            else:
-                packed = self.sched.pack(plan, kernel_desc=self.paged_kernel)
-                dev_toks = self.exec.step(packed)
-            if plan.decode:
-                self.metrics["decode_steps"] += 1
-            td = time.perf_counter()
-            toks = dev_toks.cpu().numpy()     # blocks on the step
-            dev_s = time.perf_counter() - td
-            if slot_major:
-                toks = toks[[slot for slot, _, _ in plan.decode]]
-            gen_before = self.sched.gen_tokens
-            for seq in self.sched.observe(plan, toks, time.perf_counter()):
-                self._retire_seq(seq)
-            self.metrics["generated_tokens"] += (self.sched.gen_tokens
-                                                 - gen_before)
-            self.metrics["step_s"].append(time.perf_counter() - t0)
-            self.metrics["device_s"].append(dev_s)
-        self.step_count += 1
+        if not plan.n_tokens:
+            return plan, None
+        if (plan.decode and not plan.prefill
+                and self.exec.supports_decode_step):
+            # pure-decode fast path: one batched model.decode
+            tok, dpos, table, src = self.sched.pack_decode(plan)
+            inf = _InFlight(plan, self.exec.decode_step(tok, dpos, table,
+                                                        src), True)
+        else:
+            packed = self.sched.pack(plan, kernel_desc=self.paged_kernel)
+            inf = _InFlight(plan, self.exec.step(packed), False)
+        if plan.decode:
+            self.metrics["decode_steps"] += 1
+        return plan, inf
+
+    def _observe_tokens(self, inf: _InFlight, toks: np.ndarray,
+                        ahead=None) -> None:
+        """Back half: feed a step's fetched tokens through the scheduler
+        and retire what finished."""
+        plan = inf.plan
+        if inf.slot_major:
+            toks = toks[[slot for slot, _, _ in plan.decode]]
+        gen_before = self.sched.gen_tokens
+        retired = self.sched.observe(plan, toks, time.perf_counter(),
+                                     ahead=ahead)
+        self.metrics["generated_tokens"] += (self.sched.gen_tokens
+                                             - gen_before)
+        for seq in retired:
+            self._retire_seq(seq)
+
+    def _step_stats(self, plan) -> dict:
         return {"queue_depth": self.metrics["queue_depth"][-1],
                 "occupancy": self.metrics["occupancy"][-1],
                 "active": len(self._active),
                 "packed_tokens": plan.n_tokens}
+
+    def _step_sync(self) -> dict:
+        """The synchronous cycle: dispatch, block on the step's tokens,
+        observe — the device span is an honest blocked wait."""
+        t0 = time.perf_counter()
+        plan, inf = self._plan_and_dispatch()
+        if inf is not None:
+            td = time.perf_counter()
+            toks = inf.toks.result()
+            dev_s = time.perf_counter() - td
+            self._observe_tokens(inf, toks)
+            self.metrics["step_s"].append(time.perf_counter() - t0)
+            self.metrics["device_s"].append(dev_s)
+        self.step_count += 1
+        return self._step_stats(plan)
+
+    def _step_pipelined(self) -> dict:
+        """The depth-1 asynchronous cycle (reference ``engine.py:721``):
+        plan + pack + dispatch step N with decoding slots assumed to
+        continue (fed tokens injected on the card from step N-1's
+        vector), then wait for step N-1's tokens and observe them,
+        rolling back step N's rows of any slot whose prediction failed.
+        A (step_s, device_s) span is recorded only on cycles that observe
+        a step, device_s being the wait for its tokens."""
+        t0 = time.perf_counter()
+        prev = self._inflight
+        self._inflight = None
+        plan, inf = self._plan_and_dispatch()
+        if inf is not None:
+            self.sched.note_dispatch(inf.plan, slot_major=inf.slot_major)
+        seg = time.perf_counter() - t0
+        self._host_s += seg
+        if prev is not None:
+            self._hidden_s += seg       # packed under step N-1's compute
+        if prev is not None:
+            tw = time.perf_counter()
+            toks = prev.toks.result()
+            wait_s = time.perf_counter() - tw
+            t1 = time.perf_counter()
+            self._observe_tokens(prev, toks,
+                                 ahead=inf.plan if inf else None)
+            seg = time.perf_counter() - t1
+            self._host_s += seg
+            if inf is not None:
+                self._hidden_s += seg   # observed under step N's compute
+            self.metrics["step_s"].append(time.perf_counter() - t0)
+            self.metrics["device_s"].append(wait_s)
+        self._inflight = inf
+        self.step_count += 1
+        return self._step_stats(plan)
 
     def _retire_seq(self, seq: SeqState) -> None:
         rid = seq.req.rid
@@ -245,7 +333,11 @@ class ServeEngine:
 
     @property
     def idle(self) -> bool:
-        return not self._queue and not self._active
+        # an in-flight pipelined step keeps the engine busy even when
+        # every slot already retired (after an eos mispredict the last
+        # plan can be all-stale; one more cycle discards it)
+        return (not self._queue and not self._active
+                and self._inflight is None)
 
     def run(self, requests=None) -> dict:
         """Submit ``requests`` (dicts with tokens/max_new_tokens, see
@@ -314,7 +406,14 @@ class ServeEngine:
             "prefix_cache": False,
             "max_batch_tokens": self.max_batch_tokens,
             "packed_tokens_max": self.sched.packed_tokens_max,
-            "pipeline": False,
+            "pipeline": self.pipeline,
+            # share of host planning/pack/observe seconds spent while a
+            # step was in flight on the card (0.0 when synchronous)
+            "overlap_frac": (self._hidden_s / self._host_s
+                             if self._host_s else 0.0),
+            # hidden host milliseconds per observed step
+            "host_ms_hidden": (1e3 * self._hidden_s / len(dev_s)
+                               if dev_s else 0.0),
             "mispredicts": self.sched.mispredicts,
             "mesh": None,
         }

@@ -5,10 +5,11 @@ act quant, int8 paged KV pool) served by the unified engine.
     PYTHONPATH=src python -m repro_torch.launch.serve --arch catlm_60m \
         --requests 8 --n-slots 4 --gen 32 --mixed --kv-bits 8
 
-Runs on the CUDA device unless ``--device cpu`` is given. The reference
-CLI's flags are accepted; those of later slices (legacy schedule, mesh,
-prefix cache, speculative decoding, the pipelined loop) make the engine
-raise ``NotImplementedError``.
+Runs on the CUDA device unless ``--device cpu`` is given, through the
+depth-1 pipelined loop unless ``--no-pipeline`` (or ``REPRO_SYNC_STEP``)
+selects the synchronous one. The reference CLI's flags are accepted;
+those of later slices (legacy schedule, mesh, prefix cache, speculative
+decoding) make the engine raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def run_steady(engine: ServeEngine, requests, passes: int = 1) -> tuple:
     """Drain the workload ``1 + passes`` times through the same engine;
     the first pass warms up (allocator, kernel builds), then the fastest
     steady pass is reported with ``summary["compile_s"] = wall_first -
-    wall_best``."""
+    wall_best``. Every pass runs the engine's own loop (``pipeline``)."""
     engine.run(requests)
     wall_first = engine.summary()["wall_s"]
     best = None
@@ -111,10 +112,13 @@ def serve_benchmark(arch: str = "catlm_60m", batch: int = 4,
                     page_size: int = 16, prefill_chunk: int = 0,
                     max_len: int = 0, schedule: str = "unified",
                     max_batch_tokens: int = 0, warmup: int = 0,
-                    shared_prefix: int = 0, device="cuda", **later):
+                    shared_prefix: int = 0, device="cuda",
+                    pipeline: Optional[bool] = None, **later):
     """Quantize then serve a workload through the engine (see the
-    reference's ``serve_benchmark``). ``later`` carries options of later
-    slices (mesh, prefix_cache, speculative_k, pipeline) to the engine, which raises on them."""
+    reference's ``serve_benchmark``). ``pipeline`` selects the loop as
+    ``ServeEngine``'s does (None: pipelined unless REPRO_SYNC_STEP is
+    set). ``later`` carries options of later slices (mesh, prefix_cache,
+    speculative_k) to the engine, which raises on them."""
     cfg, model, params, mem = build_served_model(
         arch, transform, w_bits, a_bits, kv_bits, smoke, seed, device=device)
     n_requests = n_requests or batch
@@ -132,7 +136,7 @@ def serve_benchmark(arch: str = "catlm_60m", batch: int = 4,
                          page_size=page_size, prefill_chunk=prefill_chunk,
                          schedule=schedule,
                          max_batch_tokens=max_batch_tokens, device=device,
-                         **later)
+                         pipeline=pipeline, **later)
     if warmup:
         results, summary = run_steady(engine, requests, passes=int(warmup))
     else:
@@ -211,9 +215,12 @@ def main(argv=None) -> None:
                     help="a later slice of the port")
     ap.add_argument("--pipeline", default=None,
                     action=argparse.BooleanOptionalAction,
-                    help="the depth-1 asynchronous loop is a later slice; "
-                         "--no-pipeline (the default here) runs the "
-                         "synchronous loop")
+                    help="depth-1 asynchronous unified loop: pack + "
+                         "dispatch step N+1 while N runs on device "
+                         "(token-identical; default ON for --schedule "
+                         "unified unless REPRO_SYNC_STEP is set); "
+                         "--no-pipeline forces the synchronous loop with "
+                         "blocked per-step timing spans")
     ap.add_argument("--full-config", action="store_true")
     ap.add_argument("--device", default="cuda",
                     help="torch device to serve on (default cuda; cpu only "
@@ -227,8 +234,6 @@ def main(argv=None) -> None:
         later["prefix_cache"] = True
     if args.speculative or args.adaptive_spec:
         later["speculative_k"] = args.speculative or 1
-    if args.pipeline:
-        later["pipeline"] = True
     out = serve_benchmark(arch=args.arch, batch=args.batch,
                           prompt_len=args.prompt_len, gen=args.gen,
                           transform=args.transform, w_bits=args.w_bits,
@@ -239,8 +244,11 @@ def main(argv=None) -> None:
                           schedule=args.schedule,
                           max_batch_tokens=args.max_batch_tokens,
                           shared_prefix=args.shared_prefix,
-                          device=args.device, **later)
+                          device=args.device, pipeline=args.pipeline,
+                          **later)
     eng = out["engine"]
+    pipe = (f", pipelined {eng['overlap_frac']:.0%} overlap"
+            if eng["pipeline"] else ", sync")
     print(f"{out['arch']} [{out['transform']}] on {eng['device']}: "
           f"{out['tok_per_s']:.1f} tok/s ({out['wall_s']:.2f}s wall) | "
           f"{eng['n_requests']} reqs on {eng['n_slots']} slots, "
@@ -248,7 +256,7 @@ def main(argv=None) -> None:
           f"occupancy {eng['occupancy_mean']:.2f}, "
           f"kv={'int8' if eng['quantized_kv'] else 'fp'}, "
           f"unified[{eng['max_batch_tokens']}t budget, "
-          f"itl p95 {eng['itl_p95_s'] * 1e3:.0f}ms, sync]")
+          f"itl p95 {eng['itl_p95_s'] * 1e3:.0f}ms{pipe}]")
     if out.get("qlinear_layers"):
         kind = "int4-packed" if out["packed_int4"] else "int8"
         print(f"  weights: {out['weight_bytes'] / 2**20:.2f} MiB across "

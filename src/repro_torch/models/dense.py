@@ -7,7 +7,10 @@ catlm family: no sliding window, softcaps, qk-norm, sandwich norms or vlm
 prefix. A cache with a ``page_table`` is a paged KV pool ((L, n_pages,
 page_size, KV, hd) tensors, updated in place). ``paged_kernel`` routes
 single-row attention on int8 pools through the paged-attention kernels:
-the ragged one when a ``ragged_desc`` is given, the decode one otherwise.
+the ragged one when a ``ragged_desc`` is given, the decode one otherwise
+— and, where ``ops.use_fused_decode`` allows it, a pure-decode layer's
+attention block through the two-launch path (``decode_qkv_prologue`` +
+decode attention).
 """
 from __future__ import annotations
 
@@ -16,9 +19,9 @@ import math
 import torch
 
 from repro_torch.core import qlinear
-from repro_torch.models.layers import (activation, chunked_attention,
-                                       fake_quant_kv, gather_pages,
-                                       paged_cache_update,
+from repro_torch.models.layers import (_paged_indices, activation,
+                                       chunked_attention, fake_quant_kv,
+                                       gather_pages, paged_cache_update,
                                        paged_cache_update_quantized,
                                        rms_norm, rope)
 
@@ -109,12 +112,11 @@ def _paged_attention(cfg, q, k, v, cache_sl, page_table, pos, s,
     return o.reshape(b, 1, -1), None, None
 
 
-def _layer_body(cfg, x, lp, cache_sl, pos, positions, taps=None,
-                layer_idx=None, page_table=None, paged_kernel=False,
-                ragged_desc=None):
-    b, s, _ = x.shape
-    h = rms_norm(x, lp["ln1"])
-    _tap(taps, layer_idx, "attn_in", h)
+def _attention(cfg, lp, h, cache_sl, pos, positions, page_table,
+               paged_kernel, ragged_desc):
+    """The composed attention block: QKV projection, RoPE, KV write (or
+    fake quant without a cache) and attention. -> o (B, S, Hq·hd)."""
+    b, s, _ = h.shape
     if "wqkv" in lp:
         qkv = qlinear.dense(lp["wqkv"], h)
         hq, hkv = cfg.q_dim, cfg.kv_dim
@@ -146,6 +148,81 @@ def _layer_body(cfg, x, lp, cache_sl, pos, positions, taps=None,
     if o is None:
         o = chunked_attention(q, k_att, v_att,
                               q_positions=positions).reshape(b, s, -1)
+    return o
+
+
+def _fused_decode_operands(cfg, lp, cache_sl, s, b, ragged_desc,
+                           page_table, paged_kernel, device):
+    """Two-launch decode gate (the reference's ``dense.py:92``): returns
+    (wqkv QLinear, (blocks, ha, hb, sign)) when this layer's attention
+    block can run the QKV prologue + paged attention, else None.
+
+    The prologue covers single-token rows (s == 1, B <= 8) on int8 paged
+    pools, with a concatenated QKV QLinear with act bits whose transform
+    ``fused_transform_operands`` decomposes; mixed-q_len (ragged) steps
+    keep the composed path. ``ops.use_fused_decode`` decides the routing
+    (on for CUDA devices, ``REPRO_DECODE_FUSED`` overrides)."""
+    if not (paged_kernel and s == 1 and ragged_desc is None
+            and page_table is not None and cache_sl is not None
+            and "k_scale" in cache_sl and bool(cfg.kv_quant_bits)
+            and b <= 8):
+        return None
+    p = lp.get("wqkv")
+    if not isinstance(p, qlinear.QLinear) or not p.act_bits:
+        return None
+    from repro_torch.kernels import ops
+    if not ops.use_fused_decode(device):
+        return None
+    dec = ops.fused_transform_operands(p.transform)
+    if dec is None:
+        return None
+    return p, dec
+
+
+def _fused_decode_attn(cfg, fd, h, cache_sl, page_table, pos, b):
+    """The two-launch decode attention block: the prologue (CAT -> quant
+    -> W4A8 QKV GEMV -> RoPE -> int8 KV quant -> paged scatter into the
+    layer's pools, in place) feeding the paged decode attention.
+    Returns o (B, 1, Hq·hd) in h's dtype."""
+    from repro_torch.kernels import ops
+    p, (blocks, ha, hb, sign) = fd
+    cd = h.dtype
+    if torch.is_tensor(pos) and pos.ndim:
+        pos_vec = pos.to(torch.int32)
+    else:
+        pos_vec = torch.full((b,), int(pos), dtype=torch.int32,
+                             device=h.device)
+    pids, rows = _paged_indices(page_table, pos_vec, b, 1,
+                                cache_sl["k"].shape[1])
+    q, ck, cks, cv, cvs = ops.decode_qkv_prologue(
+        h.reshape(b, -1), blocks, ha, hb, sign, p.qweight, p.scale,
+        cache_sl["k"], cache_sl["k_scale"], cache_sl["v"],
+        cache_sl["v_scale"], pids, rows, pos_vec, n_q=cfg.q_dim,
+        head_dim=cfg.head_dim, rope_theta=float(cfg.rope_theta),
+        kv_bits=cfg.kv_quant_bits, act_bits=p.act_bits, packed=p.packed)
+    kvh = ck.shape[2]
+    qk = q.to(cd).reshape(b, kvh, cfg.q_dim // cfg.head_dim // kvh,
+                          cfg.head_dim)
+    o = ops.paged_attention(qk, ck, cks, cv, cvs, page_table, pos_vec + 1)
+    return o.reshape(b, 1, -1).to(cd)
+
+
+def _layer_body(cfg, x, lp, cache_sl, pos, positions, taps=None,
+                layer_idx=None, page_table=None, paged_kernel=False,
+                ragged_desc=None):
+    b, s, _ = x.shape
+    h = rms_norm(x, lp["ln1"])
+    _tap(taps, layer_idx, "attn_in", h)
+    fd = _fused_decode_operands(cfg, lp, cache_sl, s, b, ragged_desc,
+                                page_table, paged_kernel, h.device)
+    if fd is not None:
+        # two-launch decode: the prologue replaces the QKV projection,
+        # RoPE, KV quant and scatter below; its numerics are the integer-
+        # accumulation route's (the kernels'), as in the reference
+        o = _fused_decode_attn(cfg, fd, h, cache_sl, page_table, pos, b)
+    else:
+        o = _attention(cfg, lp, h, cache_sl, pos, positions, page_table,
+                       paged_kernel, ragged_desc)
     _tap(taps, layer_idx, "o_in", o)
     x = x + qlinear.dense(lp["wo"], o)
 
@@ -181,9 +258,10 @@ def forward(cfg, params, tokens, *, cache=None, taps=None,
     with ``cache`` (paged pools + ``pos`` int or (B,) + ``page_table``)
     k/v are written at [pos, pos+S) before attention."""
     cd = compute_dtype(cfg)
+    # a 0-dim host tensor enters a device op as a scalar: no copy, no sync
     scale = torch.tensor(math.sqrt(float(cfg.d_model)),
                          dtype=torch.float32).to(cd)
-    x = params["embed"][tokens.long()].to(cd) * scale.to(tokens.device)
+    x = params["embed"][tokens.long()].to(cd) * scale
     b, s, _ = x.shape
     pos = cache["pos"] if cache is not None else 0
     steps = torch.arange(s, dtype=torch.int32, device=x.device)

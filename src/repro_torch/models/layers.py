@@ -30,12 +30,18 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     return out.to(dt)
 
 
+def rope_freq(head_dim: int, theta: float, device) -> torch.Tensor:
+    """RoPE's (head_dim // 2,) f32 inverse frequencies."""
+    half = head_dim // 2
+    return theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                   device=device) / half)
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     """x: (B, S, H, hd), positions: (B, S) or (S,) absolute positions."""
     hd = x.shape[-1]
     half = hd // 2
-    freq = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                   device=x.device) / half)
+    freq = rope_freq(hd, theta, x.device)
     if positions.ndim == 1:
         positions = positions[None, :]
     ang = positions.to(torch.float32)[:, :, None] * freq[None, None, :]
@@ -61,7 +67,7 @@ def chunked_attention(q: torch.Tensor, k, v, *, q_positions: torch.Tensor,
     skv, kvh = k_arr.shape[1], k_arr.shape[2]
     g = h // kvh
     cd = q.dtype
-    qf = (q * torch.tensor(hd ** -0.5, dtype=cd, device=q.device)
+    qf = (q * torch.tensor(hd ** -0.5, dtype=cd)    # host scalar: no sync
           ).reshape(b, sq, kvh, g, hd).to(torch.float32)
     c = min(kv_chunk, skv)
     qp = q_positions if q_positions.ndim == 2 else q_positions[None, :]

@@ -9,15 +9,21 @@ stepped in lockstep. The reference is the live engine in the same test
 
 - Scheduler plans and page tables are equal after every step.
 - Tokens are exactly equal on an f32 copy of the config.
-- In bf16 (fp and int8_kv, the latter also with ``paged_kernel=True``),
-  token agreement over the request sequences is >= 0.9 — the bar the JAX
-  suite uses for its rtol-level paths (``tests/test_unified_engine.py``).
+- In bf16 (fp, int8_kv and w4_packed on the default route 2; int8_kv
+  also with ``paged_kernel=True``), token agreement over the request
+  sequences is >= 0.9 — the bar the JAX suite uses for its rtol-level
+  paths (``tests/test_unified_engine.py``). Route 2's bf16 activation
+  fake quant follows the jitted reference (``core/quantizers.py``).
 - w4_packed with ``paged_kernel=True``, and with route 1 forced through
   the fused kernels' plain versions, is held at exact token equality in
   f32. In bf16 this random-init model's 4-bit activation quant turns
   one-ulp differences into different tokens (the reference's own ragged
-  kernel and gather paths disagree there), so bf16 w4_packed is not
-  held to the 0.9 bar; ROADMAP.md Queue 3 records the gap.
+  kernel and gather paths disagree there), so bf16 w4_packed with
+  ``paged_kernel=True`` is not held to the 0.9 bar; ROADMAP.md Queue 3
+  records the gap.
+- With ``REPRO_DECODE_FUSED=1`` on both sides, pure-decode steps take
+  the two-launch decode (QKV prologue + paged attention) and the f32
+  tokens stay exact.
 - PTQ: the port's ``quantize_model`` on the same fp params and calibration
   batches gives weight codes equal to the reference's on >= 99 % of
   entries and scales at rtol 1e-4 on >= 99 % of channels (eigh differs
@@ -121,7 +127,7 @@ def test_engine_f32_tokens_equal_live_jax(cases, name, kw):
                                       err_msg=f"{name} rid={r['rid']}")
 
 
-@pytest.mark.parametrize("name", ["fp", "int8_kv"])
+@pytest.mark.parametrize("name", ["fp", "int8_kv", "w4_packed"])
 def test_engine_bf16_agrees_with_live_jax(cases, name):
     reqs, jres, tres, _ = _serve_both(cases, name, max_batch_tokens=6,
                                       page_size=8)
@@ -147,6 +153,35 @@ def test_engine_paged_kernel_f32_tokens_equal_live_jax(cases):
     for r in reqs:
         np.testing.assert_array_equal(tres[r["rid"]].tokens,
                                       jres[r["rid"]].tokens)
+
+
+def test_engine_fused_decode_f32_tokens_equal_live_jax(cases, monkeypatch):
+    """The two-launch decode on both sides (``REPRO_DECODE_FUSED=1``,
+    ``paged_kernel=True``): pure-decode steps run the QKV prologue — the
+    reference's Pallas kernel in interpret mode, the port's plain version
+    — and paged decode attention. Plans, page tables and tokens exact in
+    f32 on the golden workload (4 requests)."""
+    from repro.kernels import ops as jops
+    from repro_torch.kernels import ops
+    monkeypatch.setenv("REPRO_DECODE_FUSED", "1")
+    counts = {}
+    for mod, key in ((jops, "jax"), (ops, "port")):
+        real = mod.decode_qkv_prologue
+        counts[key] = 0
+
+        def counted(*a, _real=real, _key=key, **kw):
+            counts[_key] += 1
+            return _real(*a, **kw)
+        monkeypatch.setattr(mod, "decode_qkv_prologue", counted)
+    reqs, jres, tres, teng = _serve_both(
+        cases, "w4_packed", dtype="float32", max_batch_tokens=8,
+        page_size=8, paged_kernel=True)
+    for r in reqs:
+        np.testing.assert_array_equal(tres[r["rid"]].tokens,
+                                      jres[r["rid"]].tokens)
+    # both engines took the two-launch decode (the JAX count is per trace)
+    assert counts["jax"] > 0 and counts["port"] > 0
+    assert counts["port"] % teng.model.cfg.n_layers == 0
 
 
 def test_engine_route1_forced_f32_tokens_equal_live_jax(cases, monkeypatch):
@@ -235,7 +270,7 @@ def test_engine_scope_and_device_rules():
     cfg = tconfigs.get_config("catlm_60m").smoke().scaled(kv_quant_bits=8)
     model = t_build(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    for kw in (dict(schedule="legacy"), dict(pipeline=True),
+    for kw in (dict(schedule="legacy"),
                dict(prefix_cache=True), dict(speculative_k=2),
                dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="later slice"):
@@ -253,7 +288,7 @@ def test_engine_scope_and_device_rules():
     s = eng.summary()
     assert s["schedule"] == "unified" and s["device"] == "cpu"
     assert s["generated_tokens"] == 6 and s["n_requests"] == 3
-    assert s["packed_tokens_max"] <= 8 and s["pipeline"] is False
+    assert s["packed_tokens_max"] <= 8 and s["pipeline"] is True
     assert eng.pool.in_use == 0
     eng.reset()
     assert eng.summary()["n_requests"] == 0
