@@ -9,13 +9,15 @@ Phases (any failure exits non-zero before the final line):
              and power limit as ``nvidia-smi`` reports them.
 2. build   — compile every CUDA kernel of the serving path from
              ``src/repro_torch/csrc`` (one ``nvcc`` per source, in parallel).
-3. kernels — each kernel (the fused CAT linear's two entry points, both
-             paged attentions, the decode QKV prologue) at the serving
-             path's shapes against its plain PyTorch version on the same
-             card, with its stated tolerance,
-             its time, its plain version's time and its lower bound
-             (bytes over 3.35 TB/s or operations over the peak rate for
-             their type, H100 SXM data sheet).
+3. kernels — each of the eleven kernels (the fused CAT linear's two
+             entry points, both paged attentions, the decode QKV prologue,
+             and the composed linear's block-CAT, Hadamard, dynamic quant
+             and three code contractions) at its path's shapes against its
+             plain PyTorch version on the same card, with its stated
+             tolerance, its time, its plain version's time, its lower
+             bound (bytes over 3.35 TB/s or operations over the peak rate
+             for their type, H100 SXM data sheet) and, where one PyTorch
+             call computes the same function, that call's time.
 4. serving — full-width catlm-60m (8 layers, d 512, 8/4 heads, d_ff 1536,
              vocab 8192), seeded random init, CAT W4A4 int4-packed PTQ on
              the card, 8 mixed requests (32 new tokens each) through the
@@ -35,6 +37,13 @@ Phases (any failure exits non-zero before the final line):
              free-running through the reference routes is reported too: on
              random weights one different token changes every later one,
              so that number measures divergence more than the path.
+5. composed — ``ops.cat_transform_matmul`` (block-CAT -> Hadamard ->
+             dynamic quant -> W4A8 GEMV / tiled or W8A8 contraction, four
+             launches) on all 32 serving linears of the served CAT-W4A4
+             params and of a CAT-W8A4 PTQ of the same seeded model, at 8
+             and 128 rows: bf16 against the plain composition, f32 against
+             the fused linear, each timed beside the fused linear. All six
+             of its kernels must have launched in its counted pass.
 
 The second line from the end is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -62,6 +71,8 @@ GEMV_ROWS = (4, 8)            # decode steps run n_slots = 8 rows
 TILED_ROWS = (64, 128, 256)   # the unified step packs 128 rows
 CAT_BLOCK = 32                # min(cfg.cat_block, 32), as the PTQ uses
 PROLOGUE_N = 1024             # wqkv columns: 8 q + 4 k + 4 v heads of 64
+COMPOSED_ROWS = (8, 128)      # the composed linear at decode and step rows
+SERVING_LINEARS = ("wqkv", "wo", "wgu", "wd")
 
 
 def fail(msg: str) -> None:
@@ -355,6 +366,199 @@ def check_prologue(card, gen, dev):
         if not ok:
             fail(f"decode_qkv_prologue m={m}: {json.dumps(rec)}")
         out.append(rec)
+    return out
+
+
+def bf16_close(got, want):
+    """Float outputs in x's dtype: within one bf16 unit of each value
+    (2^-7 relative) plus 1e-5 of the output's scale for f32 dot
+    association. -> (max abs error, share bitwise, ok)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool((err <= 2 ** -7 * w.abs() + 1e-5 * w.abs().max()).all())
+    return err.max().item(), (err == 0).float().mean().item(), ok
+
+
+def usable(library):
+    """``library`` when one call of it runs on this card, else None (the
+    yardstick is then reported as missing; the port never calls it)."""
+    import torch
+    try:
+        library()
+        torch.cuda.synchronize()
+    except RuntimeError as exc:
+        print(f"library call unavailable: {exc}".splitlines()[0])
+        return None
+    return library
+
+
+def stage_operands(m, d, gen, dev):
+    """Activation rows and the CAT stage operands at the path's shapes."""
+    import torch
+
+    from repro_torch.core.hadamard import hadamard_factors
+    x = torch.randn((m, d), generator=gen).to(torch.bfloat16)
+    blocks = (torch.randn((d // CAT_BLOCK, CAT_BLOCK, CAT_BLOCK),
+                          generator=gen) * 0.2 + torch.eye(CAT_BLOCK))
+    ha, hb = (torch.tensor(h, dtype=torch.float32)
+              for h in hadamard_factors(d))
+    sign = torch.randint(0, 2, (d,), generator=gen).float() * 2 - 1
+    return [t.to(dev) for t in (x, blocks, ha, hb, sign)]
+
+
+def timed_record(name, shape, run, plain, library, nbytes, op_seconds,
+                 card, checks):
+    """Times of one kernel call at one shape (device ms by CUDA-graph
+    replay, the plain version's, and the library call's where there is
+    one) with its bound, merged with the comparison ``checks``."""
+    ms, per_call = device_ms(run), call_ms(run)
+    plain_ms = device_ms(plain)
+    b_ms, b_by = bound(nbytes, op_seconds)
+    rec = {"kernel": name, **shape, **checks, "kernel_ms": ms,
+           "call_ms": per_call, "plain_ms": plain_ms,
+           "library_ms": None if library is None else device_ms(library),
+           "bound_ms": b_ms, "bound_by": b_by, "card": card}
+    print(json.dumps(rec))
+    return rec
+
+
+def check_stages(card, gen, dev):
+    """Block-CAT, sign ⊙ Hadamard and dynamic quant (rows 11, 10, 9) at
+    the composed path's shapes (8 and 128 rows, D 512 and 1536, bf16)
+    against their plain versions. Tolerances: block-CAT and Hadamard
+    outputs within one bf16 unit plus 1e-5 of the scale (f32 dot
+    association); dynamic quant codes, scales and zero points bitwise.
+    Library calls: ``torch.bmm`` on the blocked f32 view for block-CAT, one
+    ``torch.matmul`` against the materialised diag(sign)·(ha ⊗ hb)ᵀ for
+    the Hadamard; none for the quant."""
+    import torch
+
+    from repro_torch.kernels import block_matmul as B
+    from repro_torch.kernels import dynamic_quant as DQ
+    from repro_torch.kernels import hadamard as H
+    out = {"block_diag_matmul": [], "hadamard_transform": [],
+           "dynamic_quant": []}
+    for d in (512, 1536):
+        for m in COMPOSED_ROWS:
+            x, blocks, ha, hb, sign = stage_operands(m, d, gen, dev)
+            shape = {"m": m, "d": d}
+            a, b = ha.shape[0], hb.shape[0]
+            # block-CAT
+            err, same, ok = bf16_close(B.block_diag_matmul(x, blocks),
+                                       B.block_diag_matmul_plain(x, blocks))
+            xb = x.float().reshape(m, d // CAT_BLOCK, CAT_BLOCK
+                                   ).transpose(0, 1).contiguous()
+            bt = blocks.transpose(1, 2).contiguous()
+            out["block_diag_matmul"].append(timed_record(
+                "block_diag_matmul", shape,
+                lambda: B.block_diag_matmul(x, blocks),
+                lambda: B.block_diag_matmul_plain(x, blocks),
+                lambda: torch.bmm(xb, bt),
+                4 * m * d + 4 * d * CAT_BLOCK,
+                2 * m * d * CAT_BLOCK / F32_FLOP_S, card,
+                {"max_err": err, "bitwise_share": same,
+                 "tol": "one bf16 unit + 1e-5 of scale",
+                 "library": "torch.bmm on the blocked f32 view"}))
+            if not ok:
+                fail(f"block_diag_matmul m={m} d={d}: max error {err}")
+            # sign ⊙ Hadamard
+            err, same, ok = bf16_close(
+                H.hadamard_transform(x, ha, hb, sign),
+                H.hadamard_transform_plain(x, ha, hb, sign))
+            dense = (sign[:, None] * torch.kron(ha, hb).T).contiguous()
+            xf = x.float()
+            out["hadamard_transform"].append(timed_record(
+                "hadamard_transform", shape,
+                lambda: H.hadamard_transform(x, ha, hb, sign),
+                lambda: H.hadamard_transform_plain(x, ha, hb, sign),
+                lambda: torch.matmul(xf, dense),
+                4 * m * d + 4 * (a * a + b * b + d),
+                2 * m * d * (a + b) / F32_FLOP_S, card,
+                {"max_err": err, "bitwise_share": same,
+                 "tol": "one bf16 unit + 1e-5 of scale",
+                 "library": "torch.matmul against diag(sign)(ha kron hb)^T"
+                 " on an f32 copy of x"}))
+            if not ok:
+                fail(f"hadamard_transform m={m} d={d}: max error {err}")
+            # dynamic quant (the Hadamard output, as on the path)
+            y = H.hadamard_transform(x, ha, hb, sign)
+            got = DQ.dynamic_quant(y, 4)
+            want = DQ.dynamic_quant_plain(y, 4)
+            diffs = [int((g != w).sum().item()) for g, w in zip(got, want)]
+            out["dynamic_quant"].append(timed_record(
+                "dynamic_quant", shape, lambda: DQ.dynamic_quant(y, 4),
+                lambda: DQ.dynamic_quant_plain(y, 4), None,
+                3 * m * d + 8 * m, 6 * m * d / F32_FLOP_S, card,
+                {"max_err": (got[0].int() - want[0].int()).abs().max()
+                 .item(), "codes_scales_zps_differing": diffs,
+                 "tol": "bitwise"}))
+            if any(diffs):
+                fail(f"dynamic_quant m={m} d={d}: {diffs} codes/scales/zps "
+                     f"differ from the plain version")
+    return out
+
+
+def contraction_operands(m, k, n, gen, dev, packed):
+    """4-bit activation codes with their scales and zero points, and int4
+    (packed) or int8 weight codes with per-channel scales."""
+    import torch
+
+    from repro_torch.core.quantizers import pack_int4
+    qx = torch.randint(-8, 8, (m, k), generator=gen, dtype=torch.int8)
+    sx = torch.rand((m, 1), generator=gen) * 0.02 + 0.001
+    zx = torch.randint(-8, 8, (m, 1), generator=gen).float()
+    if packed:
+        w = torch.randint(-8, 8, (k, n), generator=gen, dtype=torch.int8)
+        qw = pack_int4(w, axis=0)
+    else:
+        w = torch.randint(-127, 128, (k, n), generator=gen,
+                          dtype=torch.int8)
+        qw = w
+    sw = torch.rand((1, n), generator=gen) * 0.02 + 0.001
+    return [t.to(dev) for t in (qx, sx, zx, qw, sw)], w.to(dev)
+
+
+def check_contractions(card, gen, dev):
+    """The code contractions (rows 6, 7, 8) at every main-path (D, N):
+    ``quant_gemv_w4`` at 8 rows, ``quant_matmul_w4`` at 128, W8A8
+    ``quant_matmul`` at both, against their plain versions at rtol 1e-5 of
+    the output's scale (both accumulate exact integers and apply the
+    epilogue once). Library: ``torch._int_mm`` of the codes against the
+    unpacked int8 weight, which covers the integer product only (no
+    nibble unpacking, no epilogue); it needs more than 16 rows."""
+    import torch
+
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels import quant_matmul_w4 as QW
+    cases = [("quant_gemv_w4", QW.quant_gemv_w4, QW.quant_matmul_w4_plain,
+              True, (8,)),
+             ("quant_matmul_w4", QW.quant_matmul_w4,
+              QW.quant_matmul_w4_plain, True, (128,)),
+             ("quant_matmul", QM.quant_matmul, QM.quant_matmul_plain, False,
+              COMPOSED_ROWS)]
+    out = {name: [] for name, *_ in cases}
+    for name, run, plain, packed, rows in cases:
+        for k, n in LINEAR_SHAPES:
+            for m in rows:
+                args, w = contraction_operands(m, k, n, gen, dev, packed)
+                got, want = run(*args), plain(*args)
+                err = (got - want).abs().max().item()
+                tol = 1e-5 * want.abs().max().item()
+                library = None
+                if m > 16:
+                    library = usable(lambda a=args[0], b=w:
+                                     torch._int_mm(a, b))
+                w_bytes = k * n // 2 if packed else k * n
+                out[name].append(timed_record(
+                    name, {"m": m, "d": k, "n": n},
+                    lambda: run(*args), lambda: plain(*args), library,
+                    m * k + w_bytes + 4 * n + 8 * m + 4 * m * n,
+                    2 * m * k * n / INT8_OP_S, card,
+                    {"max_err": err, "tol": tol,
+                     "library": None if library is None else
+                     "torch._int_mm: the integer product only"}))
+                if not err <= tol:
+                    fail(f"{name} m={m} k={k} n={n}: max error {err} > {tol}")
     return out
 
 
@@ -675,6 +879,145 @@ def serve(counters, card):
         if agree < 0.9:
             fail(f"({key}) teacher-forced agreement with the reference "
                  f"routes {agree} < 0.9")
+    return out, model, params
+
+
+def composed_plain(x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
+    """The composed linear through the six plain versions -> (y in x's
+    dtype, codes, scales, zero points)."""
+    from repro_torch.kernels import block_matmul as B
+    from repro_torch.kernels import dynamic_quant as DQ
+    from repro_torch.kernels import hadamard as H
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels import quant_matmul_w4 as QW
+    y = H.hadamard_transform_plain(B.block_diag_matmul_plain(x, blocks),
+                                   ha, hb, sign)
+    q, sx, zx = DQ.dynamic_quant_plain(y, act_bits)
+    run = QW.quant_matmul_w4_plain if packed else QM.quant_matmul_plain
+    return run(q, sx, zx, qw, sw).to(x.dtype), q, sx, zx
+
+
+def composed_phase(model, params_w4, counters, card, gen):
+    """The composed linear ``ops.cat_transform_matmul`` (four launches:
+    block-CAT, Hadamard, dynamic quant, contraction) on every one of the
+    32 serving linears of full-width catlm-60m (wqkv, wo, wgu, wd of 8
+    layers), for the served CAT-W4A4 int4-packed params and a CAT-W8A4
+    PTQ (int8 codes) of the same seeded model, at 8 and 128 rows of
+    activations made from a seed (N(0, 1) in bf16). The counted pass runs
+    every call in bf16 and in f32 with the six counters set to 0 just
+    before; then each bf16 call is held against the plain composition
+    (dequantized codes q - zp within one step on <= 1 % of entries — a
+    one-ulp difference of a bf16 intermediate may move a code — and each
+    output within its row's moved steps, sx·max(sw)·max|w| each, plus one
+    bf16 unit and 1e-5 of the scale), each f32 call against
+    ``ops.fused_cat_matmul`` (two activation-code steps, as
+    ``check_fused_linear`` states), and each call is timed beside the
+    fused linear (device ms)."""
+    import torch
+
+    from repro_torch.kernels import block_matmul as B
+    from repro_torch.kernels import dynamic_quant as DQ
+    from repro_torch.kernels import hadamard as H
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import build_served_model
+    t0 = time.perf_counter()
+    _, _, params_w8, _ = build_served_model(
+        "catlm_60m", "cat", 8, 4, 8, smoke=False, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    ptq8_s = time.perf_counter() - t0
+    linears = []
+    for bits, params in (("w4", params_w4), ("w8", params_w8)):
+        served = model.make_serving_params(params, keep_packed=True)
+        for li, lp in enumerate(served["layers"]):
+            for name in SERVING_LINEARS:
+                ql = lp[name]
+                dec = ops.fused_transform_operands(ql.transform)
+                if dec is None or dec[0] is None:
+                    fail(f"{bits} layer {li} {name}: transform "
+                         f"{type(ql.transform).__name__} has no block-CAT")
+                if ql.packed != (bits == "w4"):
+                    fail(f"{bits} layer {li} {name}: packed={ql.packed}")
+                linears.append((bits, li, name, ql, dec))
+    if len(linears) != 2 * 32:
+        fail(f"composed phase found {len(linears)} linears, expected 64")
+    xs = {d: torch.randn((max(COMPOSED_ROWS), d), generator=gen)
+          .to(torch.bfloat16).cuda() for d in (512, 1536)}
+
+    def call(x, ql, dec):
+        return ops.cat_transform_matmul(x, *dec, ql.qweight, ql.scale,
+                                        act_bits=ql.act_bits,
+                                        packed_int4=ql.packed)
+
+    # the counted pass
+    for fn in counters:
+        fn.launches = 0
+    runs = []
+    for bits, li, name, ql, dec in linears:
+        for m in COMPOSED_ROWS:
+            x = xs[ql.d_in if ql.packed else ql.qweight.shape[0]][:m]
+            runs.append((bits, li, name, ql, dec, x, call(x, ql, dec),
+                         call(x.float(), ql, dec)))
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    print("composed: counted pass launches " + json.dumps(launches))
+    for fn_name, n in launches.items():
+        if n <= 0:
+            fail(f"kernel {fn_name} never launched in the composed phase")
+
+    recs = []
+    for bits, li, name, ql, dec, x, y16, y32 in runs:
+        m, n = x.shape[0], ql.qweight.shape[1]
+        want, q_p, sx_p, zx_p = composed_plain(x, *dec, ql.qweight,
+                                               ql.scale, ql.act_bits,
+                                               ql.packed)
+        q_k, _, zx_k = DQ.dynamic_quant(H.hadamard_transform(
+            B.block_diag_matmul(x, dec[0]), *dec[1:]), ql.act_bits)
+        shift = ((q_k.float() - zx_k) - (q_p.float() - zx_p)).abs()
+        wmax = 8.0 if ql.packed else 127.0
+        step = sx_p * ql.scale.max() * wmax                 # (m, 1)
+        moved = (shift > 0).sum(dim=1, keepdim=True).float()
+        err16 = (y16.float() - want.float()).abs()
+        tol16 = ((moved + 1) * step + 2 ** -7 * want.float().abs()
+                 + 1e-5 * want.float().abs().max())
+        fused32 = ops.fused_cat_matmul(x.float(), *dec, ql.qweight,
+                                       ql.scale, act_bits=ql.act_bits,
+                                       packed=ql.packed)
+        err32 = (y32 - fused32).abs().max().item()
+        tol32 = (2 * sx_p.max() * ql.scale.max() * wmax
+                 + 1e-5 * fused32.abs().max()).item()
+        rec = {"bits": bits, "layer": li, "linear": name, "m": m,
+               "d": x.shape[1], "n": n,
+               "bf16_max_err": err16.max().item(),
+               "bf16_within_tol": bool((err16 <= tol16).all()),
+               "code_shift_max": shift.max().item(),
+               "code_shift_share": (shift > 0).float().mean().item(),
+               "f32_vs_fused_max_err": err32, "f32_tol": tol32,
+               "composed_ms": device_ms(lambda: call(x, ql, dec)),
+               "fused_ms": device_ms(lambda: ops.fused_cat_matmul(
+                   x, *dec, ql.qweight, ql.scale, act_bits=ql.act_bits,
+                   packed=ql.packed)),
+               "card": card}
+        recs.append(rec)
+        if not (rec["bf16_within_tol"] and rec["code_shift_max"] <= 1
+                and rec["code_shift_share"] <= 1e-2 and err32 <= tol32):
+            fail(f"composed linear: {json.dumps(rec)}")
+    summary = {}
+    for bits in ("w4", "w8"):
+        for m in COMPOSED_ROWS:
+            sel = [r for r in recs if r["bits"] == bits and r["m"] == m]
+            summary[f"{bits}_m{m}"] = {
+                "calls": len(sel),
+                "composed_ms_sum": sum(r["composed_ms"] for r in sel),
+                "fused_ms_sum": sum(r["fused_ms"] for r in sel),
+                "bf16_max_err": max(r["bf16_max_err"] for r in sel),
+                "code_shift_share_max": max(r["code_shift_share"]
+                                            for r in sel),
+                "f32_vs_fused_max_err": max(r["f32_vs_fused_max_err"]
+                                            for r in sel)}
+    out = {"ptq_w8_s": ptq8_s, "launches": launches, "summary": summary,
+           "calls": recs}
+    print("composed: 32 linears x {W4, W8} x {8, 128} rows, activations "
+          "from a seed " + json.dumps(summary))
     return out
 
 
@@ -700,9 +1043,14 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{sorted(report)} (parallel nvcc)")
 
+    from repro_torch.kernels import block_matmul as B
     from repro_torch.kernels import decode_layer as L
+    from repro_torch.kernels import dynamic_quant as DQ
     from repro_torch.kernels import fused_cat_matmul as F
+    from repro_torch.kernels import hadamard as H
     from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels import quant_matmul_w4 as QW
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     results = {
@@ -726,18 +1074,30 @@ def main() -> None:
             [(1, ln) for ln in (160, 1, 17, 64, 100, 33, 5, 128)], 1, card,
             gen, dev, decode=True),
         "decode_qkv_prologue": check_prologue(card, gen, dev),
+        **check_contractions(card, gen, dev),
+        **check_stages(card, gen, dev),
     }
     counters = [F.fused_cat_gemv_w4, F.fused_cat_matmul_w4,
                 P.paged_attention_ragged, P.paged_attention_decode,
                 L.decode_qkv_prologue]
-    serving = serve(counters, card)
+    serving, model, params = serve(counters, card)
+    composed_counters = [QW.quant_matmul_w4, QW.quant_gemv_w4,
+                         QM.quant_matmul, DQ.dynamic_quant,
+                         H.hadamard_transform, B.block_diag_matmul]
+    composed = composed_phase(model, params, composed_counters, card, gen)
 
     # the summary: the main-path shape of each kernel (decode GEMV at 8
     # rows, the 128-row unified step, wgu's D=512 x N=3072), errors over
     # every checked shape
     pick = {"fused_cat_gemv_w4": dict(m=8, d=512, n=3072),
             "fused_cat_matmul_w4": dict(m=128, d=512, n=3072),
-            "decode_qkv_prologue": dict(m=8)}
+            "decode_qkv_prologue": dict(m=8),
+            "quant_matmul_w4": dict(m=128, d=512, n=3072),
+            "quant_gemv_w4": dict(m=8, d=512, n=3072),
+            "quant_matmul": dict(m=128, d=512, n=3072),
+            "dynamic_quant": dict(m=128, d=512),
+            "hadamard_transform": dict(m=128, d=512),
+            "block_diag_matmul": dict(m=128, d=512)}
     sources = {
         "fused_cat_gemv_w4": ("src/repro_torch/csrc/fused_cat_matmul.cu",
                               "src/repro/kernels/fused_cat_matmul.py:235"),
@@ -749,6 +1109,18 @@ def main() -> None:
                                    "src/repro/kernels/paged_attention.py:88"),
         "decode_qkv_prologue": ("src/repro_torch/csrc/decode_layer.cu",
                                 "src/repro/kernels/decode_layer.py:162"),
+        "quant_matmul_w4": ("src/repro_torch/csrc/quant_matmul.cu",
+                            "src/repro/kernels/quant_matmul_w4.py:72"),
+        "quant_gemv_w4": ("src/repro_torch/csrc/quant_matmul.cu",
+                          "src/repro/kernels/quant_matmul_w4.py:127"),
+        "quant_matmul": ("src/repro_torch/csrc/quant_matmul.cu",
+                         "src/repro/kernels/quant_matmul.py:42"),
+        "dynamic_quant": ("src/repro_torch/csrc/dynamic_quant.cu",
+                          "src/repro/kernels/dynamic_quant.py:44"),
+        "hadamard_transform": ("src/repro_torch/csrc/hadamard.cu",
+                               "src/repro/kernels/hadamard.py:37"),
+        "block_diag_matmul": ("src/repro_torch/csrc/block_matmul.cu",
+                              "src/repro/kernels/block_matmul.py:26"),
     }
     kernels = []
     for name, recs in results.items():
@@ -757,19 +1129,21 @@ def main() -> None:
             rep = next(r for r in recs
                        if all(r[k] == v for k, v in pick[name].items()))
         source, replaces = sources[name]
+        # rows 1-5 count serving (b)'s launches, rows 6-11 the composed
+        # phase's
+        launches = (serving["b"]["launches"] | composed["launches"])[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            "launches": serving["b"]["launches"][name],
+            "replaces": replaces, "launches": launches,
             "max_abs_err": max(r["max_err"] for r in recs),
             "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": None})
+            "library_ms": rep["library_ms"]})
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": results, "summary": kernels,
-         "serving": serving}, indent=1))
+         "serving": serving, "composed": composed}, indent=1))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

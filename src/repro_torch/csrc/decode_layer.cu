@@ -171,9 +171,10 @@ __global__ void decode_qkv_prologue_kernel(
   }
   __syncthreads();
   const float qmax = (float)((1 << (kv_bits - 1)) - 1);
+  const float inv_qmax = 1.f / qmax;   // the compiled reference's reciprocal
   for (int idx = tid; idx < m * hd; idx += nt) {
     const int r = idx / hd, i = idx - r * hd;
-    const float scale = fmaxf(s_amax[r], 1e-12f) / qmax;
+    const float scale = __fmul_rn(fmaxf(s_amax[r], 1e-12f), inv_qmax);
     const float code = fminf(fmaxf(rintf(s_out[r * hd + i] / scale),
                                     -qmax - 1.f),
                              qmax);

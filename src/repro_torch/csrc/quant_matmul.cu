@@ -1,0 +1,62 @@
+// Quantized contractions from precomputed activation codes for Hopper
+// (sm_90a), plain C interface:
+//   out[m, n] = sx[m] * sw[n] * (sum_k qx[m, k] qw[k, n] - zx[m] colsum[n])
+// for int8 activation codes qx (m, k) against nibble-packed int4 weight
+// codes (ceil(k/2), n) (quant_gemv_w4, quant_matmul_w4) or int8 codes
+// (k, n) (quant_matmul), f32 out.
+//
+// Replaces the Pallas TPU kernels quant_matmul_w4 and quant_gemv_w4 of
+// src/repro/kernels/quant_matmul_w4.py:72 and :127 and quant_matmul of
+// src/repro/kernels/quant_matmul.py:42. They run the contractions of
+// contract.cuh that the fused CAT linear's stage 2 runs: the GEMV for
+// m <= 8 (quant_gemv_w4, and quant_matmul at decode shapes) and the
+// 32 x 64-tiled contraction above. The Pallas kernels add one f32
+// epilogue per K tile; these accumulate exact int32 over all of K and
+// apply the epilogue once, as the reference's oracle does. Odd K: the
+// packed weight's last byte carries a zero high nibble and the missing
+// activation code reads as 0, as the reference pads qx.
+//
+// Bound on this card: the weight codes (k/2 x n packed, k x n int8) over
+// HBM bandwidth at decode shapes and at 128 rows alike; the int8 operations
+// (2 m k n) are far below the tensor-core rate. These kernels use int32
+// FMAs on the CUDA cores (no wgmma yet) and read each weight byte once per
+// 32-row tile.
+#include "contract.cuh"
+
+namespace {
+
+int k_pad_of(int k, int packed) { return packed ? 2 * ((k + 1) / 2) : k; }
+
+}  // namespace
+
+// qx (m, k) int8, sx/zx (m,) f32, qw packed (ceil(k/2), n) int8, sw (n,)
+// f32 -> out (m, n) f32; m <= 8. Returns cudaGetLastError().
+extern "C" int quant_gemv_w4(const void* qx, int m, int k, const void* sx,
+                             const void* zx, const void* qw, const void* sw,
+                             int n, void* out, void* stream_ptr) {
+  return (int)contract::launch_gemv(qx, k, k, sx, zx, m, k_pad_of(k, 1), qw,
+                                    1, sw, n, out,
+                                    static_cast<cudaStream_t>(stream_ptr));
+}
+
+// As quant_gemv_w4, any m, through the tiled contraction.
+extern "C" int quant_matmul_w4(const void* qx, int m, int k, const void* sx,
+                               const void* zx, const void* qw, const void* sw,
+                               int n, void* out, void* stream_ptr) {
+  return (int)contract::launch_tiled(qx, k, k, sx, zx, m, k_pad_of(k, 1), qw,
+                                     1, sw, n, out,
+                                     static_cast<cudaStream_t>(stream_ptr));
+}
+
+// qx (m, k) int8 against int8 weight codes qw (k, n): the GEMV for m <= 8,
+// the tiled contraction above.
+extern "C" int quant_matmul(const void* qx, int m, int k, const void* sx,
+                            const void* zx, const void* qw, const void* sw,
+                            int n, void* out, void* stream_ptr) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  if (m <= contract::kGemvM)
+    return (int)contract::launch_gemv(qx, k, k, sx, zx, m, k, qw, 0, sw, n,
+                                      out, stream);
+  return (int)contract::launch_tiled(qx, k, k, sx, zx, m, k, qw, 0, sw, n,
+                                     out, stream);
+}

@@ -1,13 +1,23 @@
 // Activation rows through the CAT transform and the dynamic per-token
-// asymmetric quant, for Hopper (sm_90a). Shared by the fused CAT linear
+// quant, for Hopper (sm_90a), one device function per step:
+//   load_rows        x (T) -> f32 in shared memory
+//   block_cat_sign   block-CAT (y_i = B_blk x_blk), then * sign
+//   hadamard_rows    Kronecker Hadamard Y = Ha X Hb^T of each row
+//   row_ranges       each row's min and max
+//   quant_rows       asymmetric: scale = max(ymax - ymin, 1e-12) /
+//                    (2^bits - 1), zp = rint(-ymin / scale), codes shifted
+//                    by 2^(bits-1) (signed); symmetric: scale =
+//                    max(amax, 1e-12) / (2^(bits-1) - 1), zp = 0
+// transform_quant_rows composes them for the fused CAT linear
 // (fused_cat_matmul.cu, stage 1: one row per CTA) and the decode QKV
-// prologue (decode_layer.cu: every decode row in each CTA), so both
-// quantize a row with the same arithmetic:
-//   block-CAT (y_i = B_blk x_blk) -> * sign -> Kronecker Hadamard
-//   Y = Ha X Hb^T -> scale = max(ymax - ymin, 1e-12) / (2^bits - 1),
-//   zp = rint(-ymin / scale), codes shifted by 2^(bits-1) (signed).
-// Each output element is one fmaf chain in a fixed order, whatever the
-// number of rows, so a row's codes do not depend on its batch.
+// prologue (decode_layer.cu: every decode row in each CTA); the stand-alone
+// kernels of the composed linear (block_matmul.cu, hadamard.cu,
+// dynamic_quant.cu) call the steps one by one, so every path computes a
+// step with the same arithmetic. Each output element is one fmaf chain in
+// a fixed order, whatever the number of rows, so a row's values do not
+// depend on its batch. Every function takes m <= MAXR rows of d values
+// (row stride d), must be called by every thread of the block, and ends
+// with a barrier, so its outputs are visible to the whole block.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -22,26 +32,31 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// Transform and quantize rows x[0..m) (m <= MAXR, d values each, row
-// stride d) with every thread of the block; each factor element is read
-// once for all m rows. Shared scratch: s_x, s_y (m*d floats each), s_ha
-// (a*a) and s_hb (b*b) already loaded, red_min/red_max (MAXR*32 floats
-// each). Writes k_pad codes per row to q_out (row stride k_pad; the K
-// padding carries code 0) and each row's scale and signed-shifted zero
-// point to scale_out[r], zp_out[r]. Every thread must call it; it ends
-// with a barrier, so its outputs are visible to the whole block.
-template <typename T, int MAXR>
-__device__ void transform_quant_rows(
-    const T* __restrict__ x, int m, int d, int k_pad,
-    const float* __restrict__ blocks, int bk,
-    const float* __restrict__ sign,
-    const float* s_ha, int a, const float* s_hb, int b, int act_bits,
-    float* s_x, float* s_y, float* red_min, float* red_max,
-    int8_t* q_out, float* scale_out, float* zp_out) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < m * d; i += nt) s_x[i] = to_f32(x[i]);
+// f32 -> T, rounding to nearest even as torch's .to(dtype) does.
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// s_x[i] = f32(x[i]) for i < n.
+template <typename T>
+__device__ void load_rows(const T* __restrict__ x, int n, float* s_x) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) s_x[i] = to_f32(x[i]);
   __syncthreads();
-  // block-diagonal CAT, then the elementwise sign
+}
+
+// s_y = (blockdiag(B) x) * sign for each row of s_x. ``blocks`` (d/bk,
+// bk, bk) f32 in device memory, or null for the identity; ``sign`` (d,)
+// f32, or null for ones.
+template <int MAXR>
+__device__ void block_cat_sign(const float* s_x, int m, int d,
+                               const float* __restrict__ blocks, int bk,
+                               const float* __restrict__ sign, float* s_y) {
+  const int tid = threadIdx.x, nt = blockDim.x;
   for (int i = tid; i < d; i += nt) {
     float acc[MAXR];
 #pragma unroll
@@ -61,13 +76,22 @@ __device__ void transform_quant_rows(
       for (int r = 0; r < MAXR; ++r)
         if (r < m) acc[r] = s_x[r * d + i];
     }
-    const float sg = sign[i];
+    const float sg = sign != nullptr ? sign[i] : 1.f;
 #pragma unroll
     for (int r = 0; r < MAXR; ++r)
       if (r < m) s_y[r * d + i] = acc[r] * sg;
   }
   __syncthreads();
-  // Z = Y Hb^T on each row's Y = y viewed (a, b)
+}
+
+// s_y <- Ha Y Hb^T for each row's Y = s_y viewed (a, b); s_tmp is scratch
+// of the same size. s_ha (a*a) and s_hb (b*b) already in shared memory.
+template <int MAXR>
+__device__ void hadamard_rows(float* s_y, float* s_tmp, int m, int d,
+                              const float* s_ha, int a, const float* s_hb,
+                              int b) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  // Z = Y Hb^T
   for (int idx = tid; idx < d; idx += nt) {
     const int i = idx / b, l = idx - i * b;
     const float* hr = s_hb + l * b;
@@ -82,13 +106,10 @@ __device__ void transform_quant_rows(
     }
 #pragma unroll
     for (int r = 0; r < MAXR; ++r)
-      if (r < m) s_x[r * d + idx] = acc[r];
+      if (r < m) s_tmp[r * d + idx] = acc[r];
   }
   __syncthreads();
-  // out[p*b + l] = sum_i Ha[p][i] Z[i][l], with each row's min and max
-  float lmin[MAXR], lmax[MAXR];
-#pragma unroll
-  for (int r = 0; r < MAXR; ++r) { lmin[r] = INFINITY; lmax[r] = -INFINITY; }
+  // out[p*b + l] = sum_i Ha[p][i] Z[i][l]
   for (int idx = tid; idx < d; idx += nt) {
     const int p = idx / b, l = idx - p * b;
     const float* hr = s_ha + p * a;
@@ -99,18 +120,35 @@ __device__ void transform_quant_rows(
       const float w = hr[i];
 #pragma unroll
       for (int r = 0; r < MAXR; ++r)
-        if (r < m) acc[r] = fmaf(s_x[r * d + i * b + l], w, acc[r]);
+        if (r < m) acc[r] = fmaf(s_tmp[r * d + i * b + l], w, acc[r]);
     }
+#pragma unroll
+    for (int r = 0; r < MAXR; ++r)
+      if (r < m) s_y[r * d + idx] = acc[r];
+  }
+  __syncthreads();
+}
+
+// Each row's min and max over d values, one partial per warp in
+// red_min/red_max[r * 32 + warp] (MAXR * 32 floats each); quant_rows
+// finishes the reduction.
+template <int MAXR>
+__device__ void row_ranges(const float* s_y, int m, int d, float* red_min,
+                           float* red_max) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  float lmin[MAXR], lmax[MAXR];
+#pragma unroll
+  for (int r = 0; r < MAXR; ++r) { lmin[r] = INFINITY; lmax[r] = -INFINITY; }
+  for (int idx = tid; idx < d; idx += nt) {
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) {
       if (r < m) {
-        s_y[r * d + idx] = acc[r];
-        lmin[r] = fminf(lmin[r], acc[r]);
-        lmax[r] = fmaxf(lmax[r], acc[r]);
+        lmin[r] = fminf(lmin[r], s_y[r * d + idx]);
+        lmax[r] = fmaxf(lmax[r], s_y[r * d + idx]);
       }
     }
   }
-  const int warp = tid >> 5, lane = tid & 31, nwarps = (nt + 31) >> 5;
+  const int warp = tid >> 5, lane = tid & 31;
 #pragma unroll
   for (int r = 0; r < MAXR; ++r) {
     float mn = lmin[r], mx = lmax[r];
@@ -121,30 +159,84 @@ __device__ void transform_quant_rows(
     if (lane == 0) { red_min[r * 32 + warp] = mn; red_max[r * 32 + warp] = mx; }
   }
   __syncthreads();
-  const float levels = (float)((1 << act_bits) - 1);
-  const float half = (float)(1 << (act_bits - 1));
+}
+
+// Quantize each row of s_y with its range from row_ranges. Writes k_pad
+// codes per row to q_out (row stride k_pad; the K padding carries code 0)
+// and each row's scale and (signed-shifted) zero point to scale_out[r],
+// zp_out[r]. rintf is round half to even (jnp.round), the divisions are
+// IEEE (no fast math), and nothing is FMA-contracted.
+template <int MAXR>
+__device__ void quant_rows(const float* s_y, int m, int d, int k_pad,
+                           int bits, bool symmetric, const float* red_min,
+                           const float* red_max, int8_t* q_out,
+                           float* scale_out, float* zp_out) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int nwarps = (nt + 31) >> 5;
+  const float half = (float)(1 << (bits - 1));
   for (int r = 0; r < m; ++r) {
     float ymin = red_min[r * 32], ymax = red_max[r * 32];
     for (int w = 1; w < nwarps; ++w) {
       ymin = fminf(ymin, red_min[r * 32 + w]);
       ymax = fmaxf(ymax, red_max[r * 32 + w]);
     }
-    const float scale = fmaxf(__fsub_rn(ymax, ymin), 1e-12f) / levels;
-    const float zp = rintf(-ymin / scale);
-    for (int k = tid; k < k_pad; k += nt) {
-      float q = 0.f;
-      if (k < d) {
-        const float v = rintf(__fadd_rn(s_y[r * d + k] / scale, zp));
-        q = fminf(fmaxf(v, 0.f), levels) - half;
+    if (symmetric) {
+      const float qmax = half - 1.f;
+      const float scale = fmaxf(fmaxf(fabsf(ymin), fabsf(ymax)), 1e-12f)
+                          / qmax;
+      for (int k = tid; k < k_pad; k += nt) {
+        float q = 0.f;
+        if (k < d) {
+          q = fminf(fmaxf(rintf(s_y[r * d + k] / scale), -qmax - 1.f),
+                    qmax);
+        }
+        q_out[(size_t)r * k_pad + k] = (int8_t)q;
       }
-      q_out[(size_t)r * k_pad + k] = (int8_t)q;
-    }
-    if (tid == 0) {
-      scale_out[r] = scale;
-      zp_out[r] = zp - half;
+      if (tid == 0) {
+        scale_out[r] = scale;
+        zp_out[r] = 0.f;
+      }
+    } else {
+      const float levels = (float)((1 << bits) - 1);
+      const float scale = fmaxf(__fsub_rn(ymax, ymin), 1e-12f) / levels;
+      const float zp = rintf(-ymin / scale);
+      for (int k = tid; k < k_pad; k += nt) {
+        float q = 0.f;
+        if (k < d) {
+          const float v = rintf(__fadd_rn(s_y[r * d + k] / scale, zp));
+          q = fminf(fmaxf(v, 0.f), levels) - half;
+        }
+        q_out[(size_t)r * k_pad + k] = (int8_t)q;
+      }
+      if (tid == 0) {
+        scale_out[r] = scale;
+        zp_out[r] = zp - half;
+      }
     }
   }
   __syncthreads();
+}
+
+// Transform and asymmetric-quantize rows x[0..m) (m <= MAXR, d values
+// each, row stride d) with every thread of the block; each factor element
+// is read once for all m rows. Shared scratch: s_x, s_y (m*d floats each),
+// s_ha (a*a) and s_hb (b*b) already loaded, red_min/red_max (MAXR*32
+// floats each). Writes k_pad codes per row to q_out (row stride k_pad) and
+// each row's scale and signed-shifted zero point to scale_out[r], zp_out[r].
+template <typename T, int MAXR>
+__device__ void transform_quant_rows(
+    const T* __restrict__ x, int m, int d, int k_pad,
+    const float* __restrict__ blocks, int bk,
+    const float* __restrict__ sign,
+    const float* s_ha, int a, const float* s_hb, int b, int act_bits,
+    float* s_x, float* s_y, float* red_min, float* red_max,
+    int8_t* q_out, float* scale_out, float* zp_out) {
+  load_rows(x, m * d, s_x);
+  block_cat_sign<MAXR>(s_x, m, d, blocks, bk, sign, s_y);
+  hadamard_rows<MAXR>(s_y, s_x, m, d, s_ha, a, s_hb, b);
+  row_ranges<MAXR>(s_y, m, d, red_min, red_max);
+  quant_rows<MAXR>(s_y, m, d, k_pad, act_bits, false, red_min, red_max,
+                   q_out, scale_out, zp_out);
 }
 
 }  // namespace tq

@@ -26,11 +26,14 @@ import ctypes
 
 import torch
 
-from repro_torch.core.quantizers import int_matmul, unpack_int4
+from repro_torch.core.quantizers import unpack_int4
 
 from . import build
-
-GEMV_M = 8   # rows served by the GEMV variant (the reference's _GEMV_M)
+from .block_matmul import block_diag_f32
+from .dynamic_quant import dynamic_quant_plain
+from .hadamard import hadamard_f32
+from .quant_matmul import quant_matmul_plain
+from .quant_matmul_w4 import GEMV_M
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
@@ -45,40 +48,21 @@ _SIGNATURES = {"fused_cat_gemv_w4": _SIGNATURE,
 def transform_quant_plain(x, blocks, ha, hb, sign, act_bits: int):
     """CAT transform + dynamic per-token asymmetric quant in the kernel's
     op order (per-block dots, the two Kronecker-factor dots, then the
-    signed-shifted quant). -> (q int8 (M, D), scale (M, 1), zp (M, 1))."""
+    signed-shifted quant), all in f32. -> (q int8 (M, D), scale (M, 1),
+    zp (M, 1))."""
     xf = x.to(torch.float32)
-    m, d = xf.shape
     if blocks is not None:
-        nblk, bk, _ = blocks.shape
-        xb = xf.reshape(m, nblk, bk).transpose(0, 1)          # (n, M, k)
-        xf = torch.bmm(xb, blocks.to(torch.float32).transpose(1, 2)
-                       ).transpose(0, 1).reshape(m, d)
-    xf = xf * sign.to(torch.float32)
-    a, b = ha.shape[0], hb.shape[0]
-    y = xf.reshape(m * a, b) @ hb.to(torch.float32).T
-    y = y.reshape(m, a, b).transpose(1, 2).reshape(m * b, a)
-    y = y @ ha.to(torch.float32).T
-    y = y.reshape(m, b, a).transpose(1, 2).reshape(m, d)
-    levels = 2.0 ** act_bits - 1
-    ymin = y.amin(-1, keepdim=True)
-    ymax = y.amax(-1, keepdim=True)
-    scale = torch.clamp_min(ymax - ymin, 1e-12) / levels
-    zp = torch.round(-ymin / scale)
-    q = torch.clamp(torch.round(y / scale + zp), 0, levels)
-    q = q - 2.0 ** (act_bits - 1)
-    zp = zp - 2.0 ** (act_bits - 1)
-    return q.to(torch.int8), scale, zp
+        xf = block_diag_f32(xf, blocks)
+    y = hadamard_f32(xf * sign.to(torch.float32), ha, hb)
+    return dynamic_quant_plain(y, act_bits)
 
 
 def fused_cat_linear_plain(x, blocks, ha, hb, sign, qw, sw, *,
                            act_bits: int = 8, packed: bool = True):
     """Plain PyTorch version of both fused-linear kernels -> (M, N) f32."""
-    d = x.shape[1]
     q, sx, zx = transform_quant_plain(x, blocks, ha, hb, sign, act_bits)
-    w = unpack_int4(qw, d, axis=0) if packed else qw
-    acc = int_matmul(q, w)
-    colsum = w.to(torch.float32).sum(0, keepdim=True)
-    return sx * sw * (acc - zx * colsum)
+    w = unpack_int4(qw, x.shape[1], axis=0) if packed else qw
+    return quant_matmul_plain(q, sx, zx, w, sw)
 
 
 # ------------------------------------------------------------ CUDA launch

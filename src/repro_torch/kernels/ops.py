@@ -6,6 +6,11 @@ inside each kernel wrapper: a CUDA tensor launches the kernel, a CPU
 tensor takes the kernel's plain PyTorch version. ``use_fused_decode``
 decides, as the reference's does, whether decode layers take the
 two-launch path (``decode_qkv_prologue`` + paged attention).
+
+The stand-alone kernels go by the reference's ``ops`` names
+(``block_matmul``, ``hadamard``, ``dyn_quant``, ``qmatmul``,
+``qmatmul_w4``, ``qgemv_w4``) and compose into ``cat_transform_matmul``,
+the deployed linear in four launches.
 """
 from __future__ import annotations
 
@@ -13,12 +18,18 @@ import os
 
 from repro_torch.core import transforms as T
 
+from .block_matmul import block_diag_matmul as block_matmul
 from .decode_layer import decode_qkv_prologue  # noqa: F401
+from .dynamic_quant import dynamic_quant as dyn_quant
 from .fused_cat_matmul import GEMV_M, fused_cat_gemv_w4, fused_cat_matmul_w4
+from .hadamard import hadamard_transform as hadamard
 from .paged_attention import (paged_attention_decode,
                               paged_attention_fallback,
                               paged_attention_ragged,
                               paged_attention_ragged_fallback)
+from .quant_matmul import quant_matmul as qmatmul
+from .quant_matmul_w4 import quant_gemv_w4 as qgemv_w4
+from .quant_matmul_w4 import quant_matmul_w4 as qmatmul_w4
 
 _FALSY = ("", "0", "false", "no", "off")
 
@@ -68,6 +79,39 @@ def fused_cat_matmul(x, blocks, ha, hb, sign, qw, sw, act_bits: int = 8,
     y = run(xf, blocks, ha, hb, sign, qw, sw, act_bits=act_bits,
             packed=packed)
     return y.reshape(*lead, y.shape[-1]).to(x.dtype)
+
+
+def cat_transform_matmul(x, blocks, ha, hb, sign, qw, sw, act_bits: int = 4,
+                         packed_int4: bool = False):
+    """The paper's deployed quantized linear layer, composed of the
+    stand-alone kernels: y ≈ W·T⁻¹·Q(T x) with T = H·M̂_block.
+
+    block-CAT (``block_matmul``; skipped when ``blocks`` is None) ->
+    sign ⊙ Hadamard (``hadamard``) -> dynamic per-token asymmetric quant
+    (``dyn_quant``) -> ``qgemv_w4`` for packed weights at M <= 8 rows,
+    ``qmatmul_w4`` for packed weights above, ``qmatmul`` for int8 weights.
+    The block-CAT and Hadamard outputs are rounded to x's dtype between
+    launches, as the reference's are; so in bf16 this is not the fused
+    linear, and in f32 it is, up to the order of the dot sums.
+
+    x (..., d) f32/bf16; blocks (n, k, k) f32 or None; sign (d,) f32; qw
+    (d, d_out) int8 codes — or, with ``packed_int4``, (ceil(d/2), d_out)
+    nibble-packed int4 codes; sw (1, d_out) f32 -> (..., d_out) in x's
+    dtype. The reference's ``axis_name`` (a K-sharded call inside a
+    tensor-parallel mesh) waits for the port of tensor-parallel serving."""
+    lead, d = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, d)
+    if blocks is not None:
+        xf = block_matmul(xf, blocks)
+    xf = hadamard(xf, ha, hb, sign)
+    qx, sx, zpx = dyn_quant(xf, bits=act_bits, symmetric=False)
+    if not packed_int4:
+        y = qmatmul(qx, sx, zpx, qw, sw)
+    elif qx.shape[0] <= GEMV_M:
+        y = qgemv_w4(qx, sx, zpx, qw, sw)
+    else:
+        y = qmatmul_w4(qx, sx, zpx, qw, sw)
+    return y.reshape(*lead, qw.shape[1]).to(x.dtype)
 
 
 def paged_attention(q, k_pages, k_scale, v_pages, v_scale, page_table,

@@ -27,9 +27,12 @@ the kernel and as the masked softmax's uniform mix from the plain version.
 
 Each wrapper launches its kernel for CUDA tensors (counted in
 ``<wrapper>.launches``) and takes its plain PyTorch version only for CPU
-tensors. The gather fallbacks (``*_fallback``) are the reference's jnp
-paths for fp pools: they keep the scaled q in f32, so they differ from the
-kernels by that one rounding.
+tensors. The plain versions walk the page table page by page with an
+online softmax, in the reference kernels' op order, as the CUDA kernel
+does. The gather fallbacks (``*_fallback``) are the reference's jnp paths
+for fp pools: they keep the scaled q in f32 and take one softmax over the
+gathered sequence, so they differ from the kernels by that rounding and
+that order.
 """
 from __future__ import annotations
 
@@ -113,12 +116,41 @@ def paged_attention_fallback(q, k_pages, k_scale, v_pages, v_scale,
 
 def paged_attention_ragged_plain(q, k_pages, k_scale, v_pages, v_scale,
                                  page_table, lengths, q_pos):
-    """Plain version of the ragged kernel: q scaled by hd^-½ in f32 and
-    rounded back to q's dtype, as the kernel does, then the gather."""
-    hd = q.shape[-1]
-    qs = (q.to(torch.float32) * hd ** -0.5).to(q.dtype).to(torch.float32)
-    return _ragged_gather(qs, k_pages, k_scale, v_pages, v_scale,
-                          page_table, lengths, q_pos).to(q.dtype)
+    """Plain version of the ragged kernel, in the op order of the
+    reference's ``_ragged_attn_kernel``: q scaled by hd^-½ in f32 and
+    rounded back to q's dtype, then one page of the table at a time —
+    dequant, f32 scores, the causal and length mask at -1e30, running max,
+    ``exp``, correction factor, running sum and accumulator — and
+    ``acc / max(l, 1e-30)`` rounded to q's dtype."""
+    r, nq, kvh, g, hd = q.shape
+    ps = k_pages.shape[1]
+    qf = (q.to(torch.float32) * hd ** -0.5).to(q.dtype).to(torch.float32)
+    q_pos = q_pos.to(torch.int32)
+    lengths = lengths.to(torch.int32)
+    m = torch.full((r, nq, kvh, g), _NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((r, nq, kvh, g, hd), dtype=torch.float32,
+                      device=q.device)
+    rows = torch.arange(ps, dtype=torch.int32, device=q.device)
+    for i in range(page_table.shape[1]):
+        page = page_table[:, i].long()
+        k = k_pages[page].to(torch.float32) * k_scale[page]   # (R, G, KVH, hd)
+        v = v_pages[page].to(torch.float32) * v_scale[page]
+        s = torch.einsum("bqkgd,bGkd->bqkgG", qf, k)
+        kv_pos = i * ps + rows
+        mask = ((kv_pos[None, None, :] <= q_pos[:, :, None])
+                & (kv_pos[None, None, :] < lengths[:, None, None])
+                & (q_pos[:, :, None] >= 0))
+        s = torch.where(mask[:, :, None, None, :], s,
+                        torch.full_like(s, _NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        m = m_new
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bqkgG,bGkd->bqkgd", p, v)
+    return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 
 def paged_attention_decode_plain(q, k_pages, k_scale, v_pages, v_scale,

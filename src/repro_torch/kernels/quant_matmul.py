@@ -1,0 +1,98 @@
+"""W8A8 contraction from precomputed activation codes.
+
+Replaces the Pallas TPU kernel ``quant_matmul`` of
+``src/repro/kernels/quant_matmul.py:42``:
+
+    y[m, n] = sx[m]·sw[n]·(Σ_k qx[m, k]·qw[k, n] − zpx[m]·Σ_k qw[k, n])
+
+for int8 activation codes qx (M, K), sx/zpx (M, 1) f32, int8 weight codes
+qw (K, N) and sw (1, N) f32 -> (M, N) f32.
+
+The CUDA source is ``src/repro_torch/csrc/quant_matmul.cu``, over the
+contractions the fused linear's stage 2 runs (``contract.cuh``): the GEMV
+for M <= 8, 32x64 tiles above. The Pallas kernel adds one f32 epilogue per
+K tile (three partial sums at K 1536 with its default ``block_k`` 512);
+the kernel and the plain version here accumulate exact integers over all
+of K and apply the epilogue once, as ``ref.quant_matmul`` does. What
+bounds it on the H100 is the weight bytes (K x N) over HBM bandwidth; the
+design reads each weight byte once per 32-row tile.
+
+The wrapper launches the kernel for CUDA tensors (counted in
+``quant_matmul.launches``) and takes the plain PyTorch version only for
+CPU tensors.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.quantizers import int_matmul
+
+from . import build
+
+_C = ctypes.c_int
+_P = ctypes.c_void_p
+# every entry of quant_matmul.cu (this module's and quant_matmul_w4's)
+_SIGNATURES = {name: [_P, _C, _C, _P, _P, _P, _P, _C, _P, _P]
+               for name in ("quant_matmul", "quant_matmul_w4",
+                            "quant_gemv_w4")}
+
+
+def quant_matmul_plain(qx, sx, zpx, qw, sw) -> torch.Tensor:
+    """Plain PyTorch version: exact integer contraction, one epilogue."""
+    acc = int_matmul(qx, qw)
+    colsum = qw.to(torch.float32).sum(0, keepdim=True)
+    return sx * sw * (acc - zpx * colsum)
+
+
+def validate(qx, sx, zpx, qw, sw, w_rows: int) -> None:
+    """Operand checks of the code contractions (``w_rows``: the weight's
+    expected row count)."""
+    if qx.ndim != 2 or qx.dtype != torch.int8:
+        raise TypeError(f"qx must be int8 (M, K), got {qx.dtype} "
+                        f"{tuple(qx.shape)}")
+    if qw.ndim != 2 or qw.dtype != torch.int8:
+        raise TypeError(f"qw must be int8 2-D, got {qw.dtype} "
+                        f"{tuple(qw.shape)}")
+    m, n = qx.shape[0], qw.shape[1]
+    if qw.shape[0] != w_rows:
+        raise ValueError(f"qw {tuple(qw.shape)} needs {w_rows} rows for "
+                         f"K={qx.shape[1]}")
+    for name, t, shape in (("sx", sx, (m, 1)), ("zpx", zpx, (m, 1)),
+                           ("sw", sw, (1, n))):
+        if t.dtype != torch.float32 or tuple(t.shape) != shape:
+            raise TypeError(f"{name} must be f32 {shape}, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+    for t in (sx, zpx, qw, sw):
+        if t.device != qx.device:
+            raise TypeError(f"all operands must be on {qx.device}")
+
+
+def launch(fn_name, qx, sx, zpx, qw, sw) -> torch.Tensor:
+    """Run entry ``fn_name`` of ``quant_matmul.cu`` -> (M, N) f32."""
+    m, k = qx.shape
+    n = qw.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
+    if m == 0 or n == 0:
+        return out
+    lib = build.load("quant_matmul", _SIGNATURES)
+    qx, sx, zpx, qw, sw = (t.contiguous() for t in (qx, sx, zpx, qw, sw))
+    build.check(getattr(lib, fn_name)(
+        build.ptr(qx), m, k, build.ptr(sx), build.ptr(zpx), build.ptr(qw),
+        build.ptr(sw), n, build.ptr(out), build.stream_of(qx)), fn_name)
+    return out
+
+
+def quant_matmul(qx, sx, zpx, qw, sw) -> torch.Tensor:
+    """qx (M, K) int8, sx/zpx (M, 1) f32, qw (K, N) int8, sw (1, N) f32
+    -> (M, N) f32."""
+    if not qx.is_cuda:
+        return quant_matmul_plain(qx, sx, zpx, qw, sw)
+    validate(qx, sx, zpx, qw, sw, qx.shape[1])
+    out = launch("quant_matmul", qx, sx, zpx, qw, sw)
+    quant_matmul.launches += 1
+    return out
+
+
+quant_matmul.launches = 0

@@ -20,8 +20,9 @@ import torch
 
 from repro_torch.core import qlinear
 from repro_torch.models.layers import (_paged_indices, activation,
-                                       chunked_attention, fake_quant_kv,
-                                       gather_pages, paged_cache_update,
+                                       add_rms_norm, chunked_attention,
+                                       fake_quant_kv, gather_pages,
+                                       paged_cache_update,
                                        paged_cache_update_quantized,
                                        rms_norm, rope)
 
@@ -224,9 +225,14 @@ def _layer_body(cfg, x, lp, cache_sl, pos, positions, taps=None,
         o = _attention(cfg, lp, h, cache_sl, pos, positions, page_table,
                        paged_kernel, ragged_desc)
     _tap(taps, layer_idx, "o_in", o)
-    x = x + qlinear.dense(lp["wo"], o)
-
-    h2 = rms_norm(x, lp["ln2"])
+    a = qlinear.dense(lp["wo"], o)
+    if taps is None:
+        # the reference compiles its steps (the norm takes the f32 sum);
+        # it collects taps only in its eager calibration forward
+        x, h2 = add_rms_norm(x, a, lp["ln2"])
+    else:
+        x = x + a
+        h2 = rms_norm(x, lp["ln2"])
     _tap(taps, layer_idx, "mlp_in", h2)
     if "wgu" in lp:
         gu = qlinear.dense(lp["wgu"], h2)

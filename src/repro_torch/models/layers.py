@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import qlinear
@@ -28,6 +29,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(dt)
+
+
+def add_rms_norm(x: torch.Tensor, a: torch.Tensor, scale: torch.Tensor,
+                 eps: float = 1e-6):
+    """The residual add followed by a norm: (x + a in x's dtype, the norm
+    of the sum in x's dtype). The reference's compiled step fuses the two
+    and hands the norm the unrounded f32 sum (XLA's excess precision)
+    while the residual stream keeps the rounded one; the port does the
+    same, so bf16 norms agree bitwise (identical in f32)."""
+    total = x.to(torch.float32) + a.to(torch.float32)
+    return total.to(x.dtype), rms_norm(total, scale, eps).to(x.dtype)
 
 
 def rope_freq(head_dim: int, theta: float, device) -> torch.Tensor:
@@ -133,9 +145,16 @@ def quantize_kv(x: torch.Tensor, bits: int):
     qmax = 2.0 ** (bits - 1) - 1
     xf = x.to(torch.float32)
     amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
-    scale = torch.clamp_min(amax, 1e-12) / qmax
+    # the compiled reference turns ``/ qmax`` into a multiply by the f32
+    # reciprocal; the port does the same (one ulp apart otherwise)
+    scale = torch.clamp_min(amax, 1e-12) * _f32_reciprocal(qmax)
     codes = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax)
     return codes.to(torch.int8), scale
+
+
+def _f32_reciprocal(v: float) -> float:
+    """1 / v rounded to f32, as a Python float (exact in f32 arithmetic)."""
+    return float(np.float32(1.0) / np.float32(v))
 
 
 def _paged_indices(page_table, pos, b, s, page_size):

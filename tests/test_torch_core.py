@@ -103,6 +103,52 @@ def test_act_fake_quant_bf16_matches_jitted_reference(bits):
     assert (eager != want).mean() > 0.01
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_kv_quant_matches_jitted_reference(dtype):
+    """The KV-cache quantizer as the reference's engine runs it (under
+    jax.jit, where XLA turns ``/ qmax`` into a multiply by the f32
+    reciprocal): codes and scales bitwise, from bf16 and f32 inputs."""
+    from repro.models.layers import quantize_kv as j_quantize_kv
+    from repro_torch.models.layers import quantize_kv
+    r = np.random.default_rng(11)
+    x = (r.standard_normal((3, 9, 4, 64)) * r.uniform(0.01, 30, (3, 9, 4, 1))
+         ).astype(np.float32)
+    jx = jnp.asarray(x).astype(dtype)
+    tx = _t(np.asarray(jx.astype(jnp.float32))).to(getattr(torch, dtype))
+    jc, js = jax.jit(lambda v: j_quantize_kv(v, 8))(jx)
+    tc, ts = quantize_kv(tx, 8)
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+
+
+def test_residual_norm_matches_jitted_reference():
+    """bf16 residual add then RMS norm as the reference's compiled step
+    computes them (the norm reads the unrounded f32 sum, the residual
+    stream keeps the rounded one): both bitwise; the eager reference
+    (the sum rounded before the norm) differs on a large share."""
+    from repro.models.layers import rms_norm as j_rms_norm
+    from repro_torch.models.layers import add_rms_norm
+    r = np.random.default_rng(12)
+    x = r.standard_normal((8, 3, 512)).astype(np.float32)
+    a = (r.standard_normal((8, 3, 512)) * 0.3).astype(np.float32)
+    sc = (r.standard_normal(512) * 0.1).astype(np.float32)
+    jx, tx = _bf16_pair(x)
+    ja, ta = _bf16_pair(a)
+
+    def step(v, u, s):
+        y = v + u
+        return y, j_rms_norm(y, s)
+    jy, jn = jax.jit(step)(jx, ja, jnp.asarray(sc))
+    ty, tn = add_rms_norm(tx, ta, _t(sc))
+    np.testing.assert_array_equal(ty.float().numpy(),
+                                  np.asarray(jy.astype(jnp.float32)))
+    np.testing.assert_array_equal(tn.float().numpy(),
+                                  np.asarray(jn.astype(jnp.float32)))
+    eager = np.asarray(j_rms_norm(jx + ja, jnp.asarray(sc))
+                       .astype(jnp.float32))
+    assert (eager != tn.float().numpy()).mean() > 0.05
+
+
 def test_weight_range_search_l24():
     r = np.random.default_rng(5)
     w = (r.standard_normal((64, 96)) * r.uniform(0.2, 2, (64, 1))).astype(

@@ -20,6 +20,9 @@ oracles, on inputs drawn from numpy seeds and handed to both packages:
   page, padding rows, exact causal horizon, q_len=1 vs decode, fp-pool
   dispatch. Valid rows only, rtol 1e-5 / atol 1e-5 for f32 queries; bf16
   queries at bf16 resolution (rtol 1e-2, one bf16 ulp of the output).
+  The plain versions walk the pages with the kernels' online softmax: in
+  bf16 on one int8 pool, >= 99 % of outputs bitwise equal to the Pallas
+  kernels' and the rest one bf16 ulp apart.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -220,6 +223,38 @@ def test_ragged_bf16_queries_round_like_the_kernel():
     valid = args[-1] >= 0
     np.testing.assert_allclose(got[valid], want[valid], rtol=1e-2,
                                atol=1e-2)
+
+
+def _bf16_ulps(a, b):
+    """bf16 ulp distance between two f32 arrays of bf16 values."""
+    ai, bi = _t(a).to(torch.bfloat16), _t(b).to(torch.bfloat16)
+    return (ai.view(torch.int16).int() - bi.view(torch.int16).int()).abs()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_bf16_plain_attention_follows_pallas_kernels(seed, case):
+    """bf16 queries on one int8 pool: both plain versions walk the pages
+    with the Pallas kernels' online softmax (interpret mode), so >= 99 %
+    of valid outputs are bitwise equal and the rest one bf16 ulp apart
+    (f32 dot association moves a value across a rounding boundary)."""
+    q_lens, lengths, page_size, n_ptab = CASES[case]
+    args = _attn_case(seed, len(q_lens), max(q_lens), 2, 2, 32, page_size,
+                      n_ptab, q_lens, lengths)
+    jq = jnp.asarray(args[0]).astype(jnp.bfloat16)
+    tq = _t(np.asarray(jq.astype(jnp.float32))).to(torch.bfloat16)
+    valid = args[-1] >= 0
+    want = np.asarray(j_ragged(jq, *map(jnp.asarray, args[1:]),
+                               interpret=True).astype(jnp.float32))
+    got = P.paged_attention_ragged_plain(tq, *map(_t, args[1:]))
+    ulps = _bf16_ulps(got.float().numpy()[valid], want[valid])
+    assert ulps.max() <= 1 and (ulps == 0).float().mean() >= 0.99
+    pool = args[1:7]
+    want = np.asarray(j_decode(jq[:, 0], *map(jnp.asarray, pool),
+                               interpret=True).astype(jnp.float32))
+    got = P.paged_attention_decode_plain(tq[:, 0], *map(_t, pool))
+    ulps = _bf16_ulps(got.float().numpy(), want)
+    assert ulps.max() <= 1 and (ulps == 0).float().mean() >= 0.99
 
 
 def test_padded_query_rows_do_not_contaminate():
