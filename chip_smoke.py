@@ -17,7 +17,12 @@ Phases (any failure exits non-zero before the final line):
              tolerance, its time, its plain version's time, its lower
              bound (bytes over 3.35 TB/s or operations over the peak rate
              for their type, H100 SXM data sheet) and, where one PyTorch
-             call computes the same function, that call's time.
+             call computes the same function, that call's time. The
+             block-CAT is also held bitwise on f32 inputs and at ragged
+             row counts (1, 7, 300), W8A8 ``quant_matmul`` bitwise at
+             ragged (M, K, N) with 4-bit and full-range int8 codes
+             (``check_block_edges``, ``check_w8a8_edges``), and the fused
+             linear with int8 weights too.
 4. serving — full-width catlm-60m (8 layers, d 512, 8/4 heads, d_ff 1536,
              vocab 8192), seeded random init, CAT W4A4 int4-packed PTQ on
              the card, 8 mixed requests (32 new tokens each) through the
@@ -41,8 +46,8 @@ Phases (any failure exits non-zero before the final line):
              dynamic quant -> W4A8 GEMV / tiled or W8A8 contraction, four
              launches) on all 32 serving linears of the served CAT-W4A4
              params and of a CAT-W8A4 PTQ of the same seeded model, at 8
-             and 128 rows: bf16 against the plain composition, f32 against
-             the fused linear, each timed beside the fused linear. All six
+             and 128 rows: bf16 against the plain composition, f32 bitwise
+             against the fused linear, each timed beside the fused linear. All six
              of its kernels must have launched in its counted pass.
 
 The second line from the end is the per-kernel JSON summary, the last line
@@ -151,10 +156,13 @@ def fused_linear_operands(m, d, n, gen, dev):
 
 def check_fused_linear(name, run, rows, card, gen, dev):
     """Hold one fused-linear entry point against its plain version at
-    every main-path (D, N) and each row count in ``rows``. Tolerance: two
-    activation-code steps of the row's largest weight term (sx·sw·|q_w|),
-    since f32 dot association may move a transformed value across a
-    rounding boundary, plus 1e-5 of the output's scale."""
+    every main-path (D, N) and each row count in ``rows``, timed with
+    packed int4 weights and checked untimed with int8 weights too.
+    Tolerance: two activation-code steps of the row's largest weight term
+    (sx·sw·|q_w|), since f32 dot association may move a transformed value
+    across a rounding boundary, plus 1e-5 of the output's scale."""
+    import torch
+
     from repro_torch.kernels import fused_cat_matmul as F
     out = []
     for d, n in LINEAR_SHAPES:
@@ -184,9 +192,21 @@ def check_fused_linear(name, run, rows, card, gen, dev):
                    "kernel_ms": ms, "call_ms": per_call,
                    "plain_ms": plain_ms, "library_ms": None,
                    "bound_ms": b_ms, "bound_by": b_by, "card": card}
+            # int8 weights (stage 2 is the W8A8 contraction above 8 rows)
+            w8 = torch.randint(-128, 128, (d, n), generator=gen,
+                               dtype=torch.int8).to(dev)
+            w8_args = (*args[:5], w8, args[6])
+            got = run(*w8_args, act_bits=4, packed=False)
+            want = F.fused_cat_linear_plain(*w8_args, act_bits=4,
+                                            packed=False)
+            rec["w8_max_err"] = (got - want).abs().max().item()
+            rec["w8_tol"] = (2 * sx.max().item() * args[6].max().item()
+                             * 128 + 1e-5 * want.abs().max().item())
             print(json.dumps(rec))
             if not err <= tol:
                 fail(f"{name} m={m} d={d} n={n}: max error {err} > {tol}")
+            if not rec["w8_max_err"] <= rec["w8_tol"]:
+                fail(f"{name} W8 m={m} d={d} n={n}: {json.dumps(rec)}")
             out.append(rec)
     return out
 
@@ -422,13 +442,42 @@ def timed_record(name, shape, run, plain, library, nbytes, op_seconds,
     return rec
 
 
+def check_block_edges(gen, dev):
+    """Block-CAT (row 11) at ragged row counts (1, 7, 300: a partial row
+    tile, and more tiles than the timed shapes) and D 512 and 1536, in f32
+    (bitwise against the plain version: each output is one fmaf chain over
+    the block's row from 0, as cuBLAS's f32 product of depth 32 is) and
+    bf16 (one bf16 unit plus 1e-5 of the scale)."""
+    from repro_torch.kernels import block_matmul as B
+    recs = []
+    for d in (512, 1536):
+        for m in (1, 7, 300):
+            x, blocks = stage_operands(m, d, gen, dev)[:2]
+            for xt in (x, x.float()):
+                got = B.block_diag_matmul(xt, blocks)
+                want = B.block_diag_matmul_plain(xt, blocks)
+                err, same, ok = bf16_close(got, want)
+                if xt.dtype != x.dtype:
+                    ok = same == 1.0
+                rec = {"kernel": "block_diag_matmul", "m": m, "d": d,
+                       "dtype": str(xt.dtype), "max_err": err,
+                       "bitwise_share": same}
+                recs.append(rec)
+                if not ok:
+                    fail(f"block_diag_matmul edge: {json.dumps(rec)}")
+    print("block_diag_matmul edges " + json.dumps(recs))
+    return recs
+
+
 def check_stages(card, gen, dev):
     """Block-CAT, sign ⊙ Hadamard and dynamic quant (rows 11, 10, 9) at
     the composed path's shapes (8 and 128 rows, D 512 and 1536, bf16)
     against their plain versions. Tolerances: block-CAT and Hadamard
     outputs within one bf16 unit plus 1e-5 of the scale (f32 dot
-    association); dynamic quant codes, scales and zero points bitwise.
-    Library calls: ``torch.bmm`` on the blocked f32 view for block-CAT, one
+    association), and the block-CAT bitwise on f32 inputs (also at the
+    edges of ``check_block_edges``); dynamic quant codes, scales and zero
+    points bitwise. Library calls: ``torch.bmm`` on the blocked f32 view
+    for block-CAT (the view and the cast made outside the timed call), one
     ``torch.matmul`` against the materialised diag(sign)·(ha ⊗ hb)ᵀ for
     the Hadamard; none for the quant."""
     import torch
@@ -438,6 +487,7 @@ def check_stages(card, gen, dev):
     from repro_torch.kernels import hadamard as H
     out = {"block_diag_matmul": [], "hadamard_transform": [],
            "dynamic_quant": []}
+    edges = check_block_edges(gen, dev)
     for d in (512, 1536):
         for m in COMPOSED_ROWS:
             x, blocks, ha, hb, sign = stage_operands(m, d, gen, dev)
@@ -446,8 +496,12 @@ def check_stages(card, gen, dev):
             # block-CAT
             err, same, ok = bf16_close(B.block_diag_matmul(x, blocks),
                                        B.block_diag_matmul_plain(x, blocks))
-            xb = x.float().reshape(m, d // CAT_BLOCK, CAT_BLOCK
-                                   ).transpose(0, 1).contiguous()
+            xf = x.float()
+            f32_same = (B.block_diag_matmul(xf, blocks)
+                        == B.block_diag_matmul_plain(xf, blocks)
+                        ).float().mean().item()
+            xb = xf.reshape(m, d // CAT_BLOCK, CAT_BLOCK
+                            ).transpose(0, 1).contiguous()
             bt = blocks.transpose(1, 2).contiguous()
             out["block_diag_matmul"].append(timed_record(
                 "block_diag_matmul", shape,
@@ -457,16 +511,17 @@ def check_stages(card, gen, dev):
                 4 * m * d + 4 * d * CAT_BLOCK,
                 2 * m * d * CAT_BLOCK / F32_FLOP_S, card,
                 {"max_err": err, "bitwise_share": same,
-                 "tol": "one bf16 unit + 1e-5 of scale",
+                 "f32_bitwise_share": f32_same,
+                 "tol": "one bf16 unit + 1e-5 of scale; f32 bitwise",
                  "library": "torch.bmm on the blocked f32 view"}))
-            if not ok:
-                fail(f"block_diag_matmul m={m} d={d}: max error {err}")
+            if not ok or f32_same != 1.0:
+                fail(f"block_diag_matmul m={m} d={d}: max error {err}, "
+                     f"f32 bitwise share {f32_same}")
             # sign ⊙ Hadamard
             err, same, ok = bf16_close(
                 H.hadamard_transform(x, ha, hb, sign),
                 H.hadamard_transform_plain(x, ha, hb, sign))
             dense = (sign[:, None] * torch.kron(ha, hb).T).contiguous()
-            xf = x.float()
             out["hadamard_transform"].append(timed_record(
                 "hadamard_transform", shape,
                 lambda: H.hadamard_transform(x, ha, hb, sign),
@@ -495,27 +550,89 @@ def check_stages(card, gen, dev):
             if any(diffs):
                 fail(f"dynamic_quant m={m} d={d}: {diffs} codes/scales/zps "
                      f"differ from the plain version")
+    out["block_diag_matmul"] += edges
     return out
 
 
-def contraction_operands(m, k, n, gen, dev, packed):
-    """4-bit activation codes with their scales and zero points, and int4
-    (packed) or int8 weight codes with per-channel scales."""
+def contraction_operands(m, k, n, gen, dev, packed, act_bits=4):
+    """``act_bits`` activation codes (signed, full range) with their
+    scales and zero points, and int4 (packed) or int8 weight codes with
+    per-channel scales."""
     import torch
 
     from repro_torch.core.quantizers import pack_int4
-    qx = torch.randint(-8, 8, (m, k), generator=gen, dtype=torch.int8)
+    half = 2 ** (act_bits - 1)
+    qx = torch.randint(-half, half, (m, k), generator=gen, dtype=torch.int8)
     sx = torch.rand((m, 1), generator=gen) * 0.02 + 0.001
-    zx = torch.randint(-8, 8, (m, 1), generator=gen).float()
+    zx = torch.randint(-half, half, (m, 1), generator=gen).float()
     if packed:
         w = torch.randint(-8, 8, (k, n), generator=gen, dtype=torch.int8)
         qw = pack_int4(w, axis=0)
     else:
-        w = torch.randint(-127, 128, (k, n), generator=gen,
+        w = torch.randint(-128, 128, (k, n), generator=gen,
                           dtype=torch.int8)
         qw = w
     sw = torch.rand((1, n), generator=gen) * 0.02 + 0.001
     return [t.to(dev) for t in (qx, sx, zx, qw, sw)], w.to(dev)
+
+
+QMM_EDGES = [(9, 64, 40), (130, 1536, 72), (33, 63, 24),   # (M, K, N)
+             (9, 4096, 16)]
+
+
+def check_w8a8_edges(gen, dev):
+    """W8A8 ``quant_matmul`` (row 8) at the CPU tests' ragged shapes, one
+    tile over a deep K (64 splits of one 64-deep K tile each) and the
+    main-path shapes, with 4-bit and full-range int8 activation codes,
+    bitwise against the plain version (exact integer accumulation, split
+    K included, and one epilogue in the same op order); every K split
+    holds at least one K tile. Also at int8 extremes, where each sum
+    passes 2^24."""
+    import torch
+
+    from repro_torch.kernels import quant_matmul as QM
+    recs = []
+    shapes = QMM_EDGES + [(m, k, n) for k, n in LINEAR_SHAPES
+                          for m in COMPOSED_ROWS]
+    for m, k, n in shapes:
+        for act_bits in (4, 8):
+            args, _ = contraction_operands(m, k, n, gen, dev, False,
+                                           act_bits)
+            got, want = QM.quant_matmul(*args), QM.quant_matmul_plain(*args)
+            splits = QM.w8a8_plan(m, k, n, dev)[0]
+            k_tiles = -(-k // 64)                 # 64-deep K tiles
+            per = -(-k_tiles // splits)
+            rec = {"kernel": "quant_matmul", "m": m, "d": k, "n": n,
+                   "act_bits": act_bits, "splits": splits,
+                   "max_err": (got - want).abs().max().item(),
+                   "differing": int((got != want).sum().item())}
+            recs.append(rec)
+            if rec["differing"]:
+                fail(f"quant_matmul not bitwise: {json.dumps(rec)}")
+            if not (splits - 1) * per < k_tiles <= splits * per:
+                fail(f"quant_matmul split of {k_tiles} K tiles into "
+                     f"{splits} leaves one empty: {json.dumps(rec)}")
+    # int8 extremes: codes -128 but the last three (1) on both sides, so
+    # each sum is 1533 * 2^14 + 3, above 2^24 (exact int32 or nothing)
+    for m, k, n in ((9, 1536, 40), (130, 1536, 24)):
+        qx = torch.full((m, k), -128, dtype=torch.int8)
+        qw = torch.full((k, n), -128, dtype=torch.int8)
+        qx[:, -3:], qw[-3:] = 1, 1
+        sx = torch.rand((m, 1), generator=gen) * 0.02 + 0.001
+        zx = torch.randint(-128, 128, (m, 1), generator=gen).float()
+        sw = torch.rand((1, n), generator=gen) * 0.02 + 0.001
+        args = [t.to(dev) for t in (qx, sx, zx, qw, sw)]
+        got, want = QM.quant_matmul(*args), QM.quant_matmul_plain(*args)
+        rec = {"kernel": "quant_matmul", "m": m, "d": k, "n": n,
+               "codes": "-128 but the last three",
+               "splits": QM.w8a8_plan(m, k, n, dev)[0],
+               "max_err": (got - want).abs().max().item(),
+               "differing": int((got != want).sum().item())}
+        recs.append(rec)
+        if rec["differing"]:
+            fail(f"quant_matmul not bitwise: {json.dumps(rec)}")
+    print("quant_matmul edges " + json.dumps(recs))
+    return recs
 
 
 def check_contractions(card, gen, dev):
@@ -523,9 +640,11 @@ def check_contractions(card, gen, dev):
     ``quant_gemv_w4`` at 8 rows, ``quant_matmul_w4`` at 128, W8A8
     ``quant_matmul`` at both, against their plain versions at rtol 1e-5 of
     the output's scale (both accumulate exact integers and apply the
-    epilogue once). Library: ``torch._int_mm`` of the codes against the
-    unpacked int8 weight, which covers the integer product only (no
-    nibble unpacking, no epilogue); it needs more than 16 rows."""
+    epilogue once); W8A8 also bitwise, at ragged shapes and with full-range
+    int8 codes (``check_w8a8_edges``). Library: ``torch._int_mm`` of the
+    codes against the unpacked int8 weight, which covers the integer
+    product only (no nibble unpacking, no epilogue); it needs more than 16
+    rows."""
     import torch
 
     from repro_torch.kernels import quant_matmul as QM
@@ -559,6 +678,7 @@ def check_contractions(card, gen, dev):
                      "torch._int_mm: the integer product only"}))
                 if not err <= tol:
                     fail(f"{name} m={m} k={k} n={n}: max error {err} > {tol}")
+    out["quant_matmul"] += check_w8a8_edges(gen, dev)
     return out
 
 
@@ -910,8 +1030,9 @@ def composed_phase(model, params_w4, counters, card, gen):
     one-ulp difference of a bf16 intermediate may move a code — and each
     output within its row's moved steps, sx·max(sw)·max|w| each, plus one
     bf16 unit and 1e-5 of the scale), each f32 call against
-    ``ops.fused_cat_matmul`` (two activation-code steps, as
-    ``check_fused_linear`` states), and each call is timed beside the
+    ``ops.fused_cat_matmul`` bitwise (the same f32 transform chains, the
+    same quant and the same contractions: W8 runs the W8A8 tensor-core
+    contraction in both above 8 rows), and each call is timed beside the
     fused linear (device ms)."""
     import torch
 
@@ -983,15 +1104,13 @@ def composed_phase(model, params_w4, counters, card, gen):
                                        ql.scale, act_bits=ql.act_bits,
                                        packed=ql.packed)
         err32 = (y32 - fused32).abs().max().item()
-        tol32 = (2 * sx_p.max() * ql.scale.max() * wmax
-                 + 1e-5 * fused32.abs().max()).item()
         rec = {"bits": bits, "layer": li, "linear": name, "m": m,
                "d": x.shape[1], "n": n,
                "bf16_max_err": err16.max().item(),
                "bf16_within_tol": bool((err16 <= tol16).all()),
                "code_shift_max": shift.max().item(),
                "code_shift_share": (shift > 0).float().mean().item(),
-               "f32_vs_fused_max_err": err32, "f32_tol": tol32,
+               "f32_vs_fused_max_err": err32, "f32_tol": 0.0,
                "composed_ms": device_ms(lambda: call(x, ql, dec)),
                "fused_ms": device_ms(lambda: ops.fused_cat_matmul(
                    x, *dec, ql.qweight, ql.scale, act_bits=ql.act_bits,
@@ -999,7 +1118,7 @@ def composed_phase(model, params_w4, counters, card, gen):
                "card": card}
         recs.append(rec)
         if not (rec["bf16_within_tol"] and rec["code_shift_max"] <= 1
-                and rec["code_shift_share"] <= 1e-2 and err32 <= tol32):
+                and rec["code_shift_share"] <= 1e-2 and err32 == 0):
             fail(f"composed linear: {json.dumps(rec)}")
     summary = {}
     for bits in ("w4", "w8"):

@@ -6,13 +6,16 @@
 // Shared by the fused CAT linear (fused_cat_matmul.cu, stage 2) and the
 // stand-alone contractions of the composed linear (quant_matmul.cu).
 //
-// Two shapes. The GEMV (m <= 8: the packed weight is the only large
-// stream; one CTA per 32 output columns, 8 K-slices reduced in shared
-// memory) and the tiled one (m > 8: 32 x 64 output tiles, codes and
-// unpacked weights staged in shared memory per 64-deep K step). Integer
-// accumulation is exact over all of K, so the column sums ride along and
-// the epilogue runs once (the TPU kernels add one f32 epilogue per K tile;
-// the reference's oracle, like this, applies it once).
+// Three kernels. The GEMV (m <= 8, int4-packed or int8 weights: the
+// weight is the only large stream; one CTA per 32 output columns, 8
+// K-slices reduced in shared memory). Above 8 rows, the tiled one for
+// packed int4 weights (32 x 64 output tiles, codes and unpacked weights
+// staged in shared memory per 64-deep K step, int32 FMAs on the CUDA
+// cores) and, for int8 weights, the W8A8 tensor-core one (namespace w8a8
+// below). Integer accumulation is exact over all of K, so the column sums
+// ride along and the epilogue runs once (the TPU kernels add one f32
+// epilogue per K tile; the reference's oracle, like this, applies it
+// once).
 //
 // qx is read with row stride ldq and its first k_valid codes; codes at
 // k_valid <= k < k_pad count as 0 (odd K against a packed weight whose
@@ -28,7 +31,7 @@ namespace contract {
 constexpr int kGemvM = 8;       // rows served by the GEMV contraction
 constexpr int kGemvCols = 32;   // output columns per GEMV CTA
 constexpr int kGemvSlices = 8;  // K-slices per GEMV CTA
-constexpr int kTM = 32, kTN = 64, kTK = 64;   // tiled contraction tile
+constexpr int kTM = 32, kTN = 64, kTK = 64;   // tiled (int4) contraction tile
 
 __device__ __forceinline__ int lo_nibble(int byte) {
   return ((byte & 0xF) ^ 8) - 8;
@@ -108,10 +111,9 @@ __global__ void contract_gemv_kernel(
   }
 }
 
-// Tiled contraction for m > 8 rows.
+// Tiled contraction of m > 8 rows against int4-packed weights.
 // grid (ceil(n / 64), ceil(m / 32)); block (64, 4): each thread owns one
 // column and eight rows of the 32 x 64 output tile.
-template <bool PACKED>
 __global__ void contract_tiled_kernel(
     const int8_t* __restrict__ qx, int ldq, int k_valid,
     const float* __restrict__ sx, const float* __restrict__ zx, int m,
@@ -133,21 +135,13 @@ __global__ void contract_tiled_kernel(
       const int gr = m0 + r, gk = k0 + k;
       s_a[r][k] = (gr < m && gk < k_valid) ? qx[(size_t)gr * ldq + gk] : 0;
     }
-    if (PACKED) {
-      for (int i = tid; i < (kTK / 2) * kTN; i += nt) {
-        const int pr = i / kTN, c = i - pr * kTN;
-        const int gpr = k0 / 2 + pr, gc = n0 + c;
-        const int byte = (gpr < k_pad / 2 && gc < n)
-                             ? qw[(size_t)gpr * n + gc] : 0;
-        s_b[2 * pr][c] = (int8_t)lo_nibble(byte);
-        s_b[2 * pr + 1][c] = (int8_t)hi_nibble(byte);
-      }
-    } else {
-      for (int i = tid; i < kTK * kTN; i += nt) {
-        const int k = i / kTN, c = i - k * kTN;
-        const int gk = k0 + k, gc = n0 + c;
-        s_b[k][c] = (gk < k_pad && gc < n) ? qw[(size_t)gk * n + gc] : 0;
-      }
+    for (int i = tid; i < (kTK / 2) * kTN; i += nt) {
+      const int pr = i / kTN, c = i - pr * kTN;
+      const int gpr = k0 / 2 + pr, gc = n0 + c;
+      const int byte = (gpr < k_pad / 2 && gc < n)
+                           ? qw[(size_t)gpr * n + gc] : 0;
+      s_b[2 * pr][c] = (int8_t)lo_nibble(byte);
+      s_b[2 * pr + 1][c] = (int8_t)hi_nibble(byte);
     }
     __syncthreads();
 #pragma unroll 8
@@ -169,6 +163,267 @@ __global__ void contract_tiled_kernel(
       }
     }
   }
+}
+
+// W8A8 contraction of m > 8 rows against int8 weights on the tensor
+// cores: 64 x 64 output tiles, four warps of 32 x 32, each product an
+// mma.sync m16n8k32 s8 x s8 -> s32. The weights keep the reference's
+// (k, n) row-major layout, so each 64 x 64 weight tile is copied raw into
+// shared memory with cp.async (a four-deep ring over K) and transposed
+// there in 4 x 4 byte blocks with byte permutes to the K-contiguous
+// columns the B operand wants; the column sums ride along (dp4a) on the
+// CUDA cores. Where the tiles alone leave the card's SMs short, K is
+// split across CTAs (w8a8_splits): each adds its exact int32 partial sums
+// into zeroed scratch with atomics (integer sums do not depend on their
+// order), and the last CTA of a tile (a device counter) applies the one
+// epilogue, so the result is the same bitwise whatever the split. qx is
+// read with row stride k.
+namespace w8a8 {
+
+constexpr int kTM = 64, kTN = 64, kTK = 64, kThreads = 128;
+constexpr int kStages = 4;       // cp.async ring depth over K
+constexpr int kLd = kTK + 16;    // bytes per row of the A and B^T tiles
+constexpr int kLdW = kTN + 16;   // bytes per row of the raw weight tile
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+// Wait until at most kStages - 2 committed groups are pending.
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+}
+
+__device__ __forceinline__ unsigned ld32(const int8_t* p) {
+  return *reinterpret_cast<const unsigned*>(p);
+}
+
+// d += a (16 x 32, row) * b (32 x 8, col), s8 x s8 -> s32, exact.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Copy a rows x 64-byte tile at (r0, c0) of the row-major int8 matrix src
+// (rows x cols, row stride ld) into dst (row stride dst_ld), zero outside
+// the matrix: 16-byte cp.async where the whole chunk lies inside and
+// ``vec`` (16-byte aligned rows), else byte by byte.
+__device__ __forceinline__ void load_tile(int8_t* dst, int dst_ld,
+                                          const int8_t* __restrict__ src,
+                                          int ld, int rows, int cols, int r0,
+                                          int c0, int tile_rows, bool vec) {
+  for (int i = threadIdx.x; i < tile_rows * 4; i += kThreads) {
+    const int r = i >> 2, c = (i & 3) * 16;
+    const int gr = r0 + r, gc = c0 + c;
+    int8_t* d = dst + r * dst_ld + c;
+    if (vec && gr < rows && gc + 16 <= cols) {
+      cp_async16(d, src + (size_t)gr * ld + gc);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 16; ++e)
+        d[e] = (gr < rows && gc + e < cols) ? src[(size_t)gr * ld + gc + e]
+                                            : (int8_t)0;
+    }
+  }
+}
+
+// The raw weight tile w (k, n) into bt (n, k) in 4 x 4 byte blocks; each
+// thread owns columns n4 * 4 .. + 3 (n4 = tid % 16) and adds their codes
+// to cs[].
+__device__ __forceinline__ void transpose_w(const int8_t* w, int8_t* bt,
+                                            int (&cs)[4]) {
+  const int n4 = threadIdx.x & 15;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int k4 = (threadIdx.x >> 4) + 8 * i;
+    const int8_t* src = w + (k4 * 4) * kLdW + n4 * 4;
+    const unsigned w0 = ld32(src), w1 = ld32(src + kLdW),
+                   w2 = ld32(src + 2 * kLdW), w3 = ld32(src + 3 * kLdW);
+    const unsigned t0 = __byte_perm(w0, w1, 0x5140);
+    const unsigned t1 = __byte_perm(w0, w1, 0x7362);
+    const unsigned t2 = __byte_perm(w2, w3, 0x5140);
+    const unsigned t3 = __byte_perm(w2, w3, 0x7362);
+    const unsigned col[4] = {__byte_perm(t0, t2, 0x5410),
+                             __byte_perm(t0, t2, 0x7632),
+                             __byte_perm(t1, t3, 0x5410),
+                             __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      *reinterpret_cast<unsigned*>(bt + (n4 * 4 + c) * kLd + k4 * 4) = col[c];
+      cs[c] = __dp4a((int)col[c], 0x01010101, cs[c]);
+    }
+  }
+}
+
+// grid (ceil(n / kTN), ceil(m / kTM), splits), block kThreads. Split z
+// takes K tiles [z * kt_per, min((z + 1) * kt_per, ceil(k / kTK))). With
+// splits > 1, ws holds zeroed int32 scratch: the (m, n) sums, the
+// (ceil(m / kTM), n) column sums and one counter per output tile.
+__global__ void __launch_bounds__(kThreads) w8a8_mma_kernel(
+    const int8_t* __restrict__ qx, const float* __restrict__ sx,
+    const float* __restrict__ zx, int m, int k,
+    const int8_t* __restrict__ qw, const float* __restrict__ sw, int n,
+    int kt_per, bool vec_a, bool vec_w, int* __restrict__ ws,
+    float* __restrict__ out) {
+  __shared__ __align__(16) int8_t s_a[kStages][kTM * kLd];
+  __shared__ __align__(16) int8_t s_w[kStages][kTK * kLdW];
+  __shared__ __align__(16) int8_t s_bt[kTN * kLd];
+  __shared__ int s_cs[kTN];
+  __shared__ int s_last;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int n0 = blockIdx.x * kTN, m0 = blockIdx.y * kTM;
+  const int splits = gridDim.z;
+  const int kt_total = (k + kTK - 1) / kTK;
+  const int kt0 = blockIdx.z * kt_per;
+  const int kt1 = min(kt0 + kt_per, kt_total);
+  if (tid < kTN) s_cs[tid] = 0;
+  int acc[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0;
+  int cs[4] = {0, 0, 0, 0};
+
+  // ring: K tile kt0 + i lives in slot i % kStages, one commit group each
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (kt0 + i < kt1) {
+      load_tile(s_a[i], kLd, qx, k, m, k, m0, (kt0 + i) * kTK, kTM, vec_a);
+      load_tile(s_w[i], kLdW, qw, n, k, n, (kt0 + i) * kTK, n0, kTK, vec_w);
+    }
+    cp_async_commit();
+  }
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int i = kt - kt0, slot = i % kStages;
+    cp_async_wait_ring();
+    __syncthreads();   // tile i landed; every warp is done with tile i - 1
+    const int ahead = kt + kStages - 1;
+    if (ahead < kt1) {
+      const int to = (i + kStages - 1) % kStages;
+      load_tile(s_a[to], kLd, qx, k, m, k, m0, ahead * kTK, kTM, vec_a);
+      load_tile(s_w[to], kLdW, qw, n, k, n, ahead * kTK, n0, kTK, vec_w);
+    }
+    cp_async_commit();
+    transpose_w(s_w[slot], s_bt, cs);
+    __syncthreads();
+    const int8_t* sa = s_a[slot];
+#pragma unroll
+    for (int kk = 0; kk < kTK; kk += 32) {
+      unsigned a[2][4], b[4][2];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        const int8_t* p = sa + (wm + mi * 16 + g) * kLd + kk + t * 4;
+        a[mi][0] = ld32(p);
+        a[mi][1] = ld32(p + 8 * kLd);
+        a[mi][2] = ld32(p + 16);
+        a[mi][3] = ld32(p + 8 * kLd + 16);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+        const int8_t* p = s_bt + (wn + ni * 8 + g) * kLd + kk + t * 4;
+        b[ni][0] = ld32(p);
+        b[ni][1] = ld32(p + 16);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) mma_s8(acc[mi][ni], a[mi], b[ni]);
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 4; ++c) atomicAdd(&s_cs[(tid & 15) * 4 + c], cs[c]);
+  __syncthreads();
+
+  int* ws_cs = ws + (size_t)m * n + (size_t)blockIdx.y * n;
+  if (splits > 1) {
+    // split K: add this split's exact partial sums into the zeroed
+    // scratch; the tile's last CTA applies the epilogue to the totals
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int row = m0 + wm + mi * 16 + g + (c >> 1) * 8;
+          const int col = n0 + wn + ni * 8 + t * 2 + (c & 1);
+          if (row < m && col < n)
+            atomicAdd(ws + (size_t)row * n + col, acc[mi][ni][c]);
+        }
+    if (tid < kTN && n0 + tid < n) atomicAdd(ws_cs + n0 + tid, s_cs[tid]);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      int* counters = ws + (size_t)m * n + (size_t)gridDim.y * n;
+      s_last = atomicAdd(counters + blockIdx.y * gridDim.x + blockIdx.x,
+                         1) == splits - 1;
+    }
+    __syncthreads();
+    if (!s_last) return;
+    __threadfence();
+    if (tid < kTN && n0 + tid < n) s_cs[tid] = __ldcg(ws_cs + n0 + tid);
+    __syncthreads();
+    for (int i = tid; i < kTM * kTN; i += kThreads) {
+      const int row = m0 + i / kTN, lc = i % kTN;
+      if (row >= m || n0 + lc >= n) continue;
+      const size_t at = (size_t)row * n + n0 + lc;
+      out[at] = epilogue(sx[row], sw[n0 + lc], __ldcg(ws + at),
+                                   zx[row], s_cs[lc]);
+    }
+    return;
+  }
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int row = m0 + wm + mi * 16 + g + (c >> 1) * 8;
+        const int lc = wn + ni * 8 + t * 2 + (c & 1);
+        if (row < m && n0 + lc < n)
+          out[(size_t)row * n + n0 + lc] = epilogue(
+              sx[row], sw[n0 + lc], acc[mi][ni][c], zx[row], s_cs[lc]);
+      }
+}
+
+}  // namespace w8a8
+
+// K splits of the W8A8 contraction of an (m, k) x (k, n) product on a
+// card of ``sms`` SMs: where the output tiles fill fewer than half the SMs
+// and K is deep (16 or more K tiles), enough splits to fill them once,
+// each of at least one K tile; else 1 (a split costs a zeroed scratch and
+// atomics, which a shallow K does not repay).
+inline int w8a8_splits(int m, int k, int n, int sms) {
+  constexpr int tm = w8a8::kTM, tn = w8a8::kTN, tk = w8a8::kTK;
+  if (m <= kGemvM) return 1;
+  const int tiles = ((m + tm - 1) / tm) * ((n + tn - 1) / tn);
+  const int k_tiles = (k + tk - 1) / tk;
+  if (tiles >= sms / 2 || k_tiles < 16) return 1;
+  const int fill = (sms + tiles - 1) / tiles;
+  const int want = fill < k_tiles ? fill : k_tiles;
+  const int per = (k_tiles + want - 1) / want;
+  return (k_tiles + per - 1) / per;
+}
+
+// Zeroed int32 scratch that ``splits`` K splits need: the (m, n) sums, the
+// (ceil(m / 64), n) column sums and one counter per output tile; 0 for 1.
+inline long long w8a8_scratch(int m, int n, int splits) {
+  if (splits <= 1) return 0;
+  const long long m_tiles = (m + w8a8::kTM - 1) / w8a8::kTM;
+  const long long n_tiles = (n + w8a8::kTN - 1) / w8a8::kTN;
+  return (long long)m * n + m_tiles * (n + n_tiles);
 }
 
 // Launch the GEMV contraction (m <= kGemvM). Returns cudaGetLastError().
@@ -196,27 +451,40 @@ inline cudaError_t launch_gemv(const void* qx, int ldq, int k_valid,
   return cudaGetLastError();
 }
 
-// Launch the tiled contraction (any m). Returns cudaGetLastError().
-inline cudaError_t launch_tiled(const void* qx, int ldq, int k_valid,
-                                const void* sx, const void* zx, int m,
-                                int k_pad, const void* qw, int packed,
-                                const void* sw, int n, void* out,
-                                cudaStream_t stream) {
+// Launch the tiled contraction against int4-packed weights (any m).
+// Returns cudaGetLastError().
+inline cudaError_t launch_tiled_w4(const void* qx, int ldq, int k_valid,
+                                   const void* sx, const void* zx, int m,
+                                   int k_pad, const void* qw, const void* sw,
+                                   int n, void* out, cudaStream_t stream) {
   dim3 grid((n + kTN - 1) / kTN, (m + kTM - 1) / kTM);
   dim3 block(kTN, 4);
-  auto q = static_cast<const int8_t*>(qx);
-  auto s = static_cast<const float*>(sx);
-  auto z = static_cast<const float*>(zx);
-  auto w = static_cast<const int8_t*>(qw);
-  auto sc = static_cast<const float*>(sw);
-  auto o = static_cast<float*>(out);
-  if (packed) {
-    contract_tiled_kernel<true><<<grid, block, 0, stream>>>(
-        q, ldq, k_valid, s, z, m, k_pad, w, sc, n, o);
-  } else {
-    contract_tiled_kernel<false><<<grid, block, 0, stream>>>(
-        q, ldq, k_valid, s, z, m, k_pad, w, sc, n, o);
-  }
+  contract_tiled_kernel<<<grid, block, 0, stream>>>(
+      static_cast<const int8_t*>(qx), ldq, k_valid,
+      static_cast<const float*>(sx), static_cast<const float*>(zx), m, k_pad,
+      static_cast<const int8_t*>(qw), static_cast<const float*>(sw), n,
+      static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
+// Launch the W8A8 contraction (m > kGemvM) with ``splits`` K splits (from
+// w8a8_splits; above 1, ws holds w8a8_scratch(m, n, splits) zeroed
+// int32). Returns cudaGetLastError().
+inline cudaError_t launch_w8a8(const void* qx, int m, int k, const void* sx,
+                               const void* zx, const void* qw,
+                               const void* sw, int n, int splits, void* ws,
+                               void* out, cudaStream_t stream) {
+  constexpr int tm = w8a8::kTM, tn = w8a8::kTN, tk = w8a8::kTK;
+  const int kt_total = (k + tk - 1) / tk;
+  const int kt_per = (kt_total + splits - 1) / splits;
+  const bool vec_a = k % 16 == 0 && reinterpret_cast<uintptr_t>(qx) % 16 == 0;
+  const bool vec_w = n % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
+  dim3 grid((n + tn - 1) / tn, (m + tm - 1) / tm, splits);
+  w8a8::w8a8_mma_kernel<<<grid, w8a8::kThreads, 0, stream>>>(
+      static_cast<const int8_t*>(qx), static_cast<const float*>(sx),
+      static_cast<const float*>(zx), m, k, static_cast<const int8_t*>(qw),
+      static_cast<const float*>(sw), n, kt_per, vec_a, vec_w,
+      static_cast<int*>(ws), static_cast<float*>(out));
   return cudaGetLastError();
 }
 

@@ -1,15 +1,18 @@
 // Dynamic per-token quantization for Hopper (sm_90a), plain C interface:
 // each row of x to int8 codes (asymmetric: signed-shifted by 2^(bits-1);
 // symmetric: in [-2^(bits-1), 2^(bits-1) - 1]) with its f32 scale and
-// (shifted) zero point, exactly as the reference's ref.dynamic_quant.
+// (shifted) zero point, exactly as the reference's compiled Pallas kernel
+// (jax.jit of ref.dynamic_quant: the scale is the range times the f32
+// reciprocal of the level count).
 //
 // Replaces the Pallas TPU kernel dynamic_quant of
 // src/repro/kernels/dynamic_quant.py:44 (one VMEM pass per token tile:
 // row reduction, scale and zero point, round and clip). Here one CTA per
 // row stages it in shared memory, reduces its range with warp shuffles
 // (tq::row_ranges) and quantizes it (tq::quant_rows: the code the fused
-// linear's stage 1 runs, rintf for jnp.round, IEEE division), so codes
-// are bitwise those of the plain version.
+// linear's stage 1 runs, rintf for jnp.round, the scale by the f32
+// reciprocal, zero point and codes by IEEE division), so codes are
+// bitwise those of the plain version.
 //
 // Bound on this card: bytes (the activation in, M x D x elt, and the codes
 // out, M x D, plus 8 bytes per row) over HBM bandwidth; a handful of

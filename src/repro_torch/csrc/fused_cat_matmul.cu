@@ -12,14 +12,16 @@
 // (m, k_pad) int8 plus sx, zx (m,) f32 to a scratch buffer the wrapper
 // allocates: (k_pad + 8) bytes per row written and read back once, which
 // the contraction then revisits from shared memory. Stage 2 is the GEMV
-// (m <= 8) or the tiled contraction of contract.cuh, which the composed
-// linear's stand-alone contractions (quant_matmul.cu) share.
+// (m <= 8) or, above, the tiled int4 contraction or the W8A8 tensor-core
+// one of contract.cuh, which the composed linear's stand-alone
+// contractions (quant_matmul.cu) share.
 //
 // Bound on this card: at decode shapes (m <= 8) the packed-weight bytes
 // (D/2 x N) over HBM bandwidth; at the 128-row ragged step the weight is
 // still the larger stream (D/2 x N vs m x D x 2), so bytes bound both.
-// The design reads each weight byte once per M tile, keeps codes on chip,
-// and uses plain int32 FMAs (no wgmma yet).
+// The design reads each weight byte once per M tile and keeps codes on
+// chip; the int4 contraction uses plain int32 FMAs (no wgmma yet), the
+// int8 one mma.sync on the tensor cores.
 #include "contract.cuh"
 #include "transform_quant.cuh"
 
@@ -100,17 +102,23 @@ extern "C" int fused_cat_gemv_w4(
                                     packed, sw, n, out, stream);
 }
 
-// Tiled entry (m > 8). Returns cudaGetLastError() of the launches.
+// Tiled entry (m > 8): stage 2 is the tiled int4 contraction for packed
+// weights, the W8A8 tensor-core one for int8 weights with ``splits`` K
+// splits and their scratch ws (quant_matmul_plan of quant_matmul.cu).
+// Returns cudaGetLastError() of the launches.
 extern "C" int fused_cat_matmul_w4(
     const void* x, int x_is_bf16, int m, int d, int k_pad,
     const void* blocks, int bk, const void* sign,
     const void* ha, int a, const void* hb, int b, int act_bits,
-    const void* qw, int packed, const void* sw, int n,
+    const void* qw, int packed, const void* sw, int n, int splits, void* ws,
     void* qx, void* sx, void* zx, void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   cudaError_t err = stage1(x, x_is_bf16, m, d, k_pad, blocks, bk, sign, ha,
                            a, hb, b, act_bits, qx, sx, zx, stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)contract::launch_tiled(qx, k_pad, k_pad, sx, zx, m, k_pad, qw,
-                                     packed, sw, n, out, stream);
+  if (packed)
+    return (int)contract::launch_tiled_w4(qx, k_pad, k_pad, sx, zx, m, k_pad,
+                                          qw, sw, n, out, stream);
+  return (int)contract::launch_w8a8(qx, m, k_pad, sx, zx, qw, sw, n, splits,
+                                    ws, out, stream);
 }

@@ -7,25 +7,28 @@
 //
 // Replaces the Pallas TPU kernels quant_matmul_w4 and quant_gemv_w4 of
 // src/repro/kernels/quant_matmul_w4.py:72 and :127 and quant_matmul of
-// src/repro/kernels/quant_matmul.py:42. They run the contractions of
-// contract.cuh that the fused CAT linear's stage 2 runs: the GEMV for
-// m <= 8 (quant_gemv_w4, and quant_matmul at decode shapes) and the
-// 32 x 64-tiled contraction above. The Pallas kernels add one f32
+// src/repro/kernels/quant_matmul.py:42. The Pallas kernels add one f32
 // epilogue per K tile; these accumulate exact int32 over all of K and
 // apply the epilogue once, as the reference's oracle does. Odd K: the
 // packed weight's last byte carries a zero high nibble and the missing
 // activation code reads as 0, as the reference pads qx.
 //
+// All three run the contractions of contract.cuh that the fused CAT
+// linear's stage 2 runs: the GEMV for m <= 8, and above it the tiled
+// int4 contraction (quant_matmul_w4: 32 x 64 tiles, int32 FMAs on the
+// CUDA cores) or the W8A8 tensor-core one (quant_matmul: mma.sync
+// m16n8k32 s8 on 64 x 64 tiles, weights transposed in shared memory, K
+// split across CTAs where the tiles alone leave SMs idle).
+//
 // Bound on this card: the weight codes (k/2 x n packed, k x n int8) over
-// HBM bandwidth at decode shapes and at 128 rows alike; the int8 operations
-// (2 m k n) are far below the tensor-core rate. These kernels use int32
-// FMAs on the CUDA cores (no wgmma yet) and read each weight byte once per
-// 32-row tile.
+// HBM bandwidth at decode shapes and at 128 rows alike; the int8
+// operations (2 m k n) are far below the tensor-core rate.
 #include "contract.cuh"
 
 namespace {
 
-int k_pad_of(int k, int packed) { return packed ? 2 * ((k + 1) / 2) : k; }
+// The packed weight's unpacked row count for k activation codes.
+int k_pad_w4(int k) { return 2 * ((k + 1) / 2); }
 
 }  // namespace
 
@@ -34,7 +37,7 @@ int k_pad_of(int k, int packed) { return packed ? 2 * ((k + 1) / 2) : k; }
 extern "C" int quant_gemv_w4(const void* qx, int m, int k, const void* sx,
                              const void* zx, const void* qw, const void* sw,
                              int n, void* out, void* stream_ptr) {
-  return (int)contract::launch_gemv(qx, k, k, sx, zx, m, k_pad_of(k, 1), qw,
+  return (int)contract::launch_gemv(qx, k, k, sx, zx, m, k_pad_w4(k), qw,
                                     1, sw, n, out,
                                     static_cast<cudaStream_t>(stream_ptr));
 }
@@ -43,20 +46,32 @@ extern "C" int quant_gemv_w4(const void* qx, int m, int k, const void* sx,
 extern "C" int quant_matmul_w4(const void* qx, int m, int k, const void* sx,
                                const void* zx, const void* qw, const void* sw,
                                int n, void* out, void* stream_ptr) {
-  return (int)contract::launch_tiled(qx, k, k, sx, zx, m, k_pad_of(k, 1), qw,
-                                     1, sw, n, out,
-                                     static_cast<cudaStream_t>(stream_ptr));
+  return (int)contract::launch_tiled_w4(qx, k, k, sx, zx, m, k_pad_w4(k),
+                                        qw, sw, n, out,
+                                        static_cast<cudaStream_t>(stream_ptr));
+}
+
+// K splits of quant_matmul's (m, k) x (k, n) contraction on a card of
+// ``sms`` SMs (contract::w8a8_splits; 1 for m <= 8); *scratch gets the
+// zeroed int32 elements they need (0 for one split).
+extern "C" int quant_matmul_plan(int m, int k, int n, int sms,
+                                 long long* scratch) {
+  const int splits = contract::w8a8_splits(m, k, n, sms);
+  *scratch = contract::w8a8_scratch(m, n, splits);
+  return splits;
 }
 
 // qx (m, k) int8 against int8 weight codes qw (k, n): the GEMV for m <= 8,
-// the tiled contraction above.
+// the tensor-core contraction above with ``splits`` K splits and their
+// scratch ws, as quant_matmul_plan gives them. Returns cudaGetLastError().
 extern "C" int quant_matmul(const void* qx, int m, int k, const void* sx,
                             const void* zx, const void* qw, const void* sw,
-                            int n, void* out, void* stream_ptr) {
+                            int n, int splits, void* ws, void* out,
+                            void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (m <= contract::kGemvM)
     return (int)contract::launch_gemv(qx, k, k, sx, zx, m, k, qw, 0, sw, n,
                                       out, stream);
-  return (int)contract::launch_tiled(qx, k, k, sx, zx, m, k, qw, 0, sw, n,
-                                     out, stream);
+  return (int)contract::launch_w8a8(qx, m, k, sx, zx, qw, sw, n, splits, ws,
+                                    out, stream);
 }

@@ -4,10 +4,13 @@
 //   block_cat_sign   block-CAT (y_i = B_blk x_blk), then * sign
 //   hadamard_rows    Kronecker Hadamard Y = Ha X Hb^T of each row
 //   row_ranges       each row's min and max
-//   quant_rows       asymmetric: scale = max(ymax - ymin, 1e-12) /
-//                    (2^bits - 1), zp = rint(-ymin / scale), codes shifted
-//                    by 2^(bits-1) (signed); symmetric: scale =
-//                    max(amax, 1e-12) / (2^(bits-1) - 1), zp = 0
+//   quant_rows       asymmetric: scale = max(ymax - ymin, 1e-12) *
+//                    f32(1 / (2^bits - 1)), zp = rint(-ymin / scale),
+//                    codes rint(y / scale + zp) shifted by 2^(bits-1)
+//                    (signed); symmetric: scale = max(amax, 1e-12) *
+//                    f32(1 / (2^(bits-1) - 1)), zp = 0. The scale is the
+//                    compiled reference's multiply by the f32 reciprocal;
+//                    the divisions by the scale stay IEEE divisions.
 // transform_quant_rows composes them for the fused CAT linear
 // (fused_cat_matmul.cu, stage 1: one row per CTA) and the decode QKV
 // prologue (decode_layer.cu: every decode row in each CTA); the stand-alone
@@ -164,8 +167,10 @@ __device__ void row_ranges(const float* s_y, int m, int d, float* red_min,
 // Quantize each row of s_y with its range from row_ranges. Writes k_pad
 // codes per row to q_out (row stride k_pad; the K padding carries code 0)
 // and each row's scale and (signed-shifted) zero point to scale_out[r],
-// zp_out[r]. rintf is round half to even (jnp.round), the divisions are
-// IEEE (no fast math), and nothing is FMA-contracted.
+// zp_out[r]. As XLA compiles the reference, the scale is the range times
+// the f32 reciprocal of the level count (one rounded multiply); zp and the
+// codes divide by the scale (IEEE, no fast math). rintf is round half to
+// even (jnp.round), and nothing is FMA-contracted.
 template <int MAXR>
 __device__ void quant_rows(const float* s_y, int m, int d, int k_pad,
                            int bits, bool symmetric, const float* red_min,
@@ -182,8 +187,8 @@ __device__ void quant_rows(const float* s_y, int m, int d, int k_pad,
     }
     if (symmetric) {
       const float qmax = half - 1.f;
-      const float scale = fmaxf(fmaxf(fabsf(ymin), fabsf(ymax)), 1e-12f)
-                          / qmax;
+      const float scale = __fmul_rn(
+          fmaxf(fmaxf(fabsf(ymin), fabsf(ymax)), 1e-12f), 1.f / qmax);
       for (int k = tid; k < k_pad; k += nt) {
         float q = 0.f;
         if (k < d) {
@@ -198,7 +203,8 @@ __device__ void quant_rows(const float* s_y, int m, int d, int k_pad,
       }
     } else {
       const float levels = (float)((1 << bits) - 1);
-      const float scale = fmaxf(__fsub_rn(ymax, ymin), 1e-12f) / levels;
+      const float scale =
+          __fmul_rn(fmaxf(__fsub_rn(ymax, ymin), 1e-12f), 1.f / levels);
       const float zp = rintf(-ymin / scale);
       for (int k = tid; k < k_pad; k += nt) {
         float q = 0.f;

@@ -4,14 +4,19 @@ Replaces the Pallas TPU kernel ``dynamic_quant`` of
 ``src/repro/kernels/dynamic_quant.py:44``: each row of x to int8 codes
 with an f32 scale and zero point, at 2–8 bits, asymmetric (codes and zero
 point shifted by 2^(bits-1) into the signed range) or symmetric (zero
-point 0), exactly as ``ref.dynamic_quant``.
+point 0), bitwise as the Pallas kernel computes them: XLA compiles the
+division of the range by the level count as a multiply by the f32
+reciprocal, and divides by the scale for zero point and codes (the eager
+``ref.dynamic_quant`` divides by the level count and is an ulp off in
+some scales).
 
 The CUDA source is ``src/repro_torch/csrc/dynamic_quant.cu``: one CTA per
 row, the row range by warp shuffles, then the quant of the fused linear's
-stage 1 (``transform_quant.cuh``: ``rintf`` for ``jnp.round``, IEEE
-division), so codes are bitwise the plain version's. What bounds it on
-the H100 is bytes (the activation in, the codes out) over HBM bandwidth;
-the design reads and writes each element once.
+stage 1 (``transform_quant.cuh``: ``rintf`` for ``jnp.round``, the same
+reciprocal scale, IEEE division by the scale), so codes are bitwise the
+plain version's. What bounds it on the H100 is bytes (the activation in,
+the codes out) over HBM bandwidth; the design reads and writes each
+element once.
 
 The wrapper launches the kernel for CUDA tensors (counted in
 ``dynamic_quant.launches``) and takes the plain PyTorch version only for
@@ -31,11 +36,13 @@ _SIGNATURES = {"dynamic_quant": [_P, _C, _C, _C, _C, _C, _P, _P, _P, _P]}
 _SMEM_MAX = 48 * 1024
 
 
-def _true_div(t: torch.Tensor, c: float) -> torch.Tensor:
-    """t / c by IEEE division on every device: PyTorch's CUDA kernels
-    multiply by the reciprocal of a Python-scalar divisor, which moves the
-    scale by an ulp against the reference and the kernel."""
-    return t / torch.full_like(t, c)
+def _times_recip(t: torch.Tensor, levels: float) -> torch.Tensor:
+    """t * f32(1 / levels), one rounded f32 multiply: the compiled
+    reference folds the division of the range by the level count into a
+    multiply by the f32 reciprocal. The reciprocal is a Python float that
+    is exact in f32, so no host tensor is copied (CUDA-graph safe)."""
+    recip = (torch.tensor(1.0, dtype=torch.float32) / levels).item()
+    return t * recip
 
 
 def dynamic_quant_plain(x: torch.Tensor, bits: int = 8,
@@ -46,14 +53,14 @@ def dynamic_quant_plain(x: torch.Tensor, bits: int = 8,
     if symmetric:
         qmax = 2.0 ** (bits - 1) - 1
         amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
-        scale = _true_div(torch.clamp_min(amax, 1e-12), qmax)
+        scale = _times_recip(torch.clamp_min(amax, 1e-12), qmax)
         zp = torch.zeros_like(scale)
         q = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax)
     else:
         levels = 2.0 ** bits - 1
         xmin = xf.amin(-1, keepdim=True)
         xmax = xf.amax(-1, keepdim=True)
-        scale = _true_div(torch.clamp_min(xmax - xmin, 1e-12), levels)
+        scale = _times_recip(torch.clamp_min(xmax - xmin, 1e-12), levels)
         zp = torch.round(-xmin / scale)
         q = torch.clamp(torch.round(xf / scale + zp), 0, levels)
         q = q - 2.0 ** (bits - 1)

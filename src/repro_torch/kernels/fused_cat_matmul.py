@@ -9,7 +9,9 @@ Replaces the Pallas TPU kernels ``fused_cat_gemv_w4`` and
 
 The CUDA source is ``src/repro_torch/csrc/fused_cat_matmul.cu``: a
 transform-quant launch (one CTA per row, in shared memory) followed by a
-contraction launch (GEMV for M <= 8, 32x64 tiles above). What bounds it
+contraction launch (GEMV for M <= 8; above, 32x64 int4 tiles for packed
+weights or, for int8 weights, the W8A8 tensor-core contraction of
+``quant_matmul``). What bounds it
 on the H100 is the packed weight stream (D/2 x N bytes) at decode shapes
 and at the 128-row step alike; the design reads each weight byte once per
 row tile and keeps the codes on chip. The code round trip between the two
@@ -32,15 +34,17 @@ from . import build
 from .block_matmul import block_diag_f32
 from .dynamic_quant import dynamic_quant_plain
 from .hadamard import hadamard_f32
-from .quant_matmul import quant_matmul_plain
+from .quant_matmul import quant_matmul_plain, w8a8_plan
 from .quant_matmul_w4 import GEMV_M
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
-_SIGNATURE = [_P, _C, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C,
-              _P, _C, _P, _C, _P, _P, _P, _P, _P]
-_SIGNATURES = {"fused_cat_gemv_w4": _SIGNATURE,
-               "fused_cat_matmul_w4": _SIGNATURE}
+_HEAD = [_P, _C, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C, _P, _C, _P,
+         _C]                 # x ... n
+_TAIL = [_P] * 5             # qx, sx, zx, out, stream
+# the tiled entry adds the W8A8 contraction's K splits and their scratch
+_SIGNATURES = {"fused_cat_gemv_w4": _HEAD + _TAIL,
+               "fused_cat_matmul_w4": _HEAD + [_C, _P] + _TAIL}
 
 
 # ------------------------------------------------------------ plain version
@@ -118,12 +122,16 @@ def _launch(fn_name, x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     zx = torch.empty((m,), dtype=torch.float32, device=x.device)
     bk = 0 if blocks is None else blocks.shape[1]
+    split = ()
+    if fn_name == "fused_cat_matmul_w4":
+        splits, ws = (1, None) if packed else w8a8_plan(m, k_pad, n, x.device)
+        split = (splits, build.ptr(ws))
     code = getattr(lib, fn_name)(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d, k_pad,
         build.ptr(blocks), bk, build.ptr(sign), build.ptr(ha), ha.shape[0],
         build.ptr(hb), hb.shape[0], act_bits, build.ptr(qw), int(packed),
-        build.ptr(sw), n, build.ptr(qx), build.ptr(sx), build.ptr(zx),
-        build.ptr(out), build.stream_of(x))
+        build.ptr(sw), n, *split, build.ptr(qx), build.ptr(sx),
+        build.ptr(zx), build.ptr(out), build.stream_of(x))
     build.check(code, fn_name)
     return out
 

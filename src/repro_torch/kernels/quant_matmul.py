@@ -8,14 +8,19 @@ Replaces the Pallas TPU kernel ``quant_matmul`` of
 for int8 activation codes qx (M, K), sx/zpx (M, 1) f32, int8 weight codes
 qw (K, N) and sw (1, N) f32 -> (M, N) f32.
 
-The CUDA source is ``src/repro_torch/csrc/quant_matmul.cu``, over the
-contractions the fused linear's stage 2 runs (``contract.cuh``): the GEMV
-for M <= 8, 32x64 tiles above. The Pallas kernel adds one f32 epilogue per
-K tile (three partial sums at K 1536 with its default ``block_k`` 512);
-the kernel and the plain version here accumulate exact integers over all
-of K and apply the epilogue once, as ``ref.quant_matmul`` does. What
-bounds it on the H100 is the weight bytes (K x N) over HBM bandwidth; the
-design reads each weight byte once per 32-row tile.
+The CUDA source is ``src/repro_torch/csrc/quant_matmul.cu``: the GEMV of
+the fused linear's stage 2 (``contract.cuh``) for M <= 8, and above it a
+tensor-core kernel: 64x64 output tiles, each product an ``mma.sync``
+m16n8k32 s8 x s8 -> s32, the (K, N) weight tile copied raw into shared
+memory (``cp.async``, a four-deep ring over K) and transposed there with
+byte permutes; K is split across CTAs where the tiles alone would leave
+the card's SMs idle (``w8a8_plan``). The fused linear's stage 2 runs the
+same contraction for int8 weights. The Pallas kernel adds one f32
+epilogue per K tile (three partial sums at K 1536 with its default
+``block_k`` 512); the kernel and the plain version here accumulate exact
+integers over all of K (the splits' int32 partial sums are added exactly)
+and apply the epilogue once, as ``ref.quant_matmul`` does. What bounds it
+on the H100 is the weight bytes (K x N) over HBM bandwidth.
 
 The wrapper launches the kernel for CUDA tensors (counted in
 ``quant_matmul.launches``) and takes the plain PyTorch version only for
@@ -31,12 +36,18 @@ from repro_torch.core.quantizers import int_matmul
 
 from . import build
 
+GEMV_M = 8   # rows served by the GEMV (the reference's _GEMV_M)
+
 _C = ctypes.c_int
 _P = ctypes.c_void_p
-# every entry of quant_matmul.cu (this module's and quant_matmul_w4's)
+# every entry of quant_matmul.cu: quant_matmul_w4's two, then this
+# module's (which adds the K splits and their scratch)
 _SIGNATURES = {name: [_P, _C, _C, _P, _P, _P, _P, _C, _P, _P]
-               for name in ("quant_matmul", "quant_matmul_w4",
-                            "quant_gemv_w4")}
+               for name in ("quant_matmul_w4", "quant_gemv_w4")}
+_SIGNATURES["quant_matmul"] = [_P, _C, _C, _P, _P, _P, _P, _C, _C, _P, _P,
+                               _P]
+_SIGNATURES["quant_matmul_plan"] = [_C, _C, _C, _C,
+                                    ctypes.POINTER(ctypes.c_longlong)]
 
 
 def quant_matmul_plain(qx, sx, zpx, qw, sw) -> torch.Tensor:
@@ -84,13 +95,38 @@ def launch(fn_name, qx, sx, zpx, qw, sw) -> torch.Tensor:
     return out
 
 
+def w8a8_plan(m: int, k: int, n: int, device):
+    """K splits of the W8A8 tensor-core contraction of an (M, K) x (K, N)
+    product on ``device`` and their zeroed int32 scratch (None for one
+    split). The CUDA source decides both (``quant_matmul_plan``), from its
+    tile shape and the card's SM count."""
+    lib = build.load("quant_matmul", _SIGNATURES)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    ints = ctypes.c_longlong(0)
+    splits = lib.quant_matmul_plan(m, k, n, sms, ctypes.byref(ints))
+    ws = (torch.zeros(ints.value, dtype=torch.int32, device=device)
+          if ints.value else None)
+    return splits, ws
+
+
 def quant_matmul(qx, sx, zpx, qw, sw) -> torch.Tensor:
     """qx (M, K) int8, sx/zpx (M, 1) f32, qw (K, N) int8, sw (1, N) f32
     -> (M, N) f32."""
     if not qx.is_cuda:
         return quant_matmul_plain(qx, sx, zpx, qw, sw)
     validate(qx, sx, zpx, qw, sw, qx.shape[1])
-    out = launch("quant_matmul", qx, sx, zpx, qw, sw)
+    m, k = qx.shape
+    n = qw.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
+    if m == 0 or n == 0:
+        return out
+    splits, ws = w8a8_plan(m, k, n, qx.device)
+    lib = build.load("quant_matmul", _SIGNATURES)
+    qx, sx, zpx, qw, sw = (t.contiguous() for t in (qx, sx, zpx, qw, sw))
+    build.check(lib.quant_matmul(
+        build.ptr(qx), m, k, build.ptr(sx), build.ptr(zpx), build.ptr(qw),
+        build.ptr(sw), n, splits, build.ptr(ws), build.ptr(out),
+        build.stream_of(qx)), "quant_matmul")
     quant_matmul.launches += 1
     return out
 

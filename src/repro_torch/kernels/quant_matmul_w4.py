@@ -24,9 +24,7 @@ from __future__ import annotations
 
 from repro_torch.core.quantizers import unpack_int4
 
-from .quant_matmul import launch, quant_matmul_plain, validate
-
-GEMV_M = 8   # rows served by the GEMV (the reference's _GEMV_M)
+from .quant_matmul import GEMV_M, launch, quant_matmul_plain, validate
 
 
 def quant_matmul_w4_plain(qx, sx, zpx, qw_packed, sw):

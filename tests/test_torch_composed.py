@@ -11,10 +11,14 @@ oracles, on inputs drawn from numpy seeds and handed to both packages:
   kernel's 256-token block) and block-diag ((n, k) in {(4, 8), (16, 32)}):
   f32 at rtol 1e-5 of the output's scale (f32 dot association); bf16
   outputs within one bf16 ulp plus that bound, >= 99 % of them bitwise.
-- dynamic quant (bits 4/8, symmetric and asymmetric, f32 and bf16
-  inputs): codes, scales and zero points bitwise against the oracle. The
-  compiled Pallas kernel divides by the level count as a multiply by its
-  reciprocal: its scales are within one f32 ulp, and the dequantized code
+  A row's block-CAT is bitwise the same whatever rows share its call.
+- dynamic quant (bits 2–8, symmetric and asymmetric, f32 and bf16
+  inputs, rows with a zero point on a .5 tie and an all-zero row): codes,
+  scales and zero points bitwise against the Pallas kernel in interpret
+  mode, which XLA compiles with the scale as a multiply by the f32
+  reciprocal of the level count and zp and codes as divisions by the
+  scale. The eager oracle ``ref.dynamic_quant`` divides by the level
+  count: its scales are within one f32 ulp, and the dequantized code
   q − zp moves by one step on <= 0.1 % of entries (<= 1 % from bf16
   inputs, whose coarse values land on rounding ties more often; a zero
   point on a tie moves with the scale, and the row's codes with it).
@@ -22,7 +26,10 @@ oracles, on inputs drawn from numpy seeds and handed to both packages:
   the ``quant_gemv_w4`` GEMV at M in {1, 7, 8}, raising at 9) with ragged
   M/N, K > 512 and odd K: bitwise against the oracle (exact integer
   accumulation, one epilogue); rtol 1e-5 of the output's scale against the
-  Pallas kernels, which add one f32 epilogue per 512-deep K tile.
+  Pallas kernels, which add one f32 epilogue per 512-deep K tile. The
+  W8A8 plain version is also bitwise against the oracle at int8 extremes
+  over K 1536, where each sum passes 2^24 (the card's K splits are
+  checked by ``chip_smoke.py``, where the CUDA source plans them).
 - ``ops.cat_transform_matmul`` against the reference's at M in {7, 8, 9},
   packed and unpacked: dequantized activation codes q − zp within one step
   on <= 0.1 % of entries (f32) or <= 1 % (bf16, where a one-ulp difference
@@ -159,6 +166,22 @@ def test_block_diag_matches_reference(n, k, m, dtype):
     _close(got, orac, dtype)
 
 
+@pytest.mark.parametrize("m", [1, 7, 9, 300])
+def test_block_diag_rows_do_not_depend_on_batch(m):
+    """Each row's block-CAT is the same whatever rows share its call (the
+    plain version pads fewer than 8 rows, as the CUDA kernel's fmaf chain
+    is independent of the batch)."""
+    r = np.random.default_rng(m)
+    blocks = _t((r.standard_normal((16, 32, 32)) * 0.3 + np.eye(32))
+                .astype(np.float32))
+    x = _t(r.standard_normal((301, 512)).astype(np.float32))
+    full = B.block_diag_matmul(x, blocks)
+    for start in (0, 1):
+        np.testing.assert_array_equal(
+            B.block_diag_matmul(x[start:start + m], blocks).numpy(),
+            full[start:start + m].numpy())
+
+
 # --------------------------------------------------------- dynamic quant
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -176,13 +199,61 @@ def test_dynamic_quant_matches_reference(bits, symmetric, dtype):
                                                symmetric=symmetric,
                                                interpret=True)]
     assert got[0].shape == (2, 150, 96) and got[1].shape == (2, 150, 1)
-    for g, o in zip(got, orac):
-        np.testing.assert_array_equal(g, o)
-    assert np.all(np.abs(got[1].view(np.int32) - kern[1].view(np.int32))
+    for g, k in zip(got, kern):
+        np.testing.assert_array_equal(g, k)
+    assert np.all(np.abs(got[1].view(np.int32) - orac[1].view(np.int32))
                   <= 1)
-    shift = _dequant_shift(got[0], got[2], kern[0], kern[2])
+    shift = _dequant_shift(got[0], got[2], orac[0], orac[2])
     assert shift.max() <= 1
     assert (shift > 0).mean() <= (1e-3 if dtype == "float32" else 1e-2)
+
+
+def _tie_rows(bits, d=64):
+    """Rows whose asymmetric zero point −ymin/scale falls exactly on a .5
+    tie (ymin = −0.1875 and a bf16-exact ymax found by search, with the
+    scale computed as the kernels compute it), an all-zero row (the 1e-12
+    floor), a constant row, rows of one sign and random rows, at width
+    ``d``; every value is exact in bf16."""
+    r = np.random.default_rng(bits)
+    recip = np.float32(1) / np.float32(2 ** bits - 1)
+    ymin = np.float32(-0.1875)
+    rows = []
+    for e in range(-4, 6):
+        for mant in range(128):
+            ymax = np.float32((1 + mant / 128) * 2.0 ** e)
+            t = -ymin / (np.float32(ymax - ymin) * recip)
+            if t - np.floor(t) == 0.5:
+                row = r.uniform(ymin, ymax, d).astype(np.float32)
+                row[0], row[1] = ymin, ymax
+                rows.append(row)
+    assert rows
+    rows += [np.zeros(d, np.float32), np.full(d, 2.5, np.float32),
+             r.uniform(0.1, 4.0, d).astype(np.float32),
+             -r.uniform(0.1, 4.0, d).astype(np.float32)]
+    rand = r.standard_normal((24, d)) * r.uniform(0.01, 30, (24, 1))
+    rows = np.concatenate([np.stack(rows), rand.astype(np.float32)])
+    return np.asarray(jnp.asarray(rows).astype(jnp.bfloat16)
+                      .astype(jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("symmetric", [False, True])
+@pytest.mark.parametrize("bits", [2, 3, 4, 5, 6, 7, 8])
+def test_dynamic_quant_bitwise_to_pallas(bits, symmetric, dtype):
+    """The plain version (and so the CUDA kernel, which chip_smoke holds
+    bitwise to it) equals the Pallas kernel in interpret mode bitwise:
+    scale = range times the f32 reciprocal of the level count, zp and
+    codes by IEEE division by that scale."""
+    jx, tx = _pair(_tie_rows(bits), dtype)
+    got = [v.numpy() for v in DQ.dynamic_quant(tx, bits, symmetric)]
+    kern = [np.asarray(v) for v in j_dyn_quant(jx, bits=bits,
+                                               symmetric=symmetric,
+                                               interpret=True)]
+    for g, k in zip(got, kern):
+        np.testing.assert_array_equal(g, k)
+    if not symmetric:   # the tie rows really put −ymin/scale on a .5 tie
+        t = -np.asarray(jx, np.float32).min(-1) / got[1][:, 0]
+        assert np.any(t - np.floor(t) == 0.5)
 
 
 def _dequant_shift(q_a, zp_a, q_b, zp_b):
@@ -235,6 +306,38 @@ def test_contractions_match_reference(m, k, n, packed):
                            ref.quant_matmul_w4, args)
     else:
         _check_contraction(QM.quant_matmul, j_qmm, ref.quant_matmul, args)
+
+
+@pytest.mark.parametrize("m,k,n", [(9, 1536, 40), (130, 1536, 24)])
+@pytest.mark.parametrize("pattern", ["min", "alternating", "random"])
+def test_w8a8_extreme_codes_exact(m, k, n, pattern):
+    """The W8A8 plain version, which the card's tensor-core kernel is held
+    to bitwise, equals ``ref.quant_matmul``'s int32 accumulation bitwise
+    at int8 extremes over K 1536: codes −128 but the last three, 1, on
+    both sides (acc = 1533·2^14 + 3 lies above 2^24, where an f32 running
+    sum drops each trailing unit; only the exact sum, rounded once, is the
+    reference's), codes alternating −128/127 along K, and full-range
+    random codes, weights included."""
+    r = np.random.default_rng(m + n)
+    if pattern == "min":
+        qx = np.full((m, k), -128, np.int8)
+        qw = np.full((k, n), -128, np.int8)
+        qx[:, -3:], qw[-3:, :] = 1, 1
+    elif pattern == "alternating":
+        qx = np.where(np.arange(k) % 2, 127, -128).astype(np.int8)
+        qx = np.broadcast_to(qx, (m, k)).copy()
+        qw = np.where(np.arange(k)[:, None] % 2, -128, 127
+                      ).astype(np.int8).repeat(n, axis=1)
+    else:
+        qx = r.integers(-128, 128, (m, k)).astype(np.int8)
+        qw = r.integers(-128, 128, (k, n)).astype(np.int8)
+    sx = r.uniform(0.01, 0.1, (m, 1)).astype(np.float32)
+    zx = r.integers(-128, 128, (m, 1)).astype(np.float32)
+    sw = r.uniform(0.001, 0.01, (1, n)).astype(np.float32)
+    args = [qx, sx, zx, qw, sw]
+    got = QM.quant_matmul(*map(_t, args)).numpy()
+    want = np.asarray(ref.quant_matmul(*map(jnp.asarray, args)))
+    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("m", [1, 7, 8])

@@ -6,12 +6,15 @@
   ``tests/test_decode_layer.py``: packed and unpacked weights, with and
   without the block-CAT stage, B in {1, 3, 8}, a ragged last page, rows
   straddling a page boundary and an explicit null-page target.
-  Tolerances: q at rtol 1e-5 (atol 1e-6), since the kernel and the oracle
-  associate the f32 transform dots differently from the port's plain
-  version; int8 KV codes bitwise on pages >= 1; scales at rtol 1e-5
-  (atol 1e-8), since the reference's compiled division by the level count
-  is a reciprocal multiply. Page 0 is the null page, outside the pool
-  contract, and is not compared.
+  Every case is held against both. Tolerances: q at rtol 1e-5 (atol
+  1e-6), since the kernel and the oracle associate the f32 transform dots
+  differently from the port's plain version; int8 KV codes bitwise on
+  pages >= 1; KV scales at rtol 1e-5 (atol 1e-8), since they follow the
+  k and v values those dots give. The port's activation quant is the
+  compiled kernel's (scale by the f32 reciprocal of the level count, zp
+  and codes by division), and the eager oracle's division by the level
+  count moves no code of these cases. Page 0 is the null page, outside
+  the pool contract, and is not compared.
 - Routing: with ``REPRO_DECODE_FUSED=1`` the port's ``dense.decode(...,
   paged_kernel=True)`` calls the prologue once per layer, and pages no
   slot owns stay bitwise equal to the composed path's; unset, on the
@@ -127,9 +130,10 @@ def test_prologue_ragged_last_page_and_straddle():
 
 
 def test_prologue_null_target_leaves_real_pages():
-    port, kern, _, pools = _run_three(3, 4, pids=np.zeros(3),
-                                      rows=np.zeros(3))
+    port, kern, oracle, pools = _run_three(3, 4, pids=np.zeros(3),
+                                           rows=np.zeros(3))
     _assert_matches(port, kern)
+    _assert_matches(port, oracle)
     for got, orig in zip(port[1:], pools):
         np.testing.assert_array_equal(got.numpy()[1:], orig[1:])
 

@@ -9,12 +9,20 @@ oracles, on inputs drawn from numpy seeds and handed to both packages:
 - fused CAT linear (``fused_cat_gemv_w4`` M <= 8, ``fused_cat_matmul_w4``
   M > 8) over the edge cases of ``tests/test_fused_cat.py``: M in
   {7, 8, 9}, odd K, K not a multiple of the CAT block, packed/unpacked
-  weights, act_bits 4/8. Activation codes are compared with
-  ``ref.kernel_transform_quant`` (the kernel's op order): equal, except
-  that f32 dot association may move a value across a rounding boundary —
-  at most 1 code step on at most 0.1 % of entries. Outputs agree at rtol
-  1e-5 (the JAX suite's kernel-vs-oracle bound) on rows whose codes are
-  equal.
+  weights, act_bits 4/8. ``jax.jit(ref.kernel_transform_quant)`` (the
+  kernel's op order, compiled) equals the Pallas kernels' transform-quant
+  body in interpret mode bitwise: codes, scales and zero points (checked
+  in each case). The port's ``transform_quant_plain`` equals it bitwise in
+  codes and zero points; its scales agree at rtol 1e-6, since the plain
+  version associates the f32 transform dots differently and the row's
+  range moves by a few ulps. The eager ``ref.kernel_transform_quant``
+  divides by the level count: at most 1 code step on at most 0.1 % of
+  entries. Outputs agree with the Pallas kernel at rtol 1e-5 (the JAX
+  suite's kernel-vs-oracle bound) on every row, and with the eager oracle
+  on rows whose codes it equals. At the serving widths (D 512 and 1536)
+  the scale gap is an open fault of the port, held at 8 ulps with a
+  dequantized code one step away on at most 1e-4 of entries
+  (``test_transform_quant_scale_gap``).
 - paged attention (ragged and decode) over the cases of
   ``tests/test_ragged_attention.py``: mixed q_len, ragged pages, one
   page, padding rows, exact causal horizon, q_len=1 vs decode, fp-pool
@@ -24,6 +32,7 @@ oracles, on inputs drawn from numpy seeds and handed to both packages:
   bf16 on one int8 pool, >= 99 % of outputs bitwise equal to the Pallas
   kernels' and the rest one bf16 ulp apart.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,7 +40,9 @@ import torch
 
 from repro.core.quantizers import pack_int4 as j_pack_int4
 from repro.kernels import ref
-from repro.kernels.fused_cat_matmul import (fused_cat_gemv_w4 as j_gemv,
+from jax.experimental import pallas as pl
+from repro.kernels.fused_cat_matmul import (_transform_quant,
+                                            fused_cat_gemv_w4 as j_gemv,
                                             fused_cat_matmul_w4 as j_matmul)
 from repro.kernels.paged_attention import (
     paged_attention_decode as j_decode,
@@ -78,21 +89,58 @@ def _fused_operands(m, d, n, seed, n_blocks=0, packed=True):
     return x, blocks, ha, hb, sign, qw, sw
 
 
+_jit_transform_quant = jax.jit(ref.kernel_transform_quant,
+                               static_argnames=("act_bits",))
+
+
+def _pallas_transform_quant(x, blocks, ha, hb, sign, act_bits):
+    """The fused Pallas kernels' transform-quant body (run once per M tile)
+    alone, in interpret mode, on whole arrays -> (q, scale, zp)."""
+    m, d = x.shape
+    has_blocks = blocks is not None
+
+    def kernel(*refs):
+        x_ref, s_ref, ha_ref, hb_ref = refs[:4]
+        b_ref = refs[4] if has_blocks else None
+        _transform_quant(x_ref, s_ref, ha_ref, hb_ref, b_ref, *refs[-3:],
+                         act_bits=act_bits, k_pad=d)
+
+    args = [x, sign.reshape(1, d), ha, hb] + ([blocks] if has_blocks else [])
+    out = pl.pallas_call(
+        kernel, interpret=True,
+        out_shape=[jax.ShapeDtypeStruct((m, d), jnp.int8),
+                   jax.ShapeDtypeStruct((m, 1), jnp.float32),
+                   jax.ShapeDtypeStruct((m, 1), jnp.float32)])(*args)
+    return [np.asarray(v) for v in out]
+
+
 def _check_fused(m, d, n, seed, n_blocks=0, packed=True, act_bits=8):
     ops_np = _fused_operands(m, d, n, seed, n_blocks, packed)
     x, blocks, ha, hb, sign, qw, sw = ops_np
     jx = [None if a is None else jnp.asarray(a) for a in ops_np]
     tx = [None if a is None else _t(a) for a in ops_np]
-    # activation codes: port plain transform-quant vs the reference's
-    # kernel-order helper
-    q_ref, s_ref, z_ref = (np.asarray(v) for v in ref.kernel_transform_quant(
+    # activation codes: the compiled kernel-order helper equals the Pallas
+    # kernels' transform-quant bitwise; the port's plain transform-quant
+    # equals it in codes and zero points, its scales at f32 dot association
+    q_jit, s_jit, z_jit = (np.asarray(v) for v in _jit_transform_quant(
         *jx[:5], act_bits=act_bits))
+    for got, want in zip((q_jit, s_jit, z_jit),
+                         _pallas_transform_quant(*jx[:5], act_bits)):
+        np.testing.assert_array_equal(got, want)
     q_pt, s_pt, z_pt = (v.numpy() for v in F.transform_quant_plain(
         *tx[:5], act_bits))
+    np.testing.assert_array_equal(q_pt, q_jit)
+    np.testing.assert_array_equal(z_pt, z_jit)
+    np.testing.assert_allclose(s_pt, s_jit, rtol=1e-6)
+    # the eager helper divides by the level count: one step at most
+    q_ref, s_ref, z_ref = (np.asarray(v) for v in ref.kernel_transform_quant(
+        *jx[:5], act_bits=act_bits))
     diff = np.abs(q_pt.astype(np.int32) - q_ref.astype(np.int32))
     assert diff.max() <= 1
     assert (diff > 0).mean() <= 1e-3
     same = (diff == 0).all(axis=1)
+    np.testing.assert_allclose(s_pt[same], s_ref[same], rtol=1e-6)
+    np.testing.assert_array_equal(z_pt[same], z_ref[same])
     # outputs: the port wrapper (plain on the CPU) vs the Pallas kernel in
     # interpret mode and vs the composed oracle
     run_j = j_gemv if m <= F.GEMV_M else j_matmul
@@ -103,10 +151,34 @@ def _check_fused(m, d, n, seed, n_blocks=0, packed=True, act_bits=8):
     want = np.asarray(ref.fused_cat_matmul_w4(*jx, act_bits=act_bits,
                                               packed=packed))
     assert got.shape == (m, n)
-    np.testing.assert_allclose(got[same], kern[same], rtol=RTOL, atol=RTOL)
+    np.testing.assert_allclose(got, kern, rtol=RTOL, atol=RTOL)
     np.testing.assert_allclose(got[same], want[same], rtol=RTOL, atol=RTOL)
-    np.testing.assert_allclose(s_pt[same], s_ref[same], rtol=1e-6)
-    np.testing.assert_array_equal(z_pt[same], z_ref[same])
+
+
+@pytest.mark.parametrize("act_bits", [4, 8])
+@pytest.mark.parametrize("m", [8, 128])
+@pytest.mark.parametrize("d,n_blocks", [(512, 16), (1536, 48)])
+def test_transform_quant_scale_gap(d, n_blocks, m, act_bits):
+    """The open gap of the plain transform-quant at the serving widths:
+    its f32 transform dots associate otherwise than the compiled
+    reference's, so a row's range, and with it its scale, lands a few
+    ulps away from ``jax.jit(ref.kernel_transform_quant)``'s on many
+    rows. Held here: scales within 8 ulps, and a dequantized code
+    (q - zp) one step away on at most 1e-4 of entries."""
+    x, blocks, ha, hb, sign, _, _ = _fused_operands(m, d, 8, m + d + act_bits,
+                                                    n_blocks)
+    args = (x, blocks, ha, hb, sign)
+    q_j, s_j, z_j = (np.asarray(v) for v in _jit_transform_quant(
+        *map(jnp.asarray, args), act_bits=act_bits))
+    q_p, s_p, z_p = (v.numpy() for v in F.transform_quant_plain(
+        *map(_t, args), act_bits))
+    ulps = np.abs(s_p.view(np.int32).astype(np.int64)
+                  - s_j.view(np.int32).astype(np.int64))
+    assert ulps.max() <= 8
+    shift = np.abs((q_p.astype(np.float32) - z_p)
+                   - (q_j.astype(np.float32) - z_j))
+    assert shift.max() <= 1
+    assert (shift > 0).mean() <= 1e-4
 
 
 @pytest.mark.parametrize("m", [7, 8, 9])
