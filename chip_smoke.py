@@ -17,12 +17,19 @@ Phases (any failure exits non-zero before the final line):
              tolerance, its time, its plain version's time, its lower
              bound (bytes over 3.35 TB/s or operations over the peak rate
              for their type, H100 SXM data sheet) and, where one PyTorch
-             call computes the same function, that call's time. The
-             block-CAT is also held bitwise on f32 inputs and at ragged
-             row counts (1, 7, 300), W8A8 ``quant_matmul`` bitwise at
-             ragged (M, K, N) with 4-bit and full-range int8 codes
-             (``check_block_edges``, ``check_w8a8_edges``), and the fused
-             linear with int8 weights too.
+             call computes the same function, that call's time. Held
+             bitwise: the fused linear and the decode prologue on f32
+             inputs at every timed shape (the plain transform sums each
+             dot as the kernels' in-order fmaf chain; bf16 inputs: the
+             bitwise share is recorded and a two-code-step bound held);
+             the block-CAT and the Hadamard on f32 inputs, also at ragged
+             row counts (``check_block_edges``, ``check_hadamard_edges``,
+             the Hadamard with every forced row tile, which is also
+             timed); W4A8 ``quant_matmul_w4`` and W8A8 ``quant_matmul`` at
+             ragged (M, K, N), odd K, several K splits, 4-bit and
+             full-range int8 codes and code extremes
+             (``check_w4_edges``, ``check_w8a8_edges``); the fused linear
+             with int8 weights too.
 4. serving — full-width catlm-60m (8 layers, d 512, 8/4 heads, d_ff 1536,
              vocab 8192), seeded random init, CAT W4A4 int4-packed PTQ on
              the card, 8 mixed requests (32 new tokens each) through the
@@ -157,10 +164,12 @@ def fused_linear_operands(m, d, n, gen, dev):
 def check_fused_linear(name, run, rows, card, gen, dev):
     """Hold one fused-linear entry point against its plain version at
     every main-path (D, N) and each row count in ``rows``, timed with
-    packed int4 weights and checked untimed with int8 weights too.
-    Tolerance: two activation-code steps of the row's largest weight term
-    (sx·sw·|q_w|), since f32 dot association may move a transformed value
-    across a rounding boundary, plus 1e-5 of the output's scale."""
+    packed int4 weights and checked untimed with int8 weights too. On f32
+    inputs: bitwise (the plain transform sums each dot as the kernel's
+    in-order fmaf chain, the quant and the contraction are the kernel's
+    ops). On bf16 inputs (timed): the share of bitwise outputs, and within
+    two activation-code steps of the row's largest weight term
+    (sx·sw·|q_w|) plus 1e-5 of the output's scale."""
     import torch
 
     from repro_torch.kernels import fused_cat_matmul as F
@@ -176,6 +185,11 @@ def check_fused_linear(name, run, rows, card, gen, dev):
                    + 1e-5 * want.abs().max().item())
             rows_off = int(((got - want).abs() > 1e-5 * want.abs().max())
                            .any(dim=1).sum().item())
+            f32_args = (args[0].float(), *args[1:])
+            f32_diff = int((run(*f32_args, act_bits=4, packed=True)
+                            != F.fused_cat_linear_plain(
+                                *f32_args, act_bits=4, packed=True))
+                           .sum().item())
             call = lambda: run(*args, act_bits=4, packed=True)  # noqa: E731
             ms, per_call = device_ms(call), call_ms(call)
             plain_ms = device_ms(lambda: F.fused_cat_linear_plain(
@@ -189,10 +203,12 @@ def check_fused_linear(name, run, rows, card, gen, dev):
                                + int_ops / INT8_OP_S)
             rec = {"kernel": name, "m": m, "d": d, "n": n,
                    "max_err": err, "tol": tol, "rows_off": rows_off,
+                   "bf16_bitwise_share": (got == want).float().mean()
+                   .item(), "f32_differing": f32_diff,
                    "kernel_ms": ms, "call_ms": per_call,
                    "plain_ms": plain_ms, "library_ms": None,
                    "bound_ms": b_ms, "bound_by": b_by, "card": card}
-            # int8 weights (stage 2 is the W8A8 contraction above 8 rows)
+            # int8 weights (stage 2 is the same tensor-core contraction)
             w8 = torch.randint(-128, 128, (d, n), generator=gen,
                                dtype=torch.int8).to(dev)
             w8_args = (*args[:5], w8, args[6])
@@ -202,11 +218,19 @@ def check_fused_linear(name, run, rows, card, gen, dev):
             rec["w8_max_err"] = (got - want).abs().max().item()
             rec["w8_tol"] = (2 * sx.max().item() * args[6].max().item()
                              * 128 + 1e-5 * want.abs().max().item())
+            f32_w8 = (f32_args[0], *w8_args[1:])
+            rec["w8_f32_differing"] = int(
+                (run(*f32_w8, act_bits=4, packed=False)
+                 != F.fused_cat_linear_plain(*f32_w8, act_bits=4,
+                                             packed=False)).sum().item())
             print(json.dumps(rec))
             if not err <= tol:
                 fail(f"{name} m={m} d={d} n={n}: max error {err} > {tol}")
             if not rec["w8_max_err"] <= rec["w8_tol"]:
                 fail(f"{name} W8 m={m} d={d} n={n}: {json.dumps(rec)}")
+            if f32_diff or rec["w8_f32_differing"]:
+                fail(f"{name} m={m} d={d} n={n}: not bitwise on f32 "
+                     f"inputs: {json.dumps(rec)}")
             out.append(rec)
     return out
 
@@ -302,14 +326,14 @@ def prologue_operands(m, gen, dev, targets):
 def check_prologue(card, gen, dev):
     """Hold the decode QKV prologue against its plain version at the
     path's shapes for B = 1, 4 and 8, with padded rows (page 0) and rows on
-    the ragged last slot of a page. Tolerances: q within rtol 1e-5 of its
-    row's largest |q| (the two versions associate the f32 transform dots
-    differently, which moves the act scale by ulps, and RoPE's two terms
-    cancel near zero); KV codes bitwise and scales at rtol 1e-5 on the
-    targeted rows — except where that association moves an activation
-    code: then codes may differ by 1 on at most 0.1 % of entries and q
-    stays within two activation-code steps; every page other than 0 and
-    every untargeted row unchanged."""
+    the ragged last slot of a page. On f32 inputs: q and every page but 0
+    (which takes the padded rows' writes in no fixed order) bitwise. On bf16 inputs (timed; the
+    share of bitwise q recorded): q within rtol 1e-5 of its row's largest
+    |q| (RoPE's two terms cancel near zero); KV codes bitwise and scales
+    at rtol 1e-5 on the targeted rows — or, where an activation code
+    moved, codes off by 1 on at most 0.1 % of entries and q within two
+    activation-code steps; every page other than 0 and every untargeted
+    row unchanged."""
     import torch
 
     from repro_torch.kernels import decode_layer as L
@@ -358,6 +382,16 @@ def check_prologue(card, gen, dev):
         code_moved = (dcode.max().item() <= 1 and code_frac <= 1e-3
                       and q_err <= step_tol)
         ok = untouched and (exact or code_moved)
+        f32_args = (args[0].float(), *args[1:])
+        f32_got = [t.clone() for t in pools]
+        f32_want = [t.clone() for t in pools]
+        q32 = L.decode_qkv_prologue(*f32_args, *f32_got, *ids, **kw)[0]
+        q32_want = L.decode_qkv_prologue_plain(*f32_args, *f32_want, *ids,
+                                               **kw)[0]
+        # page 0 takes the padded rows' writes in no fixed order
+        f32_diff = int((q32 != q32_want).sum().item()) + sum(
+            int((g[1:] != w[1:]).sum().item())
+            for g, w in zip(f32_got, f32_want))
         targets_t = [t.clone() for t in pools]
         call = lambda: L.decode_qkv_prologue(  # noqa: E731
             *args, *targets_t, *ids, **kw)
@@ -374,16 +408,19 @@ def check_prologue(card, gen, dev):
         b_ms, b_by = bound(nbytes, f32_flops / F32_FLOP_S
                            + 2 * m * d * n / INT8_OP_S)
         rec = {"kernel": "decode_qkv_prologue", "m": m, "d": d, "n": n,
-               "max_err": q_err, "tol": "q within 1e-5 of its row's max |q|; "
-               "KV codes bitwise, scales rtol 1e-5; where an act code moved:"
-               " codes |d|<=1 on <=0.1%, q within two code steps",
+               "max_err": q_err, "tol": "f32: bitwise; bf16: q within 1e-5 "
+               "of its row's max |q|, KV codes bitwise, scales rtol 1e-5; "
+               "where an act code moved: codes |d|<=1 on <=0.1%, q within "
+               "two code steps",
+               "f32_differing": f32_diff,
+               "bf16_q_bitwise_share": (q == q_want).float().mean().item(),
                "q_rows_off": rows_off, "code_diff_frac": code_frac,
                "scale_max_rel_err": scale_err, "two_step_tol": step_tol,
                "untouched": untouched, "kernel_ms": ms, "call_ms": per_call,
                "plain_ms": plain_ms, "library_ms": None, "bound_ms": b_ms,
                "bound_by": b_by, "card": card}
         print(json.dumps(rec))
-        if not ok:
+        if not ok or f32_diff:
             fail(f"decode_qkv_prologue m={m}: {json.dumps(rec)}")
         out.append(rec)
     return out
@@ -469,17 +506,51 @@ def check_block_edges(gen, dev):
     return recs
 
 
+def check_hadamard_edges(gen, dev):
+    """Sign ⊙ Hadamard (row 10) at D 512 and 1536 and M 1, 7, 8, 128 and
+    300 (a partial row tile, and more tiles than the timed shapes), in f32
+    (bitwise against the plain version, whose emulated fma chains follow
+    the kernel's order: over j, then over i, from 0) and bf16 (one bf16
+    unit plus 1e-5 of the scale; the bitwise share recorded), with the
+    CUDA source's rows per CTA; each forced choice of 1, 2, 4 or 8 rows
+    must give the same output bitwise."""
+    import torch
+
+    from repro_torch.kernels import hadamard as H
+    recs = []
+    for d in (512, 1536):
+        for m in (1, 7, 8, 128, 300):
+            x, _, ha, hb, sign = stage_operands(m, d, gen, dev)
+            for xt in (x, x.float()):
+                got = H.hadamard_transform(xt, ha, hb, sign)
+                err, same, ok = bf16_close(
+                    got, H.hadamard_transform_plain(xt, ha, hb, sign))
+                if xt.dtype != x.dtype:
+                    ok = same == 1.0
+                forced = all(torch.equal(H.hadamard_transform(
+                    xt, ha, hb, sign, rows=r), got) for r in (1, 2, 4, 8))
+                rec = {"kernel": "hadamard_transform", "m": m, "d": d,
+                       "dtype": str(xt.dtype), "max_err": err,
+                       "bitwise_share": same, "forced_rows_equal": forced}
+                recs.append(rec)
+                if not (ok and forced):
+                    fail(f"hadamard_transform edge: {json.dumps(rec)}")
+    print("hadamard_transform edges " + json.dumps(recs))
+    return recs
+
+
 def check_stages(card, gen, dev):
     """Block-CAT, sign ⊙ Hadamard and dynamic quant (rows 11, 10, 9) at
     the composed path's shapes (8 and 128 rows, D 512 and 1536, bf16)
     against their plain versions. Tolerances: block-CAT and Hadamard
-    outputs within one bf16 unit plus 1e-5 of the scale (f32 dot
-    association), and the block-CAT bitwise on f32 inputs (also at the
-    edges of ``check_block_edges``); dynamic quant codes, scales and zero
-    points bitwise. Library calls: ``torch.bmm`` on the blocked f32 view
-    for block-CAT (the view and the cast made outside the timed call), one
-    ``torch.matmul`` against the materialised diag(sign)·(ha ⊗ hb)ᵀ for
-    the Hadamard; none for the quant."""
+    outputs within one bf16 unit plus 1e-5 of the scale, and bitwise on
+    f32 inputs (also at the edges of ``check_block_edges`` and
+    ``check_hadamard_edges``); dynamic quant codes, scales and zero points
+    bitwise. The Hadamard is also timed with each forced row tile (1, 2,
+    4, 8 rows per CTA). Library calls: ``torch.bmm`` on the blocked f32
+    view for block-CAT (the view and the cast made outside the timed
+    call), one ``torch.matmul`` against the materialised diag(sign)·(ha ⊗
+    hb)ᵀ for the Hadamard; none for the quant."""
     import torch
 
     from repro_torch.kernels import block_matmul as B
@@ -488,6 +559,7 @@ def check_stages(card, gen, dev):
     out = {"block_diag_matmul": [], "hadamard_transform": [],
            "dynamic_quant": []}
     edges = check_block_edges(gen, dev)
+    had_edges = check_hadamard_edges(gen, dev)
     for d in (512, 1536):
         for m in COMPOSED_ROWS:
             x, blocks, ha, hb, sign = stage_operands(m, d, gen, dev)
@@ -517,11 +589,16 @@ def check_stages(card, gen, dev):
             if not ok or f32_same != 1.0:
                 fail(f"block_diag_matmul m={m} d={d}: max error {err}, "
                      f"f32 bitwise share {f32_same}")
-            # sign ⊙ Hadamard
+            # sign ⊙ Hadamard, with the times of each forced row tile
             err, same, ok = bf16_close(
                 H.hadamard_transform(x, ha, hb, sign),
                 H.hadamard_transform_plain(x, ha, hb, sign))
+            f32_same = (H.hadamard_transform(xf, ha, hb, sign)
+                        == H.hadamard_transform_plain(xf, ha, hb, sign)
+                        ).float().mean().item()
             dense = (sign[:, None] * torch.kron(ha, hb).T).contiguous()
+            sweep = {r: device_ms(lambda r=r: H.hadamard_transform(
+                x, ha, hb, sign, rows=r)) for r in (1, 2, 4, 8)}
             out["hadamard_transform"].append(timed_record(
                 "hadamard_transform", shape,
                 lambda: H.hadamard_transform(x, ha, hb, sign),
@@ -530,11 +607,13 @@ def check_stages(card, gen, dev):
                 4 * m * d + 4 * (a * a + b * b + d),
                 2 * m * d * (a + b) / F32_FLOP_S, card,
                 {"max_err": err, "bitwise_share": same,
-                 "tol": "one bf16 unit + 1e-5 of scale",
+                 "f32_bitwise_share": f32_same, "rows_sweep_ms": sweep,
+                 "tol": "one bf16 unit + 1e-5 of scale; f32 bitwise",
                  "library": "torch.matmul against diag(sign)(ha kron hb)^T"
                  " on an f32 copy of x"}))
-            if not ok:
-                fail(f"hadamard_transform m={m} d={d}: max error {err}")
+            if not ok or f32_same != 1.0:
+                fail(f"hadamard_transform m={m} d={d}: max error {err}, "
+                     f"f32 bitwise share {f32_same}")
             # dynamic quant (the Hadamard output, as on the path)
             y = H.hadamard_transform(x, ha, hb, sign)
             got = DQ.dynamic_quant(y, 4)
@@ -551,6 +630,7 @@ def check_stages(card, gen, dev):
                 fail(f"dynamic_quant m={m} d={d}: {diffs} codes/scales/zps "
                      f"differ from the plain version")
     out["block_diag_matmul"] += edges
+    out["hadamard_transform"] += had_edges
     return out
 
 
@@ -635,13 +715,79 @@ def check_w8a8_edges(gen, dev):
     return recs
 
 
+def check_w4_edges(gen, dev):
+    """W4A8 ``quant_matmul_w4`` (row 6) at the ragged shapes of
+    ``QMM_EDGES`` (odd K included: the missing code reads as 0) and the
+    main-path shapes, with 4-bit and full-range int8 activation codes
+    against random nibbles, bitwise against the plain version (exact
+    integer accumulation on the tensor cores, split K included, one
+    epilogue in the same op order); every K split holds at least one K
+    tile. Also at nibble extremes: codes -128 against nibbles -8 but the
+    last three (1), and codes alternating -128/127 against nibbles 7/-8
+    along K."""
+    import torch
+
+    from repro_torch.core.quantizers import pack_int4
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels import quant_matmul_w4 as QW
+    recs = []
+
+    def held(args, rec):
+        got = QW.quant_matmul_w4(*args)
+        want = QW.quant_matmul_w4_plain(*args)
+        m, k = args[0].shape
+        n = args[3].shape[1]
+        splits = QM.w8a8_plan(m, k, n, dev)[0]
+        k_tiles = -(-k // 64)                     # 64-deep K tiles
+        per = -(-k_tiles // splits)
+        rec.update({"kernel": "quant_matmul_w4", "m": m, "d": k, "n": n,
+                    "splits": splits,
+                    "max_err": (got - want).abs().max().item(),
+                    "differing": int((got != want).sum().item())})
+        recs.append(rec)
+        if rec["differing"]:
+            fail(f"quant_matmul_w4 not bitwise: {json.dumps(rec)}")
+        if not (splits - 1) * per < k_tiles <= splits * per:
+            fail(f"quant_matmul_w4 split of {k_tiles} K tiles into "
+                 f"{splits} leaves one empty: {json.dumps(rec)}")
+
+    shapes = QMM_EDGES + [(m, k, n) for k, n in LINEAR_SHAPES
+                          for m in COMPOSED_ROWS]
+    for m, k, n in shapes:
+        for act_bits in (4, 8):
+            args, _ = contraction_operands(m, k, n, gen, dev, True,
+                                           act_bits)
+            held(args, {"act_bits": act_bits})
+    for m, k, n, pattern in ((9, 1536, 40, "min"), (130, 1536, 24, "min"),
+                             (33, 1535, 24, "alternating"),
+                             (130, 1536, 72, "alternating")):
+        if pattern == "min":
+            qx = torch.full((m, k), -128, dtype=torch.int8)
+            w = torch.full((k, n), -8, dtype=torch.int8)
+            qx[:, -3:], w[-3:] = 1, 1
+        else:
+            qx = torch.where(torch.arange(k) % 2 == 1, 127, -128).to(
+                torch.int8).expand(m, k).contiguous()
+            w = torch.where(torch.arange(k)[:, None] % 2 == 1, -8, 7).to(
+                torch.int8).expand(k, n).contiguous()
+        sx = torch.rand((m, 1), generator=gen) * 0.02 + 0.001
+        zx = torch.randint(-128, 128, (m, 1), generator=gen).float()
+        sw = torch.rand((1, n), generator=gen) * 0.02 + 0.001
+        args = [t.to(dev) for t in (qx, sx, zx, pack_int4(w, axis=0), sw)]
+        held(args, {"codes": pattern})
+    print("quant_matmul_w4 edges " + json.dumps(recs))
+    return recs
+
+
 def check_contractions(card, gen, dev):
     """The code contractions (rows 6, 7, 8) at every main-path (D, N):
     ``quant_gemv_w4`` at 8 rows, ``quant_matmul_w4`` at 128, W8A8
-    ``quant_matmul`` at both, against their plain versions at rtol 1e-5 of
-    the output's scale (both accumulate exact integers and apply the
-    epilogue once); W8A8 also bitwise, at ragged shapes and with full-range
-    int8 codes (``check_w8a8_edges``). Library: ``torch._int_mm`` of the
+    ``quant_matmul`` at both, against their plain versions: the two
+    tensor-core contractions bitwise (exact integer accumulation, one
+    epilogue in the same op order), also at ragged shapes, odd K, several
+    K splits and code extremes (``check_w4_edges``,
+    ``check_w8a8_edges``); the GEMV at rtol 1e-5 of the output's scale
+    (its differing outputs recorded). Library: ``torch._int_mm`` of the
     codes against the unpacked int8 weight, which covers the integer
     product only (no nibble unpacking, no epilogue); it needs more than 16
     rows."""
@@ -662,7 +808,9 @@ def check_contractions(card, gen, dev):
                 args, w = contraction_operands(m, k, n, gen, dev, packed)
                 got, want = run(*args), plain(*args)
                 err = (got - want).abs().max().item()
-                tol = 1e-5 * want.abs().max().item()
+                differing = int((got != want).sum().item())
+                bitwise = name != "quant_gemv_w4"
+                tol = 0.0 if bitwise else 1e-5 * want.abs().max().item()
                 library = None
                 if m > 16:
                     library = usable(lambda a=args[0], b=w:
@@ -673,11 +821,13 @@ def check_contractions(card, gen, dev):
                     lambda: run(*args), lambda: plain(*args), library,
                     m * k + w_bytes + 4 * n + 8 * m + 4 * m * n,
                     2 * m * k * n / INT8_OP_S, card,
-                    {"max_err": err, "tol": tol,
+                    {"max_err": err, "tol": tol, "differing": differing,
                      "library": None if library is None else
                      "torch._int_mm: the integer product only"}))
-                if not err <= tol:
-                    fail(f"{name} m={m} k={k} n={n}: max error {err} > {tol}")
+                if not err <= tol or (bitwise and differing):
+                    fail(f"{name} m={m} k={k} n={n}: max error {err} > "
+                         f"{tol}, {differing} outputs differ")
+    out["quant_matmul_w4"] += check_w4_edges(gen, dev)
     out["quant_matmul"] += check_w8a8_edges(gen, dev)
     return out
 
@@ -755,7 +905,7 @@ def profile_serving(engine, reqs) -> dict:
     groups = {"decode_qkv_prologue": "decode prologue",
               "transform_quant": "fused linear stage 1",
               "contract_gemv": "fused linear GEMV contraction",
-              "contract_tiled": "fused linear tiled contraction",
+              "mma_kernel": "fused linear tiled contraction",
               "paged_attn": "paged attention"}
     engine.reset()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1031,8 +1181,8 @@ def composed_phase(model, params_w4, counters, card, gen):
     output within its row's moved steps, sx·max(sw)·max|w| each, plus one
     bf16 unit and 1e-5 of the scale), each f32 call against
     ``ops.fused_cat_matmul`` bitwise (the same f32 transform chains, the
-    same quant and the same contractions: W8 runs the W8A8 tensor-core
-    contraction in both above 8 rows), and each call is timed beside the
+    same quant and the same contractions: above 8 rows both run the
+    tensor-core contraction, W4 and W8), and each call is timed beside the
     fused linear (device ms)."""
     import torch
 
@@ -1161,6 +1311,11 @@ def main() -> None:
     report = build.build_all()
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{sorted(report)} (parallel nvcc)")
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "nvcc.log").write_text("".join(
+        f"== {name} ({r['s']:.1f} s)\n{r['log']}\n"
+        for name, r in sorted(report.items())))
 
     from repro_torch.kernels import block_matmul as B
     from repro_torch.kernels import decode_layer as L
@@ -1258,8 +1413,6 @@ def main() -> None:
             "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
             "library_ms": rep["library_ms"]})
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": results, "summary": kernels,
          "serving": serving, "composed": composed}, indent=1))

@@ -17,8 +17,8 @@ from typing import Any, Optional
 import torch
 
 from . import transforms as T
-from .quantizers import (act_spec, fake_quant, int_matmul, quantize,
-                         unpack_int4)
+from .quantizers import (act_spec, fake_quant, int_matmul,
+                         quantize_dynamic, unpack_int4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,7 +131,7 @@ def dense_fused(p: QLinear, x: torch.Tensor, compute_dtype=None
             xt = fake_quant(xt, act_spec(p.act_bits))
         return xt.to(cd) @ p.w_eff.to(cd)
     xf = xt.reshape(-1, d)
-    q, s, zp = quantize(xf, act_spec(p.act_bits))
+    q, s, zp = quantize_dynamic(xf, act_spec(p.act_bits))
     acc = int_matmul(q, unpacked_qweight(p))
     y = s * p.scale * (acc - zp * p.colsum)
     return y.reshape(*lead, y.shape[-1]).to(cd)

@@ -78,6 +78,33 @@ def compute_scale_zp(x: torch.Tensor, spec: QuantSpec):
     return scale, zp
 
 
+def times_recip(t: torch.Tensor, levels: float) -> torch.Tensor:
+    """t * f32(1 / levels), one rounded multiply: the compiled reference
+    folds a division by the level count into a multiply by its f32
+    reciprocal. The reciprocal is a Python float that is exact in f32, so
+    no host tensor is copied (CUDA-graph safe)."""
+    recip = (torch.tensor(1.0, dtype=torch.float32) / levels).item()
+    return t * recip
+
+
+def quantize_dynamic(x: torch.Tensor, spec: QuantSpec):
+    """``quantize`` with min/max ranges, as ``jax.jit`` compiles the
+    reference's: the scale is the range times the f32 reciprocal of the
+    level count (``times_recip``); zero point and codes divide by that
+    scale. The activation quant of route 3 (``qlinear.dense_fused``); the
+    weight and static quant keep ``quantize``, which divides, as the
+    eager reference does. -> (q, scale, zp)."""
+    dims = _reduce_dims(x, spec)
+    if spec.symmetric:
+        amax = _amax(torch.abs(x), dims)
+        return quantize(x, spec, times_recip(torch.clamp_min(amax, _EPS),
+                                             spec.qmax))
+    xmin = _amin(x, dims)
+    scale = times_recip(torch.clamp_min(_amax(x, dims) - xmin, _EPS),
+                        spec.n_levels)
+    return quantize(x, spec, scale, torch.round(-xmin / scale))
+
+
 def _lp_optimal_scale(x: torch.Tensor, spec: QuantSpec, dims):
     """Grid-search the clipping range minimizing E|x - Q(x)|^p (p=2.4)."""
     p = spec.range_p
@@ -142,8 +169,7 @@ def _fake_quant_asym_lowp(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     dims = _reduce_dims(x, spec)
     xmin = _amin(x, dims)
     rng = torch.clamp_min(_amax(x, dims) - xmin, _EPS)
-    recip = torch.tensor(1.0, dtype=torch.float32) / spec.n_levels
-    scale_f32 = rng.to(torch.float32) * recip.to(x.device)
+    scale_f32 = times_recip(rng.to(torch.float32), spec.n_levels)
     scale = scale_f32.to(x.dtype)
     zp = torch.round(-xmin / scale)
     q = torch.clamp(torch.round(x / scale + zp), spec.qmin, spec.qmax)

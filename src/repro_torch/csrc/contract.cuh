@@ -6,16 +6,14 @@
 // Shared by the fused CAT linear (fused_cat_matmul.cu, stage 2) and the
 // stand-alone contractions of the composed linear (quant_matmul.cu).
 //
-// Three kernels. The GEMV (m <= 8, int4-packed or int8 weights: the
+// Two kernels. The GEMV (m <= 8, int4-packed or int8 weights: the
 // weight is the only large stream; one CTA per 32 output columns, 8
-// K-slices reduced in shared memory). Above 8 rows, the tiled one for
-// packed int4 weights (32 x 64 output tiles, codes and unpacked weights
-// staged in shared memory per 64-deep K step, int32 FMAs on the CUDA
-// cores) and, for int8 weights, the W8A8 tensor-core one (namespace w8a8
-// below). Integer accumulation is exact over all of K, so the column sums
-// ride along and the epilogue runs once (the TPU kernels add one f32
-// epilogue per K tile; the reference's oracle, like this, applies it
-// once).
+// K-slices reduced in shared memory) and, above 8 rows, the tensor-core
+// one (namespace w8a8 below: mma.sync s8 x s8 -> s32 on 64 x 64 tiles,
+// int4-packed weights unpacked to s8 in shared memory on the way).
+// Integer accumulation is exact over all of K, so the column sums ride
+// along and the epilogue runs once (the TPU kernels add one f32 epilogue
+// per K tile; the reference's oracle, like this, applies it once).
 //
 // qx is read with row stride ldq and its first k_valid codes; codes at
 // k_valid <= k < k_pad count as 0 (odd K against a packed weight whose
@@ -31,7 +29,6 @@ namespace contract {
 constexpr int kGemvM = 8;       // rows served by the GEMV contraction
 constexpr int kGemvCols = 32;   // output columns per GEMV CTA
 constexpr int kGemvSlices = 8;  // K-slices per GEMV CTA
-constexpr int kTM = 32, kTN = 64, kTK = 64;   // tiled (int4) contraction tile
 
 __device__ __forceinline__ int lo_nibble(int byte) {
   return ((byte & 0xF) ^ 8) - 8;
@@ -111,73 +108,21 @@ __global__ void contract_gemv_kernel(
   }
 }
 
-// Tiled contraction of m > 8 rows against int4-packed weights.
-// grid (ceil(n / 64), ceil(m / 32)); block (64, 4): each thread owns one
-// column and eight rows of the 32 x 64 output tile.
-__global__ void contract_tiled_kernel(
-    const int8_t* __restrict__ qx, int ldq, int k_valid,
-    const float* __restrict__ sx, const float* __restrict__ zx, int m,
-    int k_pad, const int8_t* __restrict__ qw, const float* __restrict__ sw,
-    int n, float* __restrict__ out) {
-  __shared__ int8_t s_a[kTM][kTK + 4];
-  __shared__ int8_t s_b[kTK][kTN];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTN + tx, nt = kTN * 4;
-  const int m0 = blockIdx.y * kTM, n0 = blockIdx.x * kTN;
-  const int col = n0 + tx;
-  int acc[8];
-#pragma unroll
-  for (int r = 0; r < 8; ++r) acc[r] = 0;
-  int cs = 0;
-  for (int k0 = 0; k0 < k_pad; k0 += kTK) {
-    for (int i = tid; i < kTM * kTK; i += nt) {
-      const int r = i / kTK, k = i - r * kTK;
-      const int gr = m0 + r, gk = k0 + k;
-      s_a[r][k] = (gr < m && gk < k_valid) ? qx[(size_t)gr * ldq + gk] : 0;
-    }
-    for (int i = tid; i < (kTK / 2) * kTN; i += nt) {
-      const int pr = i / kTN, c = i - pr * kTN;
-      const int gpr = k0 / 2 + pr, gc = n0 + c;
-      const int byte = (gpr < k_pad / 2 && gc < n)
-                           ? qw[(size_t)gpr * n + gc] : 0;
-      s_b[2 * pr][c] = (int8_t)lo_nibble(byte);
-      s_b[2 * pr + 1][c] = (int8_t)hi_nibble(byte);
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kTK; ++kk) {
-      const int w = s_b[kk][tx];
-      cs += w;
-#pragma unroll
-      for (int r = 0; r < 8; ++r) acc[r] += (int)s_a[ty * 8 + r][kk] * w;
-    }
-    __syncthreads();
-  }
-  if (col < n) {
-    const float swv = sw[col];
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int row = m0 + ty * 8 + r;
-      if (row < m) {
-        out[(size_t)row * n + col] = epilogue(sx[row], swv, acc[r], zx[row], cs);
-      }
-    }
-  }
-}
-
-// W8A8 contraction of m > 8 rows against int8 weights on the tensor
-// cores: 64 x 64 output tiles, four warps of 32 x 32, each product an
-// mma.sync m16n8k32 s8 x s8 -> s32. The weights keep the reference's
-// (k, n) row-major layout, so each 64 x 64 weight tile is copied raw into
+// Tensor-core contraction of m > 8 rows against int8 weights (W8A8) or
+// int4-packed ones (W4A8): 64 x 64 output tiles, four warps of 32 x 32,
+// each product an mma.sync m16n8k32 s8 x s8 -> s32 (exact). The weights
+// keep the reference's (k, n) row-major layout, so each weight tile of a
+// 64-deep K step (64 rows of int8, or 32 packed rows whose bytes hold K
+// 2p in the low nibble and 2p + 1 in the high one) is copied raw into
 // shared memory with cp.async (a four-deep ring over K) and transposed
 // there in 4 x 4 byte blocks with byte permutes to the K-contiguous
-// columns the B operand wants; the column sums ride along (dp4a) on the
-// CUDA cores. Where the tiles alone leave the card's SMs short, K is
-// split across CTAs (w8a8_splits): each adds its exact int32 partial sums
-// into zeroed scratch with atomics (integer sums do not depend on their
-// order), and the last CTA of a tile (a device counter) applies the one
-// epilogue, so the result is the same bitwise whatever the split. qx is
-// read with row stride k.
+// columns the B operand wants, the nibbles unpacked and sign-extended to
+// s8 on the way; the column sums ride along (dp4a) on the CUDA cores.
+// Where the tiles alone leave the card's SMs short, K is split across
+// CTAs (w8a8_splits): each adds its exact int32 partial sums into zeroed
+// scratch with atomics (integer sums do not depend on their order), and
+// the last CTA of a tile (a device counter) applies the one epilogue, so
+// the result is the same bitwise whatever the split.
 namespace w8a8 {
 
 constexpr int kTM = 64, kTN = 64, kTK = 64, kThreads = 128;
@@ -263,18 +208,60 @@ __device__ __forceinline__ void transpose_w(const int8_t* w, int8_t* bt,
   }
 }
 
-// grid (ceil(n / kTN), ceil(m / kTM), splits), block kThreads. Split z
-// takes K tiles [z * kt_per, min((z + 1) * kt_per, ceil(k / kTK))). With
-// splits > 1, ws holds zeroed int32 scratch: the (m, n) sums, the
+// Four bytes of nibbles 0..15 sign-extended to s8: (v ^ 8) - 8 per byte,
+// as ((v ^ 8) + 120) ^ 128, which carries into no other byte.
+__device__ __forceinline__ unsigned sext_nibbles(unsigned v) {
+  return ((v ^ 0x08080808u) + 0x78787878u) ^ 0x80808080u;
+}
+
+// The raw packed tile w (32 packed rows x 64 columns) into bt (n, k) as
+// s8 codes: each thread transposes packed rows k4 * 4 .. + 3 (k4 = tid /
+// 16) of columns n4 * 4 .. + 3 (n4 = tid % 16) in a 4 x 4 byte block,
+// then splits each column's four bytes into K 8 * k4 .. + 7 (low nibble
+// first), and adds the codes to cs[].
+__device__ __forceinline__ void transpose_w4(const int8_t* w, int8_t* bt,
+                                             int (&cs)[4]) {
+  const int n4 = threadIdx.x & 15, k4 = threadIdx.x >> 4;
+  const int8_t* src = w + (k4 * 4) * kLdW + n4 * 4;
+  const unsigned w0 = ld32(src), w1 = ld32(src + kLdW),
+                 w2 = ld32(src + 2 * kLdW), w3 = ld32(src + 3 * kLdW);
+  const unsigned t0 = __byte_perm(w0, w1, 0x5140);
+  const unsigned t1 = __byte_perm(w0, w1, 0x7362);
+  const unsigned t2 = __byte_perm(w2, w3, 0x5140);
+  const unsigned t3 = __byte_perm(w2, w3, 0x7362);
+  const unsigned col[4] = {__byte_perm(t0, t2, 0x5410),
+                           __byte_perm(t0, t2, 0x7632),
+                           __byte_perm(t1, t3, 0x5410),
+                           __byte_perm(t1, t3, 0x7632)};
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const unsigned lo = sext_nibbles(col[c] & 0x0F0F0F0Fu);
+    const unsigned hi = sext_nibbles((col[c] >> 4) & 0x0F0F0F0Fu);
+    uint2 k8;
+    k8.x = __byte_perm(lo, hi, 0x5140);
+    k8.y = __byte_perm(lo, hi, 0x7362);
+    *reinterpret_cast<uint2*>(bt + (n4 * 4 + c) * kLd + k4 * 8) = k8;
+    cs[c] = __dp4a((int)k8.y, 0x01010101, __dp4a((int)k8.x, 0x01010101,
+                                                  cs[c]));
+  }
+}
+
+// grid (ceil(n / kTN), ceil(m / kTM), splits), block kThreads. qx
+// is read with row stride ldq and its first k_valid codes (zero beyond);
+// qw has k_pad rows of int8 or, PACKED, k_pad / 2 packed rows. Split z
+// takes K tiles [z * kt_per, min((z + 1) * kt_per, ceil(k_pad / kTK))).
+// With splits > 1, ws holds zeroed int32 scratch: the (m, n) sums, the
 // (ceil(m / kTM), n) column sums and one counter per output tile.
-__global__ void __launch_bounds__(kThreads) w8a8_mma_kernel(
-    const int8_t* __restrict__ qx, const float* __restrict__ sx,
-    const float* __restrict__ zx, int m, int k,
-    const int8_t* __restrict__ qw, const float* __restrict__ sw, int n,
-    int kt_per, bool vec_a, bool vec_w, int* __restrict__ ws,
+template <bool PACKED>
+__global__ void __launch_bounds__(kThreads) mma_kernel(
+    const int8_t* __restrict__ qx, int ldq, int k_valid,
+    const float* __restrict__ sx, const float* __restrict__ zx, int m,
+    int k_pad, const int8_t* __restrict__ qw, const float* __restrict__ sw,
+    int n, int kt_per, bool vec_a, bool vec_w, int* __restrict__ ws,
     float* __restrict__ out) {
+  constexpr int kWRows = PACKED ? kTK / 2 : kTK;   // weight rows per K tile
   __shared__ __align__(16) int8_t s_a[kStages][kTM * kLd];
-  __shared__ __align__(16) int8_t s_w[kStages][kTK * kLdW];
+  __shared__ __align__(16) int8_t s_w[kStages][kWRows * kLdW];
   __shared__ __align__(16) int8_t s_bt[kTN * kLd];
   __shared__ int s_cs[kTN];
   __shared__ int s_last;
@@ -283,7 +270,8 @@ __global__ void __launch_bounds__(kThreads) w8a8_mma_kernel(
   const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
   const int n0 = blockIdx.x * kTN, m0 = blockIdx.y * kTM;
   const int splits = gridDim.z;
-  const int kt_total = (k + kTK - 1) / kTK;
+  const int w_rows = PACKED ? k_pad / 2 : k_pad;
+  const int kt_total = (k_pad + kTK - 1) / kTK;
   const int kt0 = blockIdx.z * kt_per;
   const int kt1 = min(kt0 + kt_per, kt_total);
   if (tid < kTN) s_cs[tid] = 0;
@@ -300,8 +288,10 @@ __global__ void __launch_bounds__(kThreads) w8a8_mma_kernel(
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) {
     if (kt0 + i < kt1) {
-      load_tile(s_a[i], kLd, qx, k, m, k, m0, (kt0 + i) * kTK, kTM, vec_a);
-      load_tile(s_w[i], kLdW, qw, n, k, n, (kt0 + i) * kTK, n0, kTK, vec_w);
+      load_tile(s_a[i], kLd, qx, ldq, m, k_valid, m0, (kt0 + i) * kTK, kTM,
+                vec_a);
+      load_tile(s_w[i], kLdW, qw, n, w_rows, n, (kt0 + i) * kWRows, n0,
+                kWRows, vec_w);
     }
     cp_async_commit();
   }
@@ -312,11 +302,17 @@ __global__ void __launch_bounds__(kThreads) w8a8_mma_kernel(
     const int ahead = kt + kStages - 1;
     if (ahead < kt1) {
       const int to = (i + kStages - 1) % kStages;
-      load_tile(s_a[to], kLd, qx, k, m, k, m0, ahead * kTK, kTM, vec_a);
-      load_tile(s_w[to], kLdW, qw, n, k, n, ahead * kTK, n0, kTK, vec_w);
+      load_tile(s_a[to], kLd, qx, ldq, m, k_valid, m0, ahead * kTK, kTM,
+                vec_a);
+      load_tile(s_w[to], kLdW, qw, n, w_rows, n, ahead * kWRows, n0, kWRows,
+                vec_w);
     }
     cp_async_commit();
-    transpose_w(s_w[slot], s_bt, cs);
+    if constexpr (PACKED) {
+      transpose_w4(s_w[slot], s_bt, cs);
+    } else {
+      transpose_w(s_w[slot], s_bt, cs);
+    }
     __syncthreads();
     const int8_t* sa = s_a[slot];
 #pragma unroll
@@ -400,8 +396,8 @@ __global__ void __launch_bounds__(kThreads) w8a8_mma_kernel(
 
 }  // namespace w8a8
 
-// K splits of the W8A8 contraction of an (m, k) x (k, n) product on a
-// card of ``sms`` SMs: where the output tiles fill fewer than half the SMs
+// K splits of the tensor-core contraction (W8A8 or W4A8: the same tiles)
+// of an (m, k) x (k, n) product on a card of ``sms`` SMs: where the output tiles fill fewer than half the SMs
 // and K is deep (16 or more K tiles), enough splits to fill them once,
 // each of at least one K tile; else 1 (a split costs a zeroed scratch and
 // atomics, which a shallow K does not repay).
@@ -451,40 +447,40 @@ inline cudaError_t launch_gemv(const void* qx, int ldq, int k_valid,
   return cudaGetLastError();
 }
 
-// Launch the tiled contraction against int4-packed weights (any m).
-// Returns cudaGetLastError().
-inline cudaError_t launch_tiled_w4(const void* qx, int ldq, int k_valid,
-                                   const void* sx, const void* zx, int m,
-                                   int k_pad, const void* qw, const void* sw,
-                                   int n, void* out, cudaStream_t stream) {
-  dim3 grid((n + kTN - 1) / kTN, (m + kTM - 1) / kTM);
-  dim3 block(kTN, 4);
-  contract_tiled_kernel<<<grid, block, 0, stream>>>(
-      static_cast<const int8_t*>(qx), ldq, k_valid,
-      static_cast<const float*>(sx), static_cast<const float*>(zx), m, k_pad,
-      static_cast<const int8_t*>(qw), static_cast<const float*>(sw), n,
-      static_cast<float*>(out));
-  return cudaGetLastError();
-}
-
-// Launch the W8A8 contraction (m > kGemvM) with ``splits`` K splits (from
+// Launch the tensor-core contraction (m > kGemvM) of qx (row stride ldq,
+// first k_valid codes) against k_pad rows of int8 weights or, with
+// ``packed``, k_pad / 2 packed rows, with ``splits`` K splits (from
 // w8a8_splits; above 1, ws holds w8a8_scratch(m, n, splits) zeroed
 // int32). Returns cudaGetLastError().
-inline cudaError_t launch_w8a8(const void* qx, int m, int k, const void* sx,
-                               const void* zx, const void* qw,
-                               const void* sw, int n, int splits, void* ws,
-                               void* out, cudaStream_t stream) {
+inline cudaError_t launch_mma(const void* qx, int ldq, int k_valid,
+                              const void* sx, const void* zx, int m,
+                              int k_pad, const void* qw, int packed,
+                              const void* sw, int n, int splits, void* ws,
+                              void* out, cudaStream_t stream) {
   constexpr int tm = w8a8::kTM, tn = w8a8::kTN, tk = w8a8::kTK;
-  const int kt_total = (k + tk - 1) / tk;
+  const int kt_total = (k_pad + tk - 1) / tk;
   const int kt_per = (kt_total + splits - 1) / splits;
-  const bool vec_a = k % 16 == 0 && reinterpret_cast<uintptr_t>(qx) % 16 == 0;
-  const bool vec_w = n % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
+  const bool vec_a =
+      ldq % 16 == 0 && reinterpret_cast<uintptr_t>(qx) % 16 == 0;
+  const bool vec_w =
+      n % 16 == 0 && reinterpret_cast<uintptr_t>(qw) % 16 == 0;
   dim3 grid((n + tn - 1) / tn, (m + tm - 1) / tm, splits);
-  w8a8::w8a8_mma_kernel<<<grid, w8a8::kThreads, 0, stream>>>(
-      static_cast<const int8_t*>(qx), static_cast<const float*>(sx),
-      static_cast<const float*>(zx), m, k, static_cast<const int8_t*>(qw),
-      static_cast<const float*>(sw), n, kt_per, vec_a, vec_w,
-      static_cast<int*>(ws), static_cast<float*>(out));
+  auto q = static_cast<const int8_t*>(qx);
+  auto s = static_cast<const float*>(sx);
+  auto z = static_cast<const float*>(zx);
+  auto w = static_cast<const int8_t*>(qw);
+  auto sc = static_cast<const float*>(sw);
+  auto o = static_cast<float*>(out);
+  auto scratch = static_cast<int*>(ws);
+  if (packed) {
+    w8a8::mma_kernel<true><<<grid, w8a8::kThreads, 0, stream>>>(
+        q, ldq, k_valid, s, z, m, k_pad, w, sc, n, kt_per, vec_a, vec_w,
+        scratch, o);
+  } else {
+    w8a8::mma_kernel<false><<<grid, w8a8::kThreads, 0, stream>>>(
+        q, ldq, k_valid, s, z, m, k_pad, w, sc, n, kt_per, vec_a, vec_w,
+        scratch, o);
+  }
   return cudaGetLastError();
 }
 

@@ -63,9 +63,9 @@ __global__ void decode_qkv_prologue_kernel(
   extern __shared__ float smem[];
   float* s_x = smem;
   float* s_y = s_x + (size_t)m * d;
-  float* s_ha = s_y + (size_t)m * d;
-  float* s_hb = s_ha + a * a;
-  int8_t* s_q = reinterpret_cast<int8_t*>(s_hb + b * b);
+  float* s_hat = s_y + (size_t)m * d;
+  float* s_hbt = s_hat + a * a;
+  int8_t* s_q = reinterpret_cast<int8_t*>(s_hbt + b * b);
   float* s_out = s_x;   // (m, hd): the head's outputs, after the codes
   __shared__ float red_min[kMaxRows * 32], red_max[kMaxRows * 32];
   __shared__ float s_sx[kMaxRows], s_zx[kMaxRows];
@@ -77,10 +77,9 @@ __global__ void decode_qkv_prologue_kernel(
   const int kvh = n_kv / hd;
 
   // 1. every row's transform + quant, codes kept in shared memory
-  for (int i = tid; i < a * a; i += nt) s_ha[i] = ha[i];
-  for (int i = tid; i < b * b; i += nt) s_hb[i] = hb[i];
+  tq::load_factors(ha, a, hb, b, s_hat, s_hbt);
   tq::transform_quant_rows<T, kMaxRows>(x, m, d, k_pad, blocks, bk, sign,
-                                        s_ha, a, s_hb, b, act_bits, s_x,
+                                        s_hat, a, s_hbt, b, act_bits, s_x,
                                         s_y, red_min, red_max, s_q, s_sx,
                                         s_zx);
 

@@ -12,16 +12,17 @@
 // (m, k_pad) int8 plus sx, zx (m,) f32 to a scratch buffer the wrapper
 // allocates: (k_pad + 8) bytes per row written and read back once, which
 // the contraction then revisits from shared memory. Stage 2 is the GEMV
-// (m <= 8) or, above, the tiled int4 contraction or the W8A8 tensor-core
-// one of contract.cuh, which the composed linear's stand-alone
-// contractions (quant_matmul.cu) share.
+// (m <= 8) or, above, the tensor-core contraction of contract.cuh (int8
+// weights, or int4-packed ones unpacked to s8 in shared memory), which
+// the composed linear's stand-alone contractions (quant_matmul.cu)
+// share.
 //
 // Bound on this card: at decode shapes (m <= 8) the packed-weight bytes
 // (D/2 x N) over HBM bandwidth; at the 128-row ragged step the weight is
 // still the larger stream (D/2 x N vs m x D x 2), so bytes bound both.
 // The design reads each weight byte once per M tile and keeps codes on
-// chip; the int4 contraction uses plain int32 FMAs (no wgmma yet), the
-// int8 one mma.sync on the tensor cores.
+// chip; above 8 rows the products run on the tensor cores (mma.sync s8,
+// no wgmma yet), the GEMV's on the CUDA cores.
 #include "contract.cuh"
 #include "transform_quant.cuh"
 
@@ -43,15 +44,13 @@ __global__ void transform_quant_kernel(
   extern __shared__ float smem[];
   float* s_x = smem;
   float* s_y = s_x + d;
-  float* s_ha = s_y + d;
-  float* s_hb = s_ha + a * a;
+  float* s_hat = s_y + d;
+  float* s_hbt = s_hat + a * a;
   __shared__ float red_min[32], red_max[32];
   const int row = blockIdx.x;
-  const int tid = threadIdx.x, nt = blockDim.x;
-  for (int i = tid; i < a * a; i += nt) s_ha[i] = ha[i];
-  for (int i = tid; i < b * b; i += nt) s_hb[i] = hb[i];
+  tq::load_factors(ha, a, hb, b, s_hat, s_hbt);
   tq::transform_quant_rows<T, 1>(x + (size_t)row * d, 1, d, k_pad, blocks,
-                                 bk, sign, s_ha, a, s_hb, b, act_bits, s_x,
+                                 bk, sign, s_hat, a, s_hbt, b, act_bits, s_x,
                                  s_y, red_min, red_max,
                                  qx + (size_t)row * k_pad, sx + row,
                                  zx + row);
@@ -102,9 +101,9 @@ extern "C" int fused_cat_gemv_w4(
                                     packed, sw, n, out, stream);
 }
 
-// Tiled entry (m > 8): stage 2 is the tiled int4 contraction for packed
-// weights, the W8A8 tensor-core one for int8 weights with ``splits`` K
-// splits and their scratch ws (quant_matmul_plan of quant_matmul.cu).
+// Tiled entry (m > 8): stage 2 is the tensor-core contraction, for packed
+// or int8 weights, with ``splits`` K splits and their scratch ws
+// (quant_matmul_plan of quant_matmul.cu, with k = k_pad).
 // Returns cudaGetLastError() of the launches.
 extern "C" int fused_cat_matmul_w4(
     const void* x, int x_is_bf16, int m, int d, int k_pad,
@@ -116,9 +115,6 @@ extern "C" int fused_cat_matmul_w4(
   cudaError_t err = stage1(x, x_is_bf16, m, d, k_pad, blocks, bk, sign, ha,
                            a, hb, b, act_bits, qx, sx, zx, stream);
   if (err != cudaSuccess) return (int)err;
-  if (packed)
-    return (int)contract::launch_tiled_w4(qx, k_pad, k_pad, sx, zx, m, k_pad,
-                                          qw, sw, n, out, stream);
-  return (int)contract::launch_w8a8(qx, m, k_pad, sx, zx, qw, sw, n, splits,
-                                    ws, out, stream);
+  return (int)contract::launch_mma(qx, k_pad, k_pad, sx, zx, m, k_pad, qw,
+                                   packed, sw, n, splits, ws, out, stream);
 }

@@ -14,11 +14,12 @@
 // activation code reads as 0, as the reference pads qx.
 //
 // All three run the contractions of contract.cuh that the fused CAT
-// linear's stage 2 runs: the GEMV for m <= 8, and above it the tiled
-// int4 contraction (quant_matmul_w4: 32 x 64 tiles, int32 FMAs on the
-// CUDA cores) or the W8A8 tensor-core one (quant_matmul: mma.sync
-// m16n8k32 s8 on 64 x 64 tiles, weights transposed in shared memory, K
-// split across CTAs where the tiles alone leave SMs idle).
+// linear's stage 2 runs: the GEMV (quant_gemv_w4; quant_matmul for m <=
+// 8) and the tensor-core one (quant_matmul_w4 at any m, quant_matmul
+// above 8 rows: mma.sync m16n8k32 s8 on 64 x 64 tiles, weights
+// transposed in shared memory, nibbles unpacked to s8 there for the
+// packed weight, K split across CTAs where the tiles alone leave SMs
+// idle).
 //
 // Bound on this card: the weight codes (k/2 x n packed, k x n int8) over
 // HBM bandwidth at decode shapes and at 128 rows alike; the int8
@@ -42,16 +43,20 @@ extern "C" int quant_gemv_w4(const void* qx, int m, int k, const void* sx,
                                     static_cast<cudaStream_t>(stream_ptr));
 }
 
-// As quant_gemv_w4, any m, through the tiled contraction.
+// As quant_gemv_w4, any m, through the tensor-core contraction with
+// ``splits`` K splits and their scratch ws (quant_matmul_plan of (m, k,
+// n)). Returns cudaGetLastError().
 extern "C" int quant_matmul_w4(const void* qx, int m, int k, const void* sx,
                                const void* zx, const void* qw, const void* sw,
-                               int n, void* out, void* stream_ptr) {
-  return (int)contract::launch_tiled_w4(qx, k, k, sx, zx, m, k_pad_w4(k),
-                                        qw, sw, n, out,
-                                        static_cast<cudaStream_t>(stream_ptr));
+                               int n, int splits, void* ws, void* out,
+                               void* stream_ptr) {
+  return (int)contract::launch_mma(qx, k, k, sx, zx, m, k_pad_w4(k), qw, 1,
+                                   sw, n, splits, ws, out,
+                                   static_cast<cudaStream_t>(stream_ptr));
 }
 
-// K splits of quant_matmul's (m, k) x (k, n) contraction on a card of
+// K splits of quant_matmul's or quant_matmul_w4's (m, k) x (k, n)
+// contraction (and of the fused linear's stage 2, k = k_pad) on a card of
 // ``sms`` SMs (contract::w8a8_splits; 1 for m <= 8); *scratch gets the
 // zeroed int32 elements they need (0 for one split).
 extern "C" int quant_matmul_plan(int m, int k, int n, int sms,
@@ -72,6 +77,6 @@ extern "C" int quant_matmul(const void* qx, int m, int k, const void* sx,
   if (m <= contract::kGemvM)
     return (int)contract::launch_gemv(qx, k, k, sx, zx, m, k, qw, 0, sw, n,
                                       out, stream);
-  return (int)contract::launch_w8a8(qx, m, k, sx, zx, qw, sw, n, splits, ws,
-                                    out, stream);
+  return (int)contract::launch_mma(qx, k, k, sx, zx, m, k, qw, 0, sw, n,
+                                   splits, ws, out, stream);
 }

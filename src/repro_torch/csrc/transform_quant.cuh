@@ -1,6 +1,7 @@
 // Activation rows through the CAT transform and the dynamic per-token
 // quant, for Hopper (sm_90a), one device function per step:
 //   load_rows        x (T) -> f32 in shared memory
+//   load_factors     the Kronecker factors, transposed, in shared memory
 //   block_cat_sign   block-CAT (y_i = B_blk x_blk), then * sign
 //   hadamard_rows    Kronecker Hadamard Y = Ha X Hb^T of each row
 //   row_ranges       each row's min and max
@@ -14,11 +15,12 @@
 // transform_quant_rows composes them for the fused CAT linear
 // (fused_cat_matmul.cu, stage 1: one row per CTA) and the decode QKV
 // prologue (decode_layer.cu: every decode row in each CTA); the stand-alone
-// kernels of the composed linear (block_matmul.cu, hadamard.cu,
-// dynamic_quant.cu) call the steps one by one, so every path computes a
-// step with the same arithmetic. Each output element is one fmaf chain in
-// a fixed order, whatever the number of rows, so a row's values do not
-// depend on its batch. Every function takes m <= MAXR rows of d values
+// quant (dynamic_quant.cu) calls the steps one by one, and the stand-alone
+// block-CAT and Hadamard (block_matmul.cu, hadamard.cu) compute the same
+// fmaf chains in tilings of their own, so every path computes a step with
+// the same arithmetic. Each output element is one fmaf chain in a fixed
+// order, whatever the number of rows, so a row's values do not depend on
+// its batch. Every function takes m <= MAXR rows of d values
 // (row stride d), must be called by every thread of the block, and ends
 // with a barrier, so its outputs are visible to the whole block.
 #pragma once
@@ -87,22 +89,42 @@ __device__ void block_cat_sign(const float* s_x, int m, int d,
   __syncthreads();
 }
 
+// s_hat[i * a + p] = ha[p * a + i], s_hbt[j * b + l] = hb[l * b + j]: both
+// Kronecker factors transposed into shared memory (read coalesced, written
+// strided), where hadamard_rows reads them on distinct banks. Visible to
+// the block after its next barrier.
+__device__ void load_factors(const float* __restrict__ ha, int a,
+                             const float* __restrict__ hb, int b,
+                             float* s_hat, float* s_hbt) {
+  for (int e = threadIdx.x; e < a * a; e += blockDim.x) {
+    const int p = e / a, i = e - p * a;
+    s_hat[i * a + p] = ha[e];
+  }
+  for (int e = threadIdx.x; e < b * b; e += blockDim.x) {
+    const int l = e / b, j = e - l * b;
+    s_hbt[j * b + l] = hb[e];
+  }
+}
+
 // s_y <- Ha Y Hb^T for each row's Y = s_y viewed (a, b); s_tmp is scratch
-// of the same size. s_ha (a*a) and s_hb (b*b) already in shared memory.
+// of the same size. s_hat and s_hbt: the factors as load_factors lays
+// them out, already in shared memory. A warp's consecutive outputs step
+// through l (p changes at most once), so its factor reads hit
+// consecutive words and its reads of Y one or two rows i, on distinct
+// banks.
 template <int MAXR>
 __device__ void hadamard_rows(float* s_y, float* s_tmp, int m, int d,
-                              const float* s_ha, int a, const float* s_hb,
+                              const float* s_hat, int a, const float* s_hbt,
                               int b) {
   const int tid = threadIdx.x, nt = blockDim.x;
   // Z = Y Hb^T
   for (int idx = tid; idx < d; idx += nt) {
     const int i = idx / b, l = idx - i * b;
-    const float* hr = s_hb + l * b;
     float acc[MAXR];
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
     for (int j = 0; j < b; ++j) {
-      const float w = hr[j];
+      const float w = s_hbt[j * b + l];
 #pragma unroll
       for (int r = 0; r < MAXR; ++r)
         if (r < m) acc[r] = fmaf(s_y[r * d + i * b + j], w, acc[r]);
@@ -115,12 +137,11 @@ __device__ void hadamard_rows(float* s_y, float* s_tmp, int m, int d,
   // out[p*b + l] = sum_i Ha[p][i] Z[i][l]
   for (int idx = tid; idx < d; idx += nt) {
     const int p = idx / b, l = idx - p * b;
-    const float* hr = s_ha + p * a;
     float acc[MAXR];
 #pragma unroll
     for (int r = 0; r < MAXR; ++r) acc[r] = 0.f;
     for (int i = 0; i < a; ++i) {
-      const float w = hr[i];
+      const float w = s_hat[i * a + p];
 #pragma unroll
       for (int r = 0; r < MAXR; ++r)
         if (r < m) acc[r] = fmaf(s_tmp[r * d + i * b + l], w, acc[r]);
@@ -226,7 +247,7 @@ __device__ void quant_rows(const float* s_y, int m, int d, int k_pad,
 // Transform and asymmetric-quantize rows x[0..m) (m <= MAXR, d values
 // each, row stride d) with every thread of the block; each factor element
 // is read once for all m rows. Shared scratch: s_x, s_y (m*d floats each),
-// s_ha (a*a) and s_hb (b*b) already loaded, red_min/red_max (MAXR*32
+// s_hat (a*a) and s_hbt (b*b) from load_factors, red_min/red_max (MAXR*32
 // floats each). Writes k_pad codes per row to q_out (row stride k_pad) and
 // each row's scale and signed-shifted zero point to scale_out[r], zp_out[r].
 template <typename T, int MAXR>
@@ -234,12 +255,12 @@ __device__ void transform_quant_rows(
     const T* __restrict__ x, int m, int d, int k_pad,
     const float* __restrict__ blocks, int bk,
     const float* __restrict__ sign,
-    const float* s_ha, int a, const float* s_hb, int b, int act_bits,
+    const float* s_hat, int a, const float* s_hbt, int b, int act_bits,
     float* s_x, float* s_y, float* red_min, float* red_max,
     int8_t* q_out, float* scale_out, float* zp_out) {
   load_rows(x, m * d, s_x);
   block_cat_sign<MAXR>(s_x, m, d, blocks, bk, sign, s_y);
-  hadamard_rows<MAXR>(s_y, s_x, m, d, s_ha, a, s_hb, b);
+  hadamard_rows<MAXR>(s_y, s_x, m, d, s_hat, a, s_hbt, b);
   row_ranges<MAXR>(s_y, m, d, red_min, red_max);
   quant_rows<MAXR>(s_y, m, d, k_pad, act_bits, false, red_min, red_max,
                    q_out, scale_out, zp_out);

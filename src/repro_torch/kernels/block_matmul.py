@@ -24,32 +24,22 @@ import ctypes
 import torch
 
 from . import build
+from .fma_chain import chain_dot
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {"block_diag_matmul": [_P, _C, _C, _C, _P, _C, _P, _P]}
-_MIN_ROWS = 8   # the plain version's f32 product pads fewer rows
 
 
 def block_diag_f32(xf: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
-    """(M, D) f32 rows through the per-block dots -> (M, D) f32.
-
-    Fewer than 8 rows are padded with zero rows. On the card this rests on
-    cuBLAS's choice of kernel, which no document fixes: at one row it
-    picks a kernel that reduces in another order, while from a few rows up
-    the kernel it picks accumulates each output over k in order from 0,
-    which is the CUDA kernel's fmaf chain. So the f32 bitwise agreement of
-    the kernel with this version (held by ``chip_smoke.py`` at 1, 7, 8,
-    128 and 300 rows) is a reading of this cuBLAS, not a property of the
-    definition; a cuBLAS that chooses differently shows as a failed f32
-    check there, and is within the bf16 bound all the same."""
+    """(M, D) f32 rows through the per-block dots, each output one
+    in-order fma chain over its block's row from 0
+    (``fma_chain.chain_dot``), as the CUDA kernels compute it, at every
+    row count -> (M, D) f32."""
     m, d = xf.shape
     nblk, bk, _ = blocks.shape
-    if m < _MIN_ROWS:
-        xf = torch.cat([xf, xf.new_zeros(_MIN_ROWS - m, d)])
-    xb = xf.reshape(-1, nblk, bk).transpose(0, 1)             # (n, M, k)
-    y = torch.bmm(xb, blocks.to(torch.float32).transpose(1, 2))
-    return y.transpose(0, 1).reshape(-1, d)[:m]
+    y = chain_dot(xf.reshape(m, nblk, bk), blocks.to(torch.float32))
+    return y.reshape(m, d)
 
 
 def block_diag_matmul_plain(x: torch.Tensor, blocks: torch.Tensor

@@ -28,21 +28,14 @@ import ctypes
 
 import torch
 
+from repro_torch.core.quantizers import times_recip
+
 from . import build
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {"dynamic_quant": [_P, _C, _C, _C, _C, _C, _P, _P, _P, _P]}
 _SMEM_MAX = 48 * 1024
-
-
-def _times_recip(t: torch.Tensor, levels: float) -> torch.Tensor:
-    """t * f32(1 / levels), one rounded f32 multiply: the compiled
-    reference folds the division of the range by the level count into a
-    multiply by the f32 reciprocal. The reciprocal is a Python float that
-    is exact in f32, so no host tensor is copied (CUDA-graph safe)."""
-    recip = (torch.tensor(1.0, dtype=torch.float32) / levels).item()
-    return t * recip
 
 
 def dynamic_quant_plain(x: torch.Tensor, bits: int = 8,
@@ -53,14 +46,14 @@ def dynamic_quant_plain(x: torch.Tensor, bits: int = 8,
     if symmetric:
         qmax = 2.0 ** (bits - 1) - 1
         amax = torch.amax(torch.abs(xf), dim=-1, keepdim=True)
-        scale = _times_recip(torch.clamp_min(amax, 1e-12), qmax)
+        scale = times_recip(torch.clamp_min(amax, 1e-12), qmax)
         zp = torch.zeros_like(scale)
         q = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax)
     else:
         levels = 2.0 ** bits - 1
         xmin = xf.amin(-1, keepdim=True)
         xmax = xf.amax(-1, keepdim=True)
-        scale = _times_recip(torch.clamp_min(xmax - xmin, 1e-12), levels)
+        scale = times_recip(torch.clamp_min(xmax - xmin, 1e-12), levels)
         zp = torch.round(-xmin / scale)
         q = torch.clamp(torch.round(xf / scale + zp), 0, levels)
         q = q - 2.0 ** (bits - 1)

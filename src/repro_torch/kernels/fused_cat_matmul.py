@@ -9,9 +9,9 @@ Replaces the Pallas TPU kernels ``fused_cat_gemv_w4`` and
 
 The CUDA source is ``src/repro_torch/csrc/fused_cat_matmul.cu``: a
 transform-quant launch (one CTA per row, in shared memory) followed by a
-contraction launch (GEMV for M <= 8; above, 32x64 int4 tiles for packed
-weights or, for int8 weights, the W8A8 tensor-core contraction of
-``quant_matmul``). What bounds it
+contraction launch (GEMV for M <= 8; above, the tensor-core contraction
+of ``quant_matmul`` and ``quant_matmul_w4``, for int8 or packed int4
+weights). What bounds it
 on the H100 is the packed weight stream (D/2 x N bytes) at decode shapes
 and at the 128-row step alike; the design reads each weight byte once per
 row tile and keeps the codes on chip. The code round trip between the two
@@ -42,7 +42,7 @@ _P = ctypes.c_void_p
 _HEAD = [_P, _C, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C, _P, _C, _P,
          _C]                 # x ... n
 _TAIL = [_P] * 5             # qx, sx, zx, out, stream
-# the tiled entry adds the W8A8 contraction's K splits and their scratch
+# the tiled entry adds the contraction's K splits and their scratch
 _SIGNATURES = {"fused_cat_gemv_w4": _HEAD + _TAIL,
                "fused_cat_matmul_w4": _HEAD + [_C, _P] + _TAIL}
 
@@ -124,7 +124,7 @@ def _launch(fn_name, x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
     bk = 0 if blocks is None else blocks.shape[1]
     split = ()
     if fn_name == "fused_cat_matmul_w4":
-        splits, ws = (1, None) if packed else w8a8_plan(m, k_pad, n, x.device)
+        splits, ws = w8a8_plan(m, k_pad, n, x.device)
         split = (splits, build.ptr(ws))
     code = getattr(lib, fn_name)(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d, k_pad,

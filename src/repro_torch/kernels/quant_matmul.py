@@ -14,8 +14,9 @@ tensor-core kernel: 64x64 output tiles, each product an ``mma.sync``
 m16n8k32 s8 x s8 -> s32, the (K, N) weight tile copied raw into shared
 memory (``cp.async``, a four-deep ring over K) and transposed there with
 byte permutes; K is split across CTAs where the tiles alone would leave
-the card's SMs idle (``w8a8_plan``). The fused linear's stage 2 runs the
-same contraction for int8 weights. The Pallas kernel adds one f32
+the card's SMs idle (``w8a8_plan``). ``quant_matmul_w4`` and the fused
+linear's stage 2 run the same contraction, packed int4 weights unpacked
+to s8 in shared memory. The Pallas kernel adds one f32
 epilogue per K tile (three partial sums at K 1536 with its default
 ``block_k`` 512); the kernel and the plain version here accumulate exact
 integers over all of K (the splits' int32 partial sums are added exactly)
@@ -40,14 +41,14 @@ GEMV_M = 8   # rows served by the GEMV (the reference's _GEMV_M)
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
-# every entry of quant_matmul.cu: quant_matmul_w4's two, then this
-# module's (which adds the K splits and their scratch)
-_SIGNATURES = {name: [_P, _C, _C, _P, _P, _P, _P, _C, _P, _P]
-               for name in ("quant_matmul_w4", "quant_gemv_w4")}
-_SIGNATURES["quant_matmul"] = [_P, _C, _C, _P, _P, _P, _P, _C, _C, _P, _P,
-                               _P]
-_SIGNATURES["quant_matmul_plan"] = [_C, _C, _C, _C,
-                                    ctypes.POINTER(ctypes.c_longlong)]
+# every entry of quant_matmul.cu: the GEMV, and the tensor-core
+# contractions, which add the K splits and their scratch
+_GEMV = [_P, _C, _C, _P, _P, _P, _P, _C, _P, _P]
+_MMA = [_P, _C, _C, _P, _P, _P, _P, _C, _C, _P, _P, _P]
+_SIGNATURES = {"quant_gemv_w4": _GEMV, "quant_matmul_w4": _MMA,
+               "quant_matmul": _MMA,
+               "quant_matmul_plan": [_C, _C, _C, _C,
+                                     ctypes.POINTER(ctypes.c_longlong)]}
 
 
 def quant_matmul_plain(qx, sx, zpx, qw, sw) -> torch.Tensor:
@@ -80,26 +81,35 @@ def validate(qx, sx, zpx, qw, sw, w_rows: int) -> None:
             raise TypeError(f"all operands must be on {qx.device}")
 
 
-def launch(fn_name, qx, sx, zpx, qw, sw) -> torch.Tensor:
-    """Run entry ``fn_name`` of ``quant_matmul.cu`` -> (M, N) f32."""
+def launch(fn_name, qx, sx, zpx, qw, sw, planned: bool = False
+           ) -> torch.Tensor:
+    """Run entry ``fn_name`` of ``quant_matmul.cu`` -> (M, N) f32; a
+    ``planned`` entry also takes the K splits of ``w8a8_plan`` and their
+    scratch."""
     m, k = qx.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
     if m == 0 or n == 0:
         return out
     lib = build.load("quant_matmul", _SIGNATURES)
+    split = ()
+    if planned:
+        splits, ws = w8a8_plan(m, k, n, qx.device)
+        split = (splits, build.ptr(ws))
     qx, sx, zpx, qw, sw = (t.contiguous() for t in (qx, sx, zpx, qw, sw))
     build.check(getattr(lib, fn_name)(
         build.ptr(qx), m, k, build.ptr(sx), build.ptr(zpx), build.ptr(qw),
-        build.ptr(sw), n, build.ptr(out), build.stream_of(qx)), fn_name)
+        build.ptr(sw), n, *split, build.ptr(out), build.stream_of(qx)),
+        fn_name)
     return out
 
 
 def w8a8_plan(m: int, k: int, n: int, device):
-    """K splits of the W8A8 tensor-core contraction of an (M, K) x (K, N)
-    product on ``device`` and their zeroed int32 scratch (None for one
-    split). The CUDA source decides both (``quant_matmul_plan``), from its
-    tile shape and the card's SM count."""
+    """K splits of the tensor-core contraction (W8A8, or W4A8 with K the
+    unpacked depth) of an (M, K) x (K, N) product on ``device`` and their
+    zeroed int32 scratch (None for one split). The CUDA source decides
+    both (``quant_matmul_plan``), from its tile shape and the card's SM
+    count."""
     lib = build.load("quant_matmul", _SIGNATURES)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     ints = ctypes.c_longlong(0)
@@ -115,18 +125,7 @@ def quant_matmul(qx, sx, zpx, qw, sw) -> torch.Tensor:
     if not qx.is_cuda:
         return quant_matmul_plain(qx, sx, zpx, qw, sw)
     validate(qx, sx, zpx, qw, sw, qx.shape[1])
-    m, k = qx.shape
-    n = qw.shape[1]
-    out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
-    if m == 0 or n == 0:
-        return out
-    splits, ws = w8a8_plan(m, k, n, qx.device)
-    lib = build.load("quant_matmul", _SIGNATURES)
-    qx, sx, zpx, qw, sw = (t.contiguous() for t in (qx, sx, zpx, qw, sw))
-    build.check(lib.quant_matmul(
-        build.ptr(qx), m, k, build.ptr(sx), build.ptr(zpx), build.ptr(qw),
-        build.ptr(sw), n, splits, build.ptr(ws), build.ptr(out),
-        build.stream_of(qx)), "quant_matmul")
+    out = launch("quant_matmul", qx, sx, zpx, qw, sw, planned=True)
     quant_matmul.launches += 1
     return out
 

@@ -8,11 +8,17 @@ reference: the last byte's high nibble is zero and qx is read as
 zero-padded. ``quant_gemv_w4`` serves M <= 8 rows and raises above.
 
 Both run ``src/repro_torch/csrc/quant_matmul.cu`` (entries
-``quant_matmul_w4`` and ``quant_gemv_w4``), the tiled and GEMV
-contractions of the fused linear's stage 2 (``contract.cuh``), which
-unpack the nibbles on chip. What bounds them on the H100 is the packed
+``quant_matmul_w4`` and ``quant_gemv_w4``), the contractions of the
+fused linear's stage 2 (``contract.cuh``). ``quant_matmul_w4`` runs the
+tensor-core contraction of the W8A8 ``quant_matmul`` (``mma.sync``
+m16n8k32 s8 x s8 -> s32 on 64x64 tiles): each raw packed tile (32 packed
+rows x 64 columns per 64-deep K step) goes by ``cp.async`` into a
+four-deep ring and is unpacked to s8 while it is transposed in shared
+memory; K is split across CTAs where the tiles alone would leave the
+card's SMs idle, by the plan of the CUDA source (``w8a8_plan``). The GEMV
+unpacks on the CUDA cores. What bounds them on the H100 is the packed
 weight bytes (K/2 x N) over HBM bandwidth; the design reads each weight
-byte once per 32-row tile (the GEMV: once). Exact integer accumulation
+byte once per 64-row tile (the GEMV: once). Exact integer accumulation
 over all of K and one epilogue, as ``ref.quant_matmul_w4`` (the Pallas
 kernels add one f32 epilogue per K tile).
 
@@ -39,7 +45,8 @@ def quant_matmul_w4(qx, sx, zpx, qw_packed, sw):
     if not qx.is_cuda:
         return quant_matmul_w4_plain(qx, sx, zpx, qw_packed, sw)
     validate(qx, sx, zpx, qw_packed, sw, (qx.shape[1] + 1) // 2)
-    out = launch("quant_matmul_w4", qx, sx, zpx, qw_packed, sw)
+    out = launch("quant_matmul_w4", qx, sx, zpx, qw_packed, sw,
+                 planned=True)
     quant_matmul_w4.launches += 1
     return out
 

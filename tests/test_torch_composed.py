@@ -9,8 +9,9 @@ oracles, on inputs drawn from numpy seeds and handed to both packages:
 
 - Hadamard (D in {64, 96, 512}, 1, 7 and 300 tokens — past the Pallas
   kernel's 256-token block) and block-diag ((n, k) in {(4, 8), (16, 32)}):
-  f32 at rtol 1e-5 of the output's scale (f32 dot association); bf16
-  outputs within one bf16 ulp plus that bound, >= 99 % of them bitwise.
+  f32 at rtol 1e-5 of the output's scale (XLA-CPU's f32 dot association;
+  the plain versions sum in order, as the CUDA kernels do); bf16 outputs
+  within one bf16 ulp plus that bound, >= 99 % of them bitwise.
   A row's block-CAT is bitwise the same whatever rows share its call.
 - dynamic quant (bits 2–8, symmetric and asymmetric, f32 and bf16
   inputs, rows with a zero point on a .5 tie and an all-zero row): codes,
@@ -28,8 +29,9 @@ oracles, on inputs drawn from numpy seeds and handed to both packages:
   accumulation, one epilogue); rtol 1e-5 of the output's scale against the
   Pallas kernels, which add one f32 epilogue per 512-deep K tile. The
   W8A8 plain version is also bitwise against the oracle at int8 extremes
-  over K 1536, where each sum passes 2^24 (the card's K splits are
-  checked by ``chip_smoke.py``, where the CUDA source plans them).
+  over K 1536, where each sum passes 2^24, and the W4A8 one at nibble
+  extremes over K 1536 and at odd K (the card's K splits are checked by
+  ``chip_smoke.py``, where the CUDA source plans them).
 - ``ops.cat_transform_matmul`` against the reference's at M in {7, 8, 9},
   packed and unpacked: dequantized activation codes q − zp within one step
   on <= 0.1 % of entries (f32) or <= 1 % (bf16, where a one-ulp difference
@@ -169,8 +171,8 @@ def test_block_diag_matches_reference(n, k, m, dtype):
 @pytest.mark.parametrize("m", [1, 7, 9, 300])
 def test_block_diag_rows_do_not_depend_on_batch(m):
     """Each row's block-CAT is the same whatever rows share its call (the
-    plain version pads fewer than 8 rows, as the CUDA kernel's fmaf chain
-    is independent of the batch)."""
+    plain version's in-order fma chains, like the CUDA kernel's fmaf
+    chains, do not depend on the batch)."""
     r = np.random.default_rng(m)
     blocks = _t((r.standard_normal((16, 32, 32)) * 0.3 + np.eye(32))
                 .astype(np.float32))
@@ -337,6 +339,40 @@ def test_w8a8_extreme_codes_exact(m, k, n, pattern):
     args = [qx, sx, zx, qw, sw]
     got = QM.quant_matmul(*map(_t, args)).numpy()
     want = np.asarray(ref.quant_matmul(*map(jnp.asarray, args)))
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("m,k,n", [(9, 1536, 40), (130, 1536, 24),
+                                   (33, 1535, 24)])
+@pytest.mark.parametrize("pattern", ["min", "alternating", "random"])
+def test_w4_extreme_codes_exact(m, k, n, pattern):
+    """The W4A8 plain version, which the card's tensor-core kernel is held
+    to bitwise, equals ``ref.quant_matmul_w4`` bitwise at nibble extremes
+    over K 1536 and at odd K (the packed weight's last high nibble is 0
+    and the missing code reads as 0): activation codes −128 and weight
+    nibbles −8 but the last three, 1, on both sides; codes alternating
+    −128/127 against nibbles 7/−8 along K; and full-range random codes
+    and nibbles."""
+    r = np.random.default_rng(m + k + n)
+    if pattern == "min":
+        qx = np.full((m, k), -128, np.int8)
+        qw = np.full((k, n), -8, np.int8)
+        qx[:, -3:], qw[-3:, :] = 1, 1
+    elif pattern == "alternating":
+        qx = np.where(np.arange(k) % 2, 127, -128).astype(np.int8)
+        qx = np.broadcast_to(qx, (m, k)).copy()
+        qw = np.where(np.arange(k)[:, None] % 2, -8, 7
+                      ).astype(np.int8).repeat(n, axis=1)
+    else:
+        qx = r.integers(-128, 128, (m, k)).astype(np.int8)
+        qw = r.integers(-8, 8, (k, n)).astype(np.int8)
+    sx = r.uniform(0.01, 0.1, (m, 1)).astype(np.float32)
+    zx = r.integers(-128, 128, (m, 1)).astype(np.float32)
+    sw = r.uniform(0.001, 0.01, (1, n)).astype(np.float32)
+    packed = np.asarray(j_pack_int4(jnp.asarray(qw), axis=0))
+    args = [qx, sx, zx, packed, sw]
+    got = QW.quant_matmul_w4(*map(_t, args)).numpy()
+    want = np.asarray(ref.quant_matmul_w4(*map(jnp.asarray, args)))
     np.testing.assert_array_equal(got, want)
 
 

@@ -279,26 +279,48 @@ def test_dense_route2_matches(packed, act_bits):
 @pytest.mark.parametrize("packed", [True, False])
 @pytest.mark.parametrize("act_bits", [4, 8])
 def test_dense_route3_matches(packed, act_bits):
+    """Route 3 (integer accumulation) against the reference's route 3.
+
+    Its activation quant is the compiled reference's
+    (``quantizers.quantize_dynamic``: the range times the f32 reciprocal
+    of the level count). On the port's transformed activation its codes,
+    scales and zero points equal those of ``jax.jit`` of the reference's
+    ``quantize`` bitwise on every row; with the transform taken out
+    (``Identity`` in both packages) the route's output equals
+    ``jax.jit(jq.dense)``'s bitwise on every row, since XLA-CPU rounds the
+    f32 epilogue s·sw·(acc − zp·colsum) op by op, as torch does. With the
+    CAT transform the two packages' transform dots associate their f32
+    sums differently (XLA-CPU's ``jnp.dot``, see
+    ``test_torch_kernels.test_dot_association``), so the whole route is
+    held against the eager reference at rtol 1e-5 on the rows whose codes
+    agree."""
     jp, tp = _qlinear_pair(packed, act_bits, seed=1)
     x = np.random.default_rng(8).standard_normal((9, 64)).astype(np.float32)
     js = jq.make_serving(jp, keep_packed=True)
     ts = tq.make_serving(tp, keep_packed=True)
     assert ts.w_eff is None and js.w_eff is None
     np.testing.assert_array_equal(ts.colsum.numpy(), np.asarray(js.colsum))
+    # the whole route, CAT transform included, against the eager reference
     want = np.asarray(jq.dense(js, jnp.asarray(x)))
     got = tq.dense(ts, _t(x)).numpy()
-    xt = jT.apply(jp.transform, jnp.asarray(x))
-    jcodes = np.asarray(jqz.quantize(xt, jqz.act_spec(act_bits))[0])
-    tcodes = tqz.quantize(tT.apply(tp.transform, _t(x)),
-                          tqz.act_spec(act_bits))[0].numpy()
+    xt = tT.apply(tp.transform, _t(x))
+    jcodes = np.asarray(jqz.quantize(jT.apply(jp.transform, jnp.asarray(x)),
+                                     jqz.act_spec(act_bits))[0])
+    tcodes = tqz.quantize_dynamic(xt, tqz.act_spec(act_bits))[0].numpy()
     same = (jcodes == tcodes).all(axis=1)
     assert same.mean() >= 1 - 1e-3 or same.sum() >= len(same) - 1
     np.testing.assert_allclose(got[same], want[same], rtol=1e-5, atol=1e-5)
-    # the compiled reference route scales by the f32 reciprocal of the
-    # level count; route 3's quantize divides, so it is held at rtol
-    want_jit = np.asarray(jax.jit(jq.dense)(js, jnp.asarray(x)))
-    np.testing.assert_allclose(got[same], want_jit[same], rtol=1e-5,
-                               atol=1e-5)
+    # the act quant against the compiled reference's, bitwise, every row
+    jit_quant = jax.jit(lambda v: jqz.quantize(v, jqz.act_spec(act_bits)))
+    for mine, ref_v in zip(tqz.quantize_dynamic(xt, tqz.act_spec(act_bits)),
+                           jit_quant(jnp.asarray(xt.numpy()))):
+        np.testing.assert_array_equal(mine.numpy(), np.asarray(ref_v))
+    # the route without the transform against jax.jit(jq.dense), bitwise
+    js_id = dataclasses.replace(js, transform=jT.Identity())
+    ts_id = dataclasses.replace(ts, transform=tT.Identity())
+    np.testing.assert_array_equal(
+        tq.dense(ts_id, xt).numpy(),
+        np.asarray(jax.jit(jq.dense)(js_id, jnp.asarray(xt.numpy()))))
 
 
 def test_make_serving_and_concat_match():

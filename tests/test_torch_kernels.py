@@ -13,16 +13,21 @@ oracles, on inputs drawn from numpy seeds and handed to both packages:
   kernel's op order, compiled) equals the Pallas kernels' transform-quant
   body in interpret mode bitwise: codes, scales and zero points (checked
   in each case). The port's ``transform_quant_plain`` equals it bitwise in
-  codes and zero points; its scales agree at rtol 1e-6, since the plain
-  version associates the f32 transform dots differently and the row's
-  range moves by a few ulps. The eager ``ref.kernel_transform_quant``
-  divides by the level count: at most 1 code step on at most 0.1 % of
-  entries. Outputs agree with the Pallas kernel at rtol 1e-5 (the JAX
-  suite's kernel-vs-oracle bound) on every row, and with the eager oracle
-  on rows whose codes it equals. At the serving widths (D 512 and 1536)
-  the scale gap is an open fault of the port, held at 8 ulps with a
-  dequantized code one step away on at most 1e-4 of entries
-  (``test_transform_quant_scale_gap``).
+  codes and zero points; its scales agree at rtol 1e-6, since XLA-CPU's
+  ``jnp.dot`` does not sum in order while the port's plain dots (and the
+  CUDA kernels) are in-order fma chains, so a row's range moves by a few
+  ulps. The eager ``ref.kernel_transform_quant`` divides by the level
+  count: at most 1 code step on at most 0.1 % of entries. Outputs agree
+  with the Pallas kernel at rtol 1e-5 (the JAX suite's kernel-vs-oracle
+  bound) on every row, and with the eager oracle on rows whose codes it
+  equals. At the serving widths (D 512 and 1536, M 1, 8, 128, act bits 4
+  and 8, f32 and bf16 inputs) the plain transform-quant equals a jitted
+  in-order mirror of ``ref.kernel_transform_quant`` (each ``jnp.dot`` a
+  ``lax.scan`` fma chain) bitwise in codes, scales and zero points
+  (``test_transform_quant_kernel_order_bitwise``); against the compiled
+  reference its scales stay within 8 ulps, a dequantized code one step
+  away on at most 1e-4 of entries (``test_transform_quant_scale_gap``),
+  and ``test_dot_association`` shows that the gap is the dot's.
 - paged attention (ragged and decode) over the cases of
   ``tests/test_ragged_attention.py``: mixed q_len, ragged pages, one
   page, padding rows, exact causal horizon, q_len=1 vs decode, fp-pool
@@ -32,6 +37,8 @@ oracles, on inputs drawn from numpy seeds and handed to both packages:
   bf16 on one int8 pool, >= 99 % of outputs bitwise equal to the Pallas
   kernels' and the rest one bf16 ulp apart.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -40,6 +47,7 @@ import torch
 
 from repro.core.quantizers import pack_int4 as j_pack_int4
 from repro.kernels import ref
+from jax import lax
 from jax.experimental import pallas as pl
 from repro.kernels.fused_cat_matmul import (_transform_quant,
                                             fused_cat_gemv_w4 as j_gemv,
@@ -48,8 +56,12 @@ from repro.kernels.paged_attention import (
     paged_attention_decode as j_decode,
     paged_attention_ragged as j_ragged,
     paged_attention_ragged_fallback as j_ragged_fallback)
+from repro_torch.core.hadamard import hadamard_factors
+from repro_torch.kernels import block_matmul as B
 from repro_torch.kernels import fused_cat_matmul as F
+from repro_torch.kernels import hadamard as H
 from repro_torch.kernels import ops
+from repro_torch.kernels.fma_chain import chain_dot
 from repro_torch.kernels import paged_attention as P
 
 torch.set_num_threads(1)
@@ -155,16 +167,129 @@ def _check_fused(m, d, n, seed, n_blocks=0, packed=True, act_bits=8):
     np.testing.assert_allclose(got[same], want[same], rtol=RTOL, atol=RTOL)
 
 
+def _chain(x, w):
+    """x (..., K) · w (..., N, K) over k as in-order f32 chains from 0:
+    ``lax.scan`` of acc + x_k·w_k, which XLA-CPU contracts to one fma per
+    step — the order of the CUDA kernels' ``fmaf`` chains."""
+    def step(acc, xw):
+        xk, wk = xw
+        return acc + xk[..., None] * wk, None
+
+    shape = jnp.broadcast_shapes(x.shape[:-1] + (1,), w.shape[:-1])
+    return lax.scan(step, jnp.zeros(shape, jnp.float32),
+                    (jnp.moveaxis(x, -1, 0), jnp.moveaxis(w, -1, 0)))[0]
+
+
+@functools.partial(jax.jit, static_argnames=("act_bits",))
+def _mirror_transform_quant(x, blocks, ha, hb, sign, act_bits):
+    """``ref.kernel_transform_quant`` with each ``jnp.dot`` an in-order
+    f32 chain (``_chain``): the same per-block dots, sign, reshape and
+    transpose walk and ``ref.dynamic_quant``, compiled."""
+    xf = x.astype(jnp.float32)
+    m, d = xf.shape
+    if blocks is not None:
+        nblk, bk, _ = blocks.shape
+        xf = _chain(xf.reshape(m, nblk, bk),
+                    blocks.astype(jnp.float32)).reshape(m, d)
+    xf = xf * sign.astype(jnp.float32)
+    a, b = ha.shape[0], hb.shape[0]
+    y = _chain(xf.reshape(m * a, b), hb.astype(jnp.float32))
+    y = y.reshape(m, a, b).swapaxes(1, 2).reshape(m * b, a)
+    y = _chain(y, ha.astype(jnp.float32))
+    y = y.reshape(m, b, a).swapaxes(1, 2).reshape(m, d)
+    return ref.dynamic_quant(y, bits=act_bits, symmetric=False)
+
+
+def _serving_transform(m, d, seed, dtype="float32"):
+    """Serving-width transform operands: x (M, D) in ``dtype``, 32-wide
+    CAT blocks, Gaussian Kronecker factors of the serving shapes
+    (``hadamard_factors``: (32, 16) at D 512, (32, 48) at D 1536) and a
+    sign -> torch tensors."""
+    r = np.random.default_rng(seed)
+    a, b = (len(h) for h in hadamard_factors(d))
+    x = torch.from_numpy(r.standard_normal((m, d)).astype(np.float32))
+    blocks = (r.standard_normal((d // 32, 32, 32)) * 0.2
+              + np.eye(32)).astype(np.float32)
+    ha = (r.standard_normal((a, a)) / np.sqrt(a)).astype(np.float32)
+    hb = (r.standard_normal((b, b)) / np.sqrt(b)).astype(np.float32)
+    sign = (r.integers(0, 2, d) * 2 - 1).astype(np.float32)
+    return [x.to(getattr(torch, dtype))] + [_t(v) for v in
+                                            (blocks, ha, hb, sign)]
+
+
+def _jax(t):
+    """A torch tensor (f32 or bf16) as a JAX array of the same dtype."""
+    if t.dtype == torch.bfloat16:
+        return jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+    return jnp.asarray(t.numpy())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("act_bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 8, 128])
+@pytest.mark.parametrize("d", [512, 1536])
+def test_transform_quant_kernel_order_bitwise(d, m, act_bits, dtype):
+    """The plain transform-quant (the fused linear's and the prologue's
+    plain version, which the card holds the CUDA kernels to bitwise)
+    equals the in-order mirror of ``ref.kernel_transform_quant`` bitwise:
+    codes, scales and zero points, at the serving widths and every row
+    count, one row included."""
+    args = _serving_transform(m, d, m + d + act_bits, dtype)
+    mine = F.transform_quant_plain(*args, act_bits)
+    want = _mirror_transform_quant(*map(_jax, args), act_bits=act_bits)
+    for got, w in zip(mine, want):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(w))
+
+
+def test_dot_association():
+    """What ``test_transform_quant_scale_gap`` holds is XLA-CPU's
+    ``jnp.dot``: at the factor and block depths of the serving widths (16,
+    32, 48) its f32 sums are not the in-order chain, while the port's plain
+    dots are, at every row count. ``fma_chain.chain_dot``, ``hadamard_f32``
+    and the plain Hadamard and block-CAT at one row equal the chain
+    bitwise."""
+    r = np.random.default_rng(0)
+    jit_dot = jax.jit(lambda x, w: jnp.dot(
+        x, w.T, preferred_element_type=jnp.float32))
+    jit_chain = jax.jit(_chain)
+    differ = 0
+    for k in (16, 32, 48):
+        x = r.standard_normal((128, k)).astype(np.float32)
+        w = (r.standard_normal((k, k)) / np.sqrt(k)).astype(np.float32)
+        chain = np.asarray(jit_chain(x, w))
+        differ += int((np.asarray(jit_dot(x, w)) != chain).sum())
+        np.testing.assert_array_equal(chain_dot(_t(x), _t(w)).numpy(), chain)
+    assert differ > 0
+    for m in (1, 8):
+        x, blocks, ha, hb, sign = _serving_transform(m, 1536, m)
+        xs = (x * sign).numpy()
+        a, b = ha.shape[0], hb.shape[0]
+        y = jit_chain(xs.reshape(m * a, b), hb.numpy())
+        y = y.reshape(m, a, b).swapaxes(1, 2).reshape(m * b, a)
+        y = jit_chain(y, ha.numpy()).reshape(m, b, a).swapaxes(1, 2)
+        want = np.asarray(y).reshape(m, -1)
+        np.testing.assert_array_equal(
+            H.hadamard_f32(x * sign, ha, hb).numpy(), want)
+        np.testing.assert_array_equal(
+            H.hadamard_transform_plain(x, ha, hb, sign).numpy(), want)
+        want_blk = np.asarray(jit_chain(x.numpy().reshape(m, -1, 32),
+                                        blocks.numpy())).reshape(m, -1)
+        np.testing.assert_array_equal(
+            B.block_diag_matmul_plain(x, blocks).numpy(), want_blk)
+
+
 @pytest.mark.parametrize("act_bits", [4, 8])
 @pytest.mark.parametrize("m", [8, 128])
 @pytest.mark.parametrize("d,n_blocks", [(512, 16), (1536, 48)])
 def test_transform_quant_scale_gap(d, n_blocks, m, act_bits):
-    """The open gap of the plain transform-quant at the serving widths:
-    its f32 transform dots associate otherwise than the compiled
-    reference's, so a row's range, and with it its scale, lands a few
-    ulps away from ``jax.jit(ref.kernel_transform_quant)``'s on many
-    rows. Held here: scales within 8 ulps, and a dequantized code
-    (q - zp) one step away on at most 1e-4 of entries."""
+    """The plain transform-quant against ``jax.jit(ref.kernel_transform_
+    quant)`` at the serving widths. The gap is XLA-CPU's ``jnp.dot``, not
+    the port: the compiled reference's dots do not sum in order, the
+    plain version's do (``test_transform_quant_kernel_order_bitwise``
+    holds it bitwise to the in-order mirror, ``test_dot_association``
+    shows the dot). A row's range, and with it its scale, lands a few
+    ulps away on many rows. Held here: scales within 8 ulps, and a
+    dequantized code (q - zp) one step away on at most 1e-4 of entries."""
     x, blocks, ha, hb, sign, _, _ = _fused_operands(m, d, 8, m + d + act_bits,
                                                     n_blocks)
     args = (x, blocks, ha, hb, sign)
