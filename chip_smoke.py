@@ -22,6 +22,17 @@ Phases (any failure exits non-zero before the final line):
              inputs at every timed shape (the plain transform sums each
              dot as the kernels' in-order fmaf chain; bf16 inputs: the
              bitwise share is recorded and a two-code-step bound held);
+             the one-launch cluster kernels (the fused linear at M <= 8,
+             the prologue) also at every M in 1..8, ragged N, the bare
+             Hadamard and int8 weights, and at the smoke config's widths
+             (D 128 = 16 x 8, 256) and D 384, 768 (a factor of 24)
+             (``check_gemv_edges``, ``check_prologue_edges``), each shown
+             to be one kernel per call (the nodes of a CUDA graph
+             capturing one call, and the kernels the profiler records),
+             with its cluster plan and the clusters the card can hold at
+             once; the fused linear at M 8 also timed with every forced
+             number of columns per CTA from 4 to 128 (the column sweep,
+             each bitwise to the plan's own);
              the block-CAT and the Hadamard on f32 inputs, also at ragged
              row counts (``check_block_edges``, ``check_hadamard_edges``,
              the Hadamard with every forced row tile, which is also
@@ -64,6 +75,7 @@ The second line from the end is the per-kernel JSON summary, the last line
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -172,6 +184,7 @@ def check_fused_linear(name, run, rows, card, gen, dev):
     (sx·sw·|q_w|) plus 1e-5 of the output's scale."""
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import fused_cat_matmul as F
     out = []
     for d, n in LINEAR_SHAPES:
@@ -223,6 +236,20 @@ def check_fused_linear(name, run, rows, card, gen, dev):
                 (run(*f32_w8, act_bits=4, packed=False)
                  != F.fused_cat_linear_plain(*f32_w8, act_bits=4,
                                              packed=False)).sum().item())
+            if run is F.fused_cat_gemv_w4:
+                # one launch per call, in clusters that can be resident
+                plan = F.gemv_plan(m, d, n, a, b, CAT_BLOCK, True,
+                                   F.sm_count(0))
+                lib = build.load("fused_cat_matmul", F._SIGNATURES)
+                rec["plan"] = dataclasses.asdict(plan)
+                rec["resident_clusters"] = lib.fused_cat_gemv_capacity(
+                    plan.cluster, plan.smem)
+                rec["one_call"] = one_launch(call, "fused_cat_gemv_kernel")
+                if m == max(rows):
+                    rec["cols_sweep_ms"] = cols_sweep(args)
+                if not rec["one_call"]["ok"]:
+                    fail(f"{name} m={m} d={d} n={n} is not one launch: "
+                         f"{json.dumps(rec['one_call'])}")
             print(json.dumps(rec))
             if not err <= tol:
                 fail(f"{name} m={m} d={d} n={n}: max error {err} > {tol}")
@@ -304,13 +331,13 @@ def check_attention(name, run, plain, items, nq, card, gen, dev, decode):
     return [rec]
 
 
-def prologue_operands(m, gen, dev, targets):
-    """Decode-prologue operands at the path's shapes (D 512, N 1024 = 8 q
-    + 4 k + 4 v heads of 64) over a pool of 40 pages of 16 rows, and the
-    rows' (page, row, position) targets."""
+def prologue_operands(m, gen, dev, targets, d=512, n_q=512, kvh=4, hd=64):
+    """Decode-prologue operands, by default at the path's shapes (D 512, N
+    1024 = 8 q + 4 k + 4 v heads of 64), over a pool of 40 pages of 16
+    rows, and the rows' (page, row, position) targets."""
     import torch
-    args = fused_linear_operands(m, 512, PROLOGUE_N, gen, dev)
-    kvh, hd, ps = 4, 64, 16
+    args = fused_linear_operands(m, d, n_q + 2 * kvh * hd, gen, dev)
+    ps = 16
     shape = (40, ps, kvh, hd)
     pools = [torch.randint(-127, 128, shape, generator=gen,
                            dtype=torch.int8),
@@ -336,6 +363,7 @@ def check_prologue(card, gen, dev):
     row unchanged."""
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import decode_layer as L
     from repro_torch.kernels import fused_cat_matmul as F
     out = []
@@ -407,7 +435,16 @@ def check_prologue(card, gen, dev):
                      + m * n * 4 + m * 768 * 6 + m * 512 * 3)
         b_ms, b_by = bound(nbytes, f32_flops / F32_FLOP_S
                            + 2 * m * d * n / INT8_OP_S)
+        plan = L.prologue_plan(m, d, n, hd, a, b, bk, True)
+        lib = build.load("decode_layer", L._SIGNATURES)
+        one_call = one_launch(call, "decode_qkv_prologue_kernel")
+        if not one_call["ok"]:
+            fail(f"decode_qkv_prologue m={m} is not one launch: "
+                 f"{json.dumps(one_call)}")
         rec = {"kernel": "decode_qkv_prologue", "m": m, "d": d, "n": n,
+               "plan": dataclasses.asdict(plan),
+               "resident_clusters": lib.decode_qkv_prologue_capacity(
+                   plan.cluster, plan.smem), "one_call": one_call,
                "max_err": q_err, "tol": "f32: bitwise; bf16: q within 1e-5 "
                "of its row's max |q|, KV codes bitwise, scales rtol 1e-5; "
                "where an act code moved: codes |d|<=1 on <=0.1%, q within "
@@ -424,6 +461,183 @@ def check_prologue(card, gen, dev):
             fail(f"decode_qkv_prologue m={m}: {json.dumps(rec)}")
         out.append(rec)
     return out
+
+
+GEMV_EDGES = [(512, 1024), (1536, 512), (512, 520), (1536, 1000), (512, 40),
+              (128, 256), (128, 512), (256, 128), (384, 1000), (768, 520)]
+SWEEP_COLS = (4, 8, 16, 32, 64, 128)
+
+
+def cols_sweep(args) -> dict:
+    """Device ms of the one-launch decode linear on ``args`` with each
+    forced number of output columns per CTA (``SWEEP_COLS``; fewer
+    columns, more clusters, each repeating the transform), bitwise to the
+    plan's own choice; the plan's choice under key "plan"."""
+    import torch
+
+    from repro_torch.kernels import fused_cat_matmul as F
+    m, d = args[0].shape
+    n = args[5].shape[1]
+    plan = F.gemv_plan(m, d, n, args[2].shape[0], args[3].shape[0],
+                       CAT_BLOCK, True, F.sm_count(0))
+    want = F._launch_gemv(*args, 4, True)
+    out = {"plan": plan.cols}
+    for cols in SWEEP_COLS:
+        got = F._launch_gemv(*args, 4, True, cols=cols)
+        if not torch.equal(got, want):
+            fail(f"fused_cat_gemv_w4 with {cols} columns per CTA differs "
+                 f"from the plan's {plan.cols} at m={m} d={d} n={n}")
+        out[cols] = device_ms(lambda c=cols: F._launch_gemv(
+            *args, 4, True, cols=c))
+    return out
+
+
+def one_launch(fn, kernel: str, calls: int = 5) -> dict:
+    """Whether one call of ``fn`` is one launch of the kernel whose name
+    contains ``kernel``: the nodes of a CUDA graph that captures one call
+    (torch's debug dump, ``cudaGraphDebugDotPrint``), by node type, and
+    the device events that ``torch.profiler`` records over ``calls``
+    calls (the profiler may drop events of short kernels, so only their
+    names are held: all of them this kernel's). -> a record with
+    ``ok``."""
+    import os
+    import re
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)   # keeps the cudaGraph_t
+    with torch.cuda.graph(graph):
+        fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "call.dot")
+        graph.debug_dump(path)
+        dot = open(path).read()
+    del graph
+    kinds: dict = {}
+    for line in dot.splitlines():
+        found = re.search(r'label="\{?\s*([A-Za-z_]+)', line)
+        if found and "node" in line:
+            kinds[found.group(1)] = kinds.get(found.group(1), 0) + 1
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    names = sorted({e.name for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA})
+    ok = (kinds == {"KERNEL": 1} and kernel in dot and len(names) == 1
+          and kernel in names[0])
+    return {"ok": ok, "graph_nodes": kinds, "profiled_device_kernels": names,
+            "dot_head": None if kinds else dot[:400]}
+
+
+def check_gemv_edges(gen, dev):
+    """The one-launch decode linear (row 1) bitwise against its plain
+    version on f32 inputs at every M in 1..8, at the serving shapes wqkv
+    (D 512, N 1024) and wd (D 1536, N 512), at N not a multiple of the
+    cluster's column tile (520, 1000, 40), at the smoke config's linears
+    (D 128 = 16 x 8 at N 256 and 512, D 256 at N 128) and at D 384 = 16 x
+    24 and 768 = 32 x 24, with int4-packed and int8 weights; and for the
+    bare Hadamard transform (no blocks, no sign) at D 128, 512 and 1536.
+    Each case records its cluster plan."""
+    import torch
+
+    from repro_torch.kernels import fused_cat_matmul as F
+    recs = []
+
+    def held(args, packed, rec):
+        got = F.fused_cat_gemv_w4(*args, act_bits=4, packed=packed)
+        want = F.fused_cat_linear_plain(*args, act_bits=4, packed=packed)
+        m, d = args[0].shape
+        n = args[5].shape[1]
+        plan = F.gemv_plan(m, d, n, args[2].shape[0], args[3].shape[0],
+                           0 if args[1] is None else CAT_BLOCK, packed,
+                           F.sm_count(0))
+        rec.update({"kernel": "fused_cat_gemv_w4", "m": m, "d": d, "n": n,
+                    "packed": packed, "cluster": plan.cluster,
+                    "clusters": plan.clusters, "cols": plan.cols,
+                    "max_err": (got - want).abs().max().item(),
+                    "differing": int((got != want).sum().item())})
+        recs.append(rec)
+        if rec["differing"]:
+            fail(f"fused_cat_gemv_w4 edge not bitwise: {json.dumps(rec)}")
+
+    for d, n in GEMV_EDGES:
+        for m in range(1, 9):
+            args = fused_linear_operands(m, d, n, gen, dev)
+            args[0] = args[0].float()
+            held(args, True, {})
+            w8 = torch.randint(-128, 128, (d, n), generator=gen,
+                               dtype=torch.int8).to(dev)
+            held((*args[:5], w8, args[6]), False, {})
+    for d in (128, 512, 1536):
+        for m in (1, 8):
+            args = fused_linear_operands(m, d, 1024, gen, dev)
+            args[0] = args[0].float()
+            args[1] = args[4] = None
+            held(args, True, {"transform": "bare Hadamard, no sign"})
+    print("fused_cat_gemv_w4 edges " + json.dumps(recs))
+    return recs
+
+
+def check_prologue_edges(gen, dev):
+    """The decode prologue (row 5) bitwise on f32 inputs (q, and every
+    page but 0, which takes the padded rows' writes in no fixed order) at
+    every B in 1..8 over the page layouts of ``check_prologue`` (B 1 and
+    4 as there; others the first B targets of B 8's, whose last two are
+    padded rows), with int4-packed weights, int8 weights and the bare
+    Hadamard transform (no blocks, no sign), at full width and at the
+    smoke config's (D 128 = 16 x 8, 4 q + 2 k + 2 v heads of 32)."""
+    layout8 = [(1 + i, (5 * i) % 16, 16 * i + (5 * i) % 16)
+               for i in range(6)] + [(0, 0, 0), (0, 0, 0)]
+    layouts = {1: [(5, 15, 15)],
+               4: [(3, 15, 31), (7, 0, 32), (9, 4, 4), (0, 0, 0)]}
+    widths = {"full": dict(d=512, n_q=512, kvh=4, hd=64),
+              "smoke": dict(d=128, n_q=128, kvh=2, hd=32)}
+    recs = []
+    for width, shape in widths.items():
+        for m in range(1, 9):
+            targets = layouts.get(m, layout8[:m])
+            for variant in ("packed", "int8", "bare Hadamard"):
+                recs.append(prologue_edge(m, targets, variant, width, shape,
+                                          gen, dev))
+    print("decode_qkv_prologue edges " + json.dumps(recs))
+    return recs
+
+
+def prologue_edge(m, targets, variant, width, shape, gen, dev):
+    """One case of ``check_prologue_edges``."""
+    import torch
+
+    from repro_torch.kernels import decode_layer as L
+    d, hd = shape["d"], shape["hd"]
+    n = shape["n_q"] + 2 * shape["kvh"] * hd
+    kw = dict(n_q=shape["n_q"], head_dim=hd, rope_theta=10000.0, kv_bits=8,
+              act_bits=4)
+    args, pools, ids = prologue_operands(m, gen, dev, targets, **shape)
+    args[0] = args[0].float()
+    packed = variant != "int8"
+    if not packed:
+        args[5] = torch.randint(-128, 128, (d, n), generator=gen,
+                                dtype=torch.int8).to(dev)
+    if variant == "bare Hadamard":
+        args[1] = args[4] = None
+    got = [t.clone() for t in pools]
+    want = [t.clone() for t in pools]
+    q = L.decode_qkv_prologue(*args, *got, *ids, packed=packed, **kw)[0]
+    q_want = L.decode_qkv_prologue_plain(*args, *want, *ids, packed=packed,
+                                         **kw)[0]
+    diff = int((q != q_want).sum().item()) + sum(
+        int((g[1:] != w[1:]).sum().item()) for g, w in zip(got, want))
+    rec = {"kernel": "decode_qkv_prologue", "m": m, "width": width, "d": d,
+           "n": n, "variant": variant, "targets": targets,
+           "max_err": (q - q_want).abs().max().item(), "differing": diff}
+    if diff:
+        fail(f"decode_qkv_prologue edge not bitwise: {json.dumps(rec)}")
+    return rec
 
 
 def bf16_close(got, want):
@@ -903,8 +1117,8 @@ def profile_serving(engine, reqs) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     groups = {"decode_qkv_prologue": "decode prologue",
-              "transform_quant": "fused linear stage 1",
-              "contract_gemv": "fused linear GEMV contraction",
+              "fused_cat_gemv": "fused linear decode (one launch)",
+              "transform_quant": "fused linear tiled stage 1",
               "mma_kernel": "fused linear tiled contraction",
               "paged_attn": "paged attention"}
     engine.reset()
@@ -1330,7 +1544,7 @@ def main() -> None:
     results = {
         "fused_cat_gemv_w4": check_fused_linear(
             "fused_cat_gemv_w4", F.fused_cat_gemv_w4, GEMV_ROWS, card, gen,
-            dev),
+            dev) + check_gemv_edges(gen, dev),
         "fused_cat_matmul_w4": check_fused_linear(
             "fused_cat_matmul_w4", F.fused_cat_matmul_w4, TILED_ROWS, card,
             gen, dev),
@@ -1347,7 +1561,8 @@ def main() -> None:
             P.paged_attention_decode_plain,
             [(1, ln) for ln in (160, 1, 17, 64, 100, 33, 5, 128)], 1, card,
             gen, dev, decode=True),
-        "decode_qkv_prologue": check_prologue(card, gen, dev),
+        "decode_qkv_prologue": check_prologue(card, gen, dev)
+        + check_prologue_edges(gen, dev),
         **check_contractions(card, gen, dev),
         **check_stages(card, gen, dev),
     }

@@ -131,9 +131,11 @@ def dense_fused(p: QLinear, x: torch.Tensor, compute_dtype=None
             xt = fake_quant(xt, act_spec(p.act_bits))
         return xt.to(cd) @ p.w_eff.to(cd)
     xf = xt.reshape(-1, d)
+    # the epilogue in f32 with the unrounded f32 act scale, rounded once
+    # to the compute dtype, as XLA compiles the reference's
     q, s, zp = quantize_dynamic(xf, act_spec(p.act_bits))
     acc = int_matmul(q, unpacked_qweight(p))
-    y = s * p.scale * (acc - zp * p.colsum)
+    y = s * p.scale * (acc - zp.to(torch.float32) * p.colsum)
     return y.reshape(*lead, y.shape[-1]).to(cd)
 
 

@@ -91,18 +91,25 @@ def quantize_dynamic(x: torch.Tensor, spec: QuantSpec):
     """``quantize`` with min/max ranges, as ``jax.jit`` compiles the
     reference's: the scale is the range times the f32 reciprocal of the
     level count (``times_recip``); zero point and codes divide by that
-    scale. The activation quant of route 3 (``qlinear.dense_fused``); the
-    weight and static quant keep ``quantize``, which divides, as the
-    eager reference does. -> (q, scale, zp)."""
+    scale rounded to ``x``'s dtype. The scale comes back unrounded in f32:
+    XLA-CPU computes a bf16 chain in f32 and drops the scale's round trip
+    through bf16 where it feeds f32 arithmetic (route 3's epilogue, the
+    low-precision fake quant's dequant). The weight and static quant keep
+    ``quantize``, which divides, as the eager reference does. -> (q, f32
+    scale, zp)."""
     dims = _reduce_dims(x, spec)
     if spec.symmetric:
-        amax = _amax(torch.abs(x), dims)
-        return quantize(x, spec, times_recip(torch.clamp_min(amax, _EPS),
-                                             spec.qmax))
-    xmin = _amin(x, dims)
-    scale = times_recip(torch.clamp_min(_amax(x, dims) - xmin, _EPS),
-                        spec.n_levels)
-    return quantize(x, spec, scale, torch.round(-xmin / scale))
+        rng, zp, levels = _amax(torch.abs(x), dims), None, spec.qmax
+    else:
+        xmin = _amin(x, dims)
+        rng, levels = _amax(x, dims) - xmin, spec.n_levels
+    scale32 = times_recip(torch.clamp_min(rng, _EPS).to(torch.float32),
+                          levels)
+    scale = scale32.to(x.dtype)
+    if not spec.symmetric:
+        zp = torch.round(-xmin / scale)
+    q, _, zp = quantize(x, spec, scale, zp)
+    return q, scale32, zp
 
 
 def _lp_optimal_scale(x: torch.Tensor, spec: QuantSpec, dims):
@@ -163,17 +170,10 @@ def _fake_quant_asym_lowp(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
     """Dynamic asymmetric fake quant of bf16/f16 ``x`` as the reference
     computes it under ``jax.jit``: XLA folds ``range / n_levels`` into a
     multiply by the f32 reciprocal, rounds that scale to ``x``'s dtype
-    only for the division, and dequantizes with the unrounded f32 scale.
-    Every other op rounds to ``x``'s dtype, as torch's low-precision ops
-    do."""
-    dims = _reduce_dims(x, spec)
-    xmin = _amin(x, dims)
-    rng = torch.clamp_min(_amax(x, dims) - xmin, _EPS)
-    scale_f32 = times_recip(rng.to(torch.float32), spec.n_levels)
-    scale = scale_f32.to(x.dtype)
-    zp = torch.round(-xmin / scale)
-    q = torch.clamp(torch.round(x / scale + zp), spec.qmin, spec.qmax)
-    q = q.to(_store_dtype(spec))
+    only for the division, and dequantizes with the unrounded f32 scale
+    (``quantize_dynamic``). Every other op rounds to ``x``'s dtype, as
+    torch's low-precision ops do."""
+    q, scale_f32, zp = quantize_dynamic(x, spec)
     return ((q.to(torch.float32) - zp.to(torch.float32)) * scale_f32
             ).to(x.dtype)
 

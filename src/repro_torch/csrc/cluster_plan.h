@@ -1,0 +1,204 @@
+// Launch plans and shared-memory layouts of the thread-block cluster
+// kernels (cluster_tq.cuh): the one-launch decode fused CAT linear
+// (fused_cat_matmul.cu) and the decode QKV prologue (decode_layer.cu).
+//
+// This header is the one owner of which shapes the cluster transform
+// takes (splits), of every shared-memory region's offset and of the plans
+// (cluster size, clusters, columns per CTA). It is plain C++ apart from
+// the __host__ __device__ marks, so the kernels, their C entries and a
+// host C++ build (the CPU tests) compile the same rules; Python reads the
+// plans through ctq_gemv_plan / ctq_prologue_plan, exported by both CUDA
+// libraries.
+#pragma once
+
+#include <stddef.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define CTQ_HD __host__ __device__
+#else
+#define CTQ_HD
+#endif
+
+namespace ctq {
+
+constexpr int kThreads = 256;      // threads per CTA of both cluster kernels
+constexpr int kMaxRows = 8;        // decode rows per launch
+constexpr int kMaxCluster = 8;     // portable cluster size
+constexpr int kStaticSmem = 4096;  // bound on the kernels' static shared memory
+constexpr int kMinCols = 16;       // fewest output columns per CTA of a plan
+
+CTQ_HD inline size_t align16(size_t v) {
+  return (v + 15) & ~static_cast<size_t>(15);
+}
+
+// Whether the transform of d = a * b values splits over a cluster of c:
+// a / c rows and b / c columns of the (a, b) view each (b / c even: whole
+// packed weight bytes), a slice of L = d / c values that is a multiple of
+// 32 (a warp's lanes share their rows) and of the CAT block bk (0: none);
+// a, b and bk multiples of 4 (16-byte rows of f32).
+CTQ_HD inline bool splits(int d, int a, int b, int bk, int c) {
+  if (c < 1 || c > kMaxCluster || a < 1 || b < 1 || a * b != d || a % c
+      || b % c || (b / c) % 2 || a % 4 || b % 4 || bk < 0 || bk % 4)
+    return false;
+  const int L = d / c;
+  return L % 32 == 0 && (bk == 0 || L % bk == 0);
+}
+
+// Byte offsets of the transform's regions in dynamic shared memory, for
+// m rows of d, cluster size c, factors a x b, CAT block bk (0: none).
+struct TqLayout {
+  size_t x, sg, blk, hb, ha, y, zt, mm, q, qall, end;
+  CTQ_HD TqLayout(int m, int d, int c, int a, int b, int bk) {
+    const size_t L = d / c;
+    size_t o = 0;
+    x = o;    o += align16(4 * m * L);          // x slice, f32
+    sg = o;   o += align16(4 * L);              // sign slice
+    blk = o;  o += bk ? align16(4 * L * bk) : 0;   // block rows
+    hb = o;   o += align16(4 * (size_t)b * b);
+    ha = o;   o += align16(4 * (size_t)a * a);
+    y = o;    o += align16(4 * m * L);          // block-CAT, then output
+    zt = o;   o += align16(4 * m * L);          // Z of its columns (pushed)
+    mm = o;   o += align16(4 * kMaxCluster * 2 * kMaxRows);   // (pushed)
+    q = o;    o += align16(m * L);              // its codes, local order
+    qall = o; o += align16((size_t)m * d);      // all codes (pushed)
+    end = o;
+  }
+};
+
+// The transform's, then the contraction's regions of a CTA that owns
+// `cols` output columns: the weight rows of its columns (row pitch cols
+// rounded up to 16 bytes), the int32 partial sums of kThreads / cols K
+// slices (m rows and the column sums), its columns' weight scales, and
+// with `outs` its (m, cols) f32 outputs (the prologue's head).
+struct CtaLayout {
+  TqLayout tq;
+  int pitch, slices;
+  size_t w, part, out, sw, end;
+  CTQ_HD CtaLayout(int m, int d, int c, int a, int b, int bk, int packed,
+                   int cols, bool outs)
+      : tq(m, d, c, a, b, bk) {
+    pitch = (int)align16(cols);
+    slices = kThreads / cols;
+    w = tq.end;
+    part = w + align16((size_t)(packed ? d / 2 : d) * pitch);
+    out = part + align16(4 * (size_t)slices * (m + 1) * cols);
+    sw = out + (outs ? align16(4 * (size_t)m * cols) : 0);
+    end = sw + align16(4 * (size_t)cols);
+  }
+};
+
+// A launch plan: `clusters` clusters of `cluster` CTAs, `cols` output
+// columns per CTA, `smem` bytes of dynamic shared memory per CTA.
+struct Plan {
+  int cluster, clusters, cols, smem;
+};
+
+// The largest cluster (8, 4, 2, 1) the transform splits over that divides
+// `groups` (0: any), or 0.
+CTQ_HD inline int cluster_size(int d, int a, int b, int bk, int groups) {
+  for (int c = kMaxCluster; c >= 1; c /= 2)
+    if (splits(d, a, b, bk, c) && (groups <= 0 || groups % c == 0)) return c;
+  return 0;
+}
+
+// The decode fused linear's plan for m rows of d = a * b against n
+// columns on a card of `sms` SMs whose CTAs may opt into `smem_optin`
+// bytes of shared memory: the largest cluster the transform splits over,
+// and `cols` output columns per CTA (a multiple of 4 in [4, kThreads]),
+// or 0 for the plan's own: the fewest, at least kMinCols and a multiple
+// of 16, that need at most one CTA per SM. Each cluster repeats the
+// transform, so a narrow N takes fewer clusters. -> false for a shape the
+// kernel does not take.
+CTQ_HD inline bool gemv_plan(int m, int d, int n, int a, int b, int bk,
+                             int packed, int sms, int smem_optin, int cols,
+                             Plan* p) {
+  if (m < 1 || m > kMaxRows || n < 1 || sms < 1) return false;
+  const int c = cluster_size(d, a, b, bk, 0);
+  if (c == 0) return false;
+  if (cols == 0) {
+    const int ctas = c * (sms / c > 0 ? sms / c : 1);
+    const int need = (int)align16((n + ctas - 1) / ctas);
+    cols = need < kMinCols ? kMinCols : need > kThreads ? kThreads : need;
+  }
+  if (cols < 4 || cols > kThreads || cols % 4) return false;
+  const CtaLayout lay(m, d, c, a, b, bk, packed, cols, false);
+  if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
+  p->cluster = c;
+  p->clusters = (n + c * cols - 1) / (c * cols);
+  p->cols = cols;
+  p->smem = (int)lay.end;
+  return true;
+}
+
+// The prologue's plan for m rows of d = a * b against n = heads * hd QKV
+// columns: one CTA per head (cols = hd, a multiple of 4), in clusters of
+// the largest size the transform splits over that divides the heads.
+CTQ_HD inline bool prologue_plan(int m, int d, int n, int hd, int a, int b,
+                                 int bk, int packed, int smem_optin,
+                                 Plan* p) {
+  if (m < 1 || m > kMaxRows || hd < 4 || hd > kThreads || hd % 4
+      || n % hd)
+    return false;
+  const int heads = n / hd, c = cluster_size(d, a, b, bk, heads);
+  if (c == 0) return false;
+  const CtaLayout lay(m, d, c, a, b, bk, packed, hd, true);
+  if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
+  p->cluster = c;
+  p->clusters = heads / c;
+  p->cols = hd;
+  p->smem = (int)lay.end;
+  return true;
+}
+
+#ifdef __CUDACC__
+// Shared memory a CTA of the current device may opt into, once per device.
+inline int device_smem_optin() {
+  static int cache[16];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 0 || dev >= 16) return 0;
+  if (cache[dev] == 0)
+    cudaDeviceGetAttribute(&cache[dev],
+                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return cache[dev];
+}
+#endif
+
+}  // namespace ctq
+
+// The plans, for Python (kernels/fused_cat_matmul.gemv_plan,
+// kernels/decode_layer.prologue_plan): out = {cluster, clusters, cols,
+// smem}. smem_optin 0 reads the current device's (CUDA builds only).
+// Return 0, or 1 for a shape the kernel does not take.
+extern "C" int ctq_gemv_plan(int m, int d, int n, int a, int b, int bk,
+                             int packed, int sms, int smem_optin, int cols,
+                             int* out) {
+#ifdef __CUDACC__
+  if (smem_optin == 0) smem_optin = ctq::device_smem_optin();
+#endif
+  ctq::Plan p;
+  if (!ctq::gemv_plan(m, d, n, a, b, bk, packed, sms, smem_optin, cols, &p))
+    return 1;
+  out[0] = p.cluster;
+  out[1] = p.clusters;
+  out[2] = p.cols;
+  out[3] = p.smem;
+  return 0;
+}
+
+extern "C" int ctq_prologue_plan(int m, int d, int n, int hd, int a, int b,
+                                 int bk, int packed, int smem_optin,
+                                 int* out) {
+#ifdef __CUDACC__
+  if (smem_optin == 0) smem_optin = ctq::device_smem_optin();
+#endif
+  ctq::Plan p;
+  if (!ctq::prologue_plan(m, d, n, hd, a, b, bk, packed, smem_optin, &p))
+    return 1;
+  out[0] = p.cluster;
+  out[1] = p.clusters;
+  out[2] = p.cols;
+  out[3] = p.smem;
+  return 0;
+}

@@ -3,12 +3,15 @@
 // (sm_90a):
 //   out[m, n] = sx[m] * sw[n] * (acc[m, n] - zx[m] * colsum[n]),
 //   acc = sum_k qx[m, k] * qw[k, n] in exact int32.
-// Shared by the fused CAT linear (fused_cat_matmul.cu, stage 2) and the
-// stand-alone contractions of the composed linear (quant_matmul.cu).
+// Shared by the fused CAT linear's tiled path (fused_cat_matmul.cu, stage
+// 2) and the stand-alone contractions of the composed linear
+// (quant_matmul.cu); the decode fused linear and the decode prologue
+// contract on their own (cluster_tq.cuh).
 //
 // Two kernels. The GEMV (m <= 8, int4-packed or int8 weights: the
 // weight is the only large stream; one CTA per 32 output columns, 8
-// K-slices reduced in shared memory) and, above 8 rows, the tensor-core
+// K-slices reduced in shared memory; quant_matmul.cu's decode-shaped
+// entries) and, above 8 rows, the tensor-core
 // one (namespace w8a8 below: mma.sync s8 x s8 -> s32 on 64 x 64 tiles,
 // int4-packed weights unpacked to s8 in shared memory on the way).
 // Integer accumulation is exact over all of K, so the column sums ride

@@ -3,22 +3,24 @@
 // Replaces the Pallas TPU kernel decode_qkv_prologue of
 // src/repro/kernels/decode_layer.py:162. For B <= 8 decode rows, in ONE
 // launch: block-CAT -> * sign -> Kronecker Hadamard -> per-token
-// asymmetric act quant (transform_quant.cuh) -> W4A8 (or W8A8) contraction
-// against the concatenated [q | k | v] weight with the epilogue
+// asymmetric act quant -> W4A8 (or W8A8) contraction against the
+// concatenated [q | k | v] weight with the epilogue
 // sx*sw*(acc - zx*colsum) -> RoPE on the q and k heads at per-row
 // positions -> symmetric int8 quant of k and v per (row, KV head) ->
 // scatter of codes and scales into row row_ids[r] of page page_ids[r] of
 // the layer's pools, in place. q comes back rope'd in f32.
 //
 // Design for this card: one CTA per head (n_q/hd q heads, then the k and v
-// heads: 16 CTAs at catlm-60m's full width). The TPU kernel sweeps a
-// sequential (N, K) grid and carries the accumulator in VMEM; here every
-// CTA owns its head's hd columns outright, so the RoPE pairs (i, i + hd/2)
-// and the per-head amax of the KV quant stay inside the CTA and its codes
-// go straight to the pool. Each CTA recomputes the rows' transform and
-// quant in shared memory (B x D x (bk + a + b) MACs, ~8 x 512 x 80 at full
-// width, every factor element read once for all B rows) instead of a
-// second launch and a code round trip through HBM.
+// heads: 16 CTAs at catlm-60m's full width), in thread-block clusters of
+// c heads (c = 8 there: 2 clusters). Each cluster computes the rows'
+// transform and quant ONCE, split c ways (cluster_tq.cuh, shared with the
+// fused CAT GEMV), which leaves all m x d codes in every CTA's shared
+// memory (pushed by its peers). The TPU kernel sweeps a sequential (N, K)
+// grid and carries the accumulator in VMEM; here every CTA owns its head's
+// hd columns outright (their weight rows staged in shared memory by
+// 16-byte cp.async at kernel start), so the RoPE pairs (i, i + hd/2) and
+// the per-head amax of the KV quant stay inside the CTA and its codes go
+// straight to the pool.
 //
 // Bound on this card: the packed QKV weight (D/2 x N bytes, 256 KiB at
 // full width) over HBM bandwidth; everything else is a few KiB. The design
@@ -28,27 +30,19 @@
 // rounds every op (no FMA contraction), rintf (round half to even), IEEE
 // division, and cosf/sinf of angles computed from the wrapper's own torch
 // ``freq`` vector.
-#include "transform_quant.cuh"
+#include "cluster_tq.cuh"
 
 namespace {
 
-constexpr int kMaxRows = 8;      // decode rows per launch
-constexpr int kThreads = 256;    // threads per CTA: hd columns x K-slices
-constexpr size_t kDefaultSmem = 32 * 1024;   // no opt-in needed below
+constexpr int kMaxRows = ctq::kMaxRows;   // decode rows per launch
 
-__device__ __forceinline__ int lo_nibble(int byte) {
-  return ((byte & 0xF) ^ 8) - 8;
-}
-__device__ __forceinline__ int hi_nibble(int byte) {
-  return (((byte >> 4) & 0xF) ^ 8) - 8;
-}
-
-// grid (n_heads_total), block kThreads. Dynamic shared memory:
-// (2*m*d + a*a + b*b) floats, then m * k_pad int8 codes; the head's
-// outputs reuse the s_x region once the codes are made.
+// grid (n_heads_total), clusters of c, ctq::kThreads threads; CTA
+// blockIdx.x owns head blockIdx.x. Dynamic shared memory: the plan's
+// (ctq::CtaLayout with outputs): the transform's (all m x d codes
+// included), the head's weight columns, partial sums and (m, hd) outputs.
 template <typename T, bool PACKED>
-__global__ void decode_qkv_prologue_kernel(
-    const T* __restrict__ x, int m, int d, int k_pad,
+__global__ void __launch_bounds__(ctq::kThreads) decode_qkv_prologue_kernel(
+    const T* __restrict__ x, int m, int d,
     const float* __restrict__ blocks, int bk,
     const float* __restrict__ sign,
     const float* __restrict__ ha, int a,
@@ -59,75 +53,48 @@ __global__ void decode_qkv_prologue_kernel(
     const int* __restrict__ row_ids, const int* __restrict__ positions,
     int page_size, int8_t* __restrict__ k_pool, float* __restrict__ k_scale,
     int8_t* __restrict__ v_pool, float* __restrict__ v_scale,
-    float* __restrict__ q_out) {
-  extern __shared__ float smem[];
-  float* s_x = smem;
-  float* s_y = s_x + (size_t)m * d;
-  float* s_hat = s_y + (size_t)m * d;
-  float* s_hbt = s_hat + a * a;
-  int8_t* s_q = reinterpret_cast<int8_t*>(s_hbt + b * b);
-  float* s_out = s_x;   // (m, hd): the head's outputs, after the codes
-  __shared__ float red_min[kMaxRows * 32], red_max[kMaxRows * 32];
-  __shared__ float s_sx[kMaxRows], s_zx[kMaxRows];
-  __shared__ int s_acc[kMaxRows][kThreads];
-  __shared__ int s_cs[kThreads];
-  __shared__ float s_amax[kMaxRows];
+    float* __restrict__ q_out, int vw) {
+  extern __shared__ float4 prologue_smem_base[];   // 16-byte aligned
+  char* smem = reinterpret_cast<char*>(prologue_smem_base);
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int tid = threadIdx.x, nt = blockDim.x;
   const int head = blockIdx.x;
-  const int kvh = n_kv / hd;
+  const int kvh = n_kv / hd, L = d / c, bl = b / c;
+  const int unit = PACKED ? 2 : 1, w_rows = d / unit;   // K per weight row
+  const ctq::CtaLayout lay(m, d, c, a, b, blocks != nullptr ? bk : 0,
+                           PACKED, hd, true);
+  int8_t* s_w = reinterpret_cast<int8_t*>(smem + lay.w);
+  int* s_part = reinterpret_cast<int*>(smem + lay.part);
+  int* s_pcs = s_part + lay.slices * m * hd;
+  float* s_out = reinterpret_cast<float*>(smem + lay.out);
+  float* s_sw = reinterpret_cast<float*>(smem + lay.sw);
+  __shared__ float s_sx[kMaxRows], s_zx[kMaxRows];
+  __shared__ float s_amax[kMaxRows];
 
-  // 1. every row's transform + quant, codes kept in shared memory
-  tq::load_factors(ha, a, hb, b, s_hat, s_hbt);
-  tq::transform_quant_rows<T, kMaxRows>(x, m, d, k_pad, blocks, bk, sign,
-                                        s_hat, a, s_hbt, b, act_bits, s_x,
-                                        s_y, red_min, red_max, s_q, s_sx,
-                                        s_zx);
-
-  // 2. the head's hd columns: thread (c, s) sums K-slice s of column c
-  const int c = tid % hd, slice = tid / hd, slices = nt / hd;
-  const int col = head * hd + c;
-  int acc[kMaxRows];
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) acc[r] = 0;
-  int cs = 0;
-  if (PACKED) {
-    for (int pr = slice; pr < k_pad / 2; pr += slices) {
-      const int byte = qw[(size_t)pr * n + col];
-      const int lo = lo_nibble(byte), hi = hi_nibble(byte);
-      cs += lo + hi;
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < m) {
-          acc[r] += (int)s_q[r * k_pad + 2 * pr] * lo
-                  + (int)s_q[r * k_pad + 2 * pr + 1] * hi;
-        }
-      }
-    }
-  } else {
-    for (int k = slice; k < k_pad; k += slices) {
-      const int w = qw[(size_t)k * n + col];
-      cs += w;
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        if (r < m) acc[r] += (int)s_q[r * k_pad + k] * w;
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r) s_acc[r][tid] = acc[r];
-  s_cs[tid] = cs;
+  // 1. the transform's operands and the head's weight columns (loads
+  //    overlap the transform), then the rows' transform + quant over the
+  //    cluster, which leaves all the codes in every CTA
+  ctq::stage_transform(x, m, d, c, rank, blocks, bk, sign, ha, a, hb, b,
+                       lay.tq, smem);
+  ctq::stage_f32(s_sw, sw + head * hd, hd);
+  ctq::stage_weights(s_w, lay.pitch, qw, n, w_rows, L / unit, bl / unit,
+                     b / unit, head * hd, hd, vw);
+  ctq::transform_quant(m, d, c, rank, blocks != nullptr, bk, sign, a, b,
+                       act_bits, lay.tq, smem, s_sx, s_zx);
+  cluster.sync();   // every CTA holds all the codes
+  ctq::cp_async_wait_all();
   __syncthreads();
-  if (tid < hd) {
-    int total_cs = 0;
-    for (int s = 0; s < slices; ++s) total_cs += s_cs[s * hd + tid];
-    const float swv = sw[col];
-    for (int r = 0; r < m; ++r) {
-      int total = 0;
-      for (int s = 0; s < slices; ++s) total += s_acc[r][s * hd + tid];
-      s_out[r * hd + tid] = __fmul_rn(
-          __fmul_rn(s_sx[r], swv),
-          __fsub_rn((float)total, __fmul_rn(s_zx[r], (float)total_cs)));
-    }
+
+  // 2. the head's hd columns over all of K, then the epilogue
+  ctq::contract_codes<PACKED, kMaxRows>(
+      reinterpret_cast<const int8_t*>(smem + lay.tq.qall), d, d, s_w,
+      lay.pitch, hd, m, s_part, s_pcs);
+  for (int t = tid; t < m * hd; t += nt) {
+    const int r = t / hd, j = t - r * hd;
+    s_out[t] = contract::epilogue(s_sx[r], s_sw[j], s_part[t], s_zx[r],
+                                  s_pcs[j]);
   }
   __syncthreads();
 
@@ -185,29 +152,18 @@ __global__ void decode_qkv_prologue_kernel(
 }
 
 template <typename T, bool PACKED>
-cudaError_t launch(const void* x, int m, int d, int k_pad,
-                   const void* blocks, int bk, const void* sign,
-                   const void* ha, int a, const void* hb, int b,
-                   int act_bits, const void* qw, const void* sw, int n,
+cudaError_t launch(const void* x, int m, int d, const void* blocks, int bk,
+                   const void* sign, const void* ha, int a, const void* hb,
+                   int b, int act_bits, const void* qw, const void* sw, int n,
                    int n_q, int n_kv, int hd, const void* freq, int kv_bits,
                    const void* page_ids, const void* row_ids,
                    const void* positions, int page_size, void* k_pool,
                    void* k_scale, void* v_pool, void* v_scale, void* q_out,
-                   cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)m * d + a * a + b * b)
-                      + (size_t)m * k_pad;
-  const int heads = (n_q + 2 * n_kv) / hd;
-  static size_t opted_in = kDefaultSmem;   // per instantiation
-  if (smem > opted_in) {
-    cudaError_t err = cudaFuncSetAttribute(
-        decode_qkv_prologue_kernel<T, PACKED>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    opted_in = smem;
-  }
-  decode_qkv_prologue_kernel<T, PACKED><<<heads, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), m, d, k_pad,
-      static_cast<const float*>(blocks), bk,
+                   const ctq::Plan& p, cudaStream_t stream) {
+  return ctq::launch_cluster(
+      decode_qkv_prologue_kernel<T, PACKED>, p.clusters * p.cluster,
+      p.cluster, (size_t)p.smem, stream,
+      static_cast<const T*>(x), m, d, static_cast<const float*>(blocks), bk,
       static_cast<const float*>(sign), static_cast<const float*>(ha), a,
       static_cast<const float*>(hb), b, act_bits,
       static_cast<const int8_t*>(qw), static_cast<const float*>(sw), n, n_q,
@@ -216,15 +172,16 @@ cudaError_t launch(const void* x, int m, int d, int k_pad,
       static_cast<const int*>(positions), page_size,
       static_cast<int8_t*>(k_pool), static_cast<float*>(k_scale),
       static_cast<int8_t*>(v_pool), static_cast<float*>(v_scale),
-      static_cast<float*>(q_out));
-  return cudaGetLastError();
+      static_cast<float*>(q_out), ctq::weight_vector(qw, n, hd));
 }
 
 }  // namespace
 
-// Returns cudaGetLastError() of the launch.
+// One launch in clusters of head CTAs, on the plan of ctq::prologue_plan
+// (cluster_plan.h). A shape the plan does not take returns
+// cudaErrorInvalidValue. Returns cudaGetLastError() of the launch.
 extern "C" int decode_qkv_prologue(
-    const void* x, int x_is_bf16, int m, int d, int k_pad,
+    const void* x, int x_is_bf16, int m, int d,
     const void* blocks, int bk, const void* sign,
     const void* ha, int a, const void* hb, int b, int act_bits,
     const void* qw, int packed, const void* sw, int n,
@@ -233,10 +190,15 @@ extern "C" int decode_qkv_prologue(
     int page_size, void* k_pool, void* k_scale, void* v_pool,
     void* v_scale, void* q_out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  ctq::Plan p;
+  if (act_bits < 2 || act_bits > 8
+      || !ctq::prologue_plan(m, d, n, hd, a, b, blocks != nullptr ? bk : 0,
+                             packed, ctq::device_smem_optin(), &p))
+    return (int)cudaErrorInvalidValue;
 #define REPRO_PROLOGUE_ARGS                                                 \
-  x, m, d, k_pad, blocks, bk, sign, ha, a, hb, b, act_bits, qw, sw, n, n_q, \
-      n_kv, hd, freq, kv_bits, page_ids, row_ids, positions, page_size,     \
-      k_pool, k_scale, v_pool, v_scale, q_out, stream
+  x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits, qw, sw, n, n_q, n_kv,  \
+      hd, freq, kv_bits, page_ids, row_ids, positions, page_size, k_pool,   \
+      k_scale, v_pool, v_scale, q_out, p, stream
   cudaError_t err;
   if (x_is_bf16) {
     err = packed ? launch<__nv_bfloat16, true>(REPRO_PROLOGUE_ARGS)
@@ -247,4 +209,11 @@ extern "C" int decode_qkv_prologue(
   }
 #undef REPRO_PROLOGUE_ARGS
   return (int)err;
+}
+
+// Clusters of ``cluster`` CTAs of the prologue (bf16 x, packed weights)
+// resident at once with ``smem`` bytes each, or -1 on error.
+extern "C" int decode_qkv_prologue_capacity(int cluster, int smem) {
+  return ctq::max_clusters(decode_qkv_prologue_kernel<__nv_bfloat16, true>,
+                           cluster, (size_t)smem);
 }

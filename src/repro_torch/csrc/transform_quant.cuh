@@ -12,13 +12,13 @@
 //                    f32(1 / (2^(bits-1) - 1)), zp = 0. The scale is the
 //                    compiled reference's multiply by the f32 reciprocal;
 //                    the divisions by the scale stay IEEE divisions.
-// transform_quant_rows composes them for the fused CAT linear
-// (fused_cat_matmul.cu, stage 1: one row per CTA) and the decode QKV
-// prologue (decode_layer.cu: every decode row in each CTA); the stand-alone
+// transform_quant_rows composes them for the fused CAT linear's tiled
+// path (fused_cat_matmul.cu, stage 1: one row per CTA); the stand-alone
 // quant (dynamic_quant.cu) calls the steps one by one, and the stand-alone
-// block-CAT and Hadamard (block_matmul.cu, hadamard.cu) compute the same
-// fmaf chains in tilings of their own, so every path computes a step with
-// the same arithmetic. Each output element is one fmaf chain in a fixed
+// block-CAT and Hadamard (block_matmul.cu, hadamard.cu) and the decode
+// kernels' cluster transform (cluster_tq.cuh) compute the same fmaf chains
+// in tilings of their own, so every path computes a step with the same
+// arithmetic. Each output element is one fmaf chain in a fixed
 // order, whatever the number of rows, so a row's values do not depend on
 // its batch. Every function takes m <= MAXR rows of d values
 // (row stride d), must be called by every thread of the block, and ends
@@ -185,6 +185,26 @@ __device__ void row_ranges(const float* s_y, int m, int d, float* red_min,
   __syncthreads();
 }
 
+// The asymmetric quant of a row whose values span [ymin, ymax], at
+// `bits`: the scale is the range times the f32 reciprocal of the level
+// count (one rounded multiply, as XLA compiles the reference), the zero
+// point rint(-ymin / scale) (IEEE division).
+__device__ __forceinline__ void asym_params(float ymin, float ymax, int bits,
+                                            float* scale, float* zp) {
+  const float levels = (float)((1 << bits) - 1);
+  *scale = __fmul_rn(fmaxf(__fsub_rn(ymax, ymin), 1e-12f), 1.f / levels);
+  *zp = rintf(-ymin / *scale);
+}
+
+// The signed-shifted code of y under asym_params' scale and zero point:
+// clamp(rint(y / scale + zp), 0, 2^bits - 1) - 2^(bits-1).
+__device__ __forceinline__ int8_t asym_code(float y, float scale, float zp,
+                                            int bits) {
+  const float levels = (float)((1 << bits) - 1);
+  const float v = rintf(__fadd_rn(y / scale, zp));
+  return (int8_t)(fminf(fmaxf(v, 0.f), levels) - (float)(1 << (bits - 1)));
+}
+
 // Quantize each row of s_y with its range from row_ranges. Writes k_pad
 // codes per row to q_out (row stride k_pad; the K padding carries code 0)
 // and each row's scale and (signed-shifted) zero point to scale_out[r],
@@ -223,18 +243,11 @@ __device__ void quant_rows(const float* s_y, int m, int d, int k_pad,
         zp_out[r] = 0.f;
       }
     } else {
-      const float levels = (float)((1 << bits) - 1);
-      const float scale =
-          __fmul_rn(fmaxf(__fsub_rn(ymax, ymin), 1e-12f), 1.f / levels);
-      const float zp = rintf(-ymin / scale);
-      for (int k = tid; k < k_pad; k += nt) {
-        float q = 0.f;
-        if (k < d) {
-          const float v = rintf(__fadd_rn(s_y[r * d + k] / scale, zp));
-          q = fminf(fmaxf(v, 0.f), levels) - half;
-        }
-        q_out[(size_t)r * k_pad + k] = (int8_t)q;
-      }
+      float scale, zp;
+      asym_params(ymin, ymax, bits, &scale, &zp);
+      for (int k = tid; k < k_pad; k += nt)
+        q_out[(size_t)r * k_pad + k] =
+            k < d ? asym_code(s_y[r * d + k], scale, zp, bits) : 0;
       if (tid == 0) {
         scale_out[r] = scale;
         zp_out[r] = zp - half;

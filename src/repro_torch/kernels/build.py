@@ -6,8 +6,8 @@ source, against minutes for an extension that includes PyTorch's headers.
 Builds happen at first use, one ``nvcc`` per source, all started together,
 into ``build/repro_torch_kernels/`` at the root of the checkout (listed in
 ``.gitignore``). A library's file name carries a hash of its source, so an
-edited source (or shared ``*.cuh`` header) is rebuilt and an unchanged
-one is reused.
+edited source (or shared ``*.cuh`` or ``*.h`` header) is rebuilt and an
+unchanged one is reused.
 
 Every C entry point takes its pointers and the CUDA stream as ``void*``
 and returns ``cudaGetLastError()`` after its launches; ``check`` raises on
@@ -46,7 +46,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    src += b"".join(h.read_bytes() for h in sorted(
+        [*CSRC.glob("*.cuh"), *CSRC.glob("*.h")]))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:12]}.so"
 

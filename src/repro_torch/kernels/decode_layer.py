@@ -11,15 +11,20 @@ Replaces the Pallas TPU kernel ``decode_qkv_prologue`` of
 
 With it a decode layer's attention block is two launches: this prologue
 and ``paged_attention_decode``. The CUDA source is
-``src/repro_torch/csrc/decode_layer.cu``: one CTA per head recomputes the
-rows' transform and quant in shared memory (every factor element read
-once for all rows), contracts its head's columns, applies RoPE and the KV
-quant on chip and writes its codes straight into the pool. What bounds it
-on the H100 is the packed QKV weight (D/2 x N bytes) over HBM bandwidth;
-each weight byte is read once.
+``src/repro_torch/csrc/decode_layer.cu``: one CTA per head, in
+thread-block clusters of heads (the CUDA source's plan, read by
+``prologue_plan``: 2 clusters of 8 at full width); each cluster computes
+the rows' transform and quant once, split over its CTAs
+(``csrc/cluster_tq.cuh``, shared with the fused CAT GEMV), and each CTA
+pushes its codes into every peer's shared memory; every CTA then
+contracts its head's columns against all the codes (16-byte weight loads
+into shared memory), applies RoPE and the KV quant on chip and writes
+its codes straight into the pool. What bounds it on the H100 is the packed QKV weight (D/2 x N
+bytes) over HBM bandwidth; each weight byte is read once.
 
 The wrapper launches the kernel for CUDA tensors (counted in
-``decode_qkv_prologue.launches``) and takes the plain PyTorch version,
+``decode_qkv_prologue.launches``), raises for a device that is neither
+CUDA nor the CPU, and takes the plain PyTorch version,
 which composes ``fused_cat_linear_plain``, ``models.layers.rope``,
 ``quantize_kv`` and the paged scatter in the op order of the reference's
 oracle (``ref.decode_qkv_prologue``), only for CPU tensors. Both update
@@ -28,21 +33,23 @@ the pools in place; padded rows target the null page 0.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.models.layers import quantize_kv, rope, rope_freq
 
 from . import build
-from .fused_cat_matmul import GEMV_M, fused_cat_linear_plain
+from .fused_cat_matmul import (_INVALID_VALUE, _PLAN, GEMV_M, _contiguous,
+                               _off_card, fused_cat_linear_plain, read_plan)
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {"decode_qkv_prologue": [
-    _P, _C, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C, _P, _C, _P, _C,
-    _C, _C, _C, _P, _C, _P, _P, _P, _C, _P, _P, _P, _P, _P, _P]}
-_THREADS = 256                 # threads per CTA (decode_layer.cu kThreads)
-_DYN_SMEM_MAX = 200 * 1024     # beside ~12 KiB static, of 227 KiB a CTA
+    _P, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C, _P, _C, _P, _C,
+    _C, _C, _C, _P, _C, _P, _P, _P, _C, _P, _P, _P, _P, _P, _P],
+    "decode_qkv_prologue_capacity": [_C, _C],
+    "ctq_prologue_plan": [_C] * 9 + [_PLAN]}
 
 _FREQ: dict = {}
 
@@ -83,6 +90,39 @@ def decode_qkv_prologue_plain(x, blocks, ha, hb, sign, qw, sw, k_pool,
     return q, k_pool, k_scale, v_pool, v_scale
 
 
+@dataclasses.dataclass(frozen=True)
+class ProloguePlan:
+    """Launch plan of the prologue: one CTA per head (``cols`` = head_dim
+    columns), in ``clusters`` clusters of ``cluster`` heads (cluster g
+    holds heads g·cluster .. (g+1)·cluster − 1, each CTA computing
+    D/cluster of the transform's values); ``smem`` bytes of dynamic
+    shared memory per CTA."""
+    cluster: int
+    clusters: int
+    cols: int
+    smem: int
+
+    def heads(self, g: int) -> range:
+        return range(g * self.cluster, (g + 1) * self.cluster)
+
+
+def prologue_plan(m: int, d: int, n: int, head_dim: int, a: int, b: int,
+                  bk: int, packed: bool, smem_optin: int = 0,
+                  lib=None) -> ProloguePlan:
+    """The prologue's plan for B = m rows of D = a·b against the N =
+    heads·head_dim QKV columns (``ctq::prologue_plan``, which the kernel's
+    entry runs on every call): the largest cluster that divides the heads
+    and over which the transform splits (8 at full width: 2 clusters of 8
+    heads). ``smem_optin`` (0: the current card's) bounds the shared
+    memory per CTA; ``lib`` a library exporting ``ctq_prologue_plan``
+    (default: the built CUDA library). Raises ValueError for a shape the
+    kernel does not take."""
+    lib = lib or build.load("decode_layer", _SIGNATURES)
+    return ProloguePlan(*read_plan(lib.ctq_prologue_plan, "the prologue", m,
+                                   d, n, head_dim, a, b, bk, int(packed),
+                                   smem_optin))
+
+
 def _validate(x, blocks, ha, hb, sign, qw, sw, pools, ids, n_q, head_dim,
               kv_bits, act_bits, packed):
     m, d = x.shape
@@ -94,10 +134,9 @@ def _validate(x, blocks, ha, hb, sign, qw, sw, pools, ids, n_q, head_dim,
     if n_q + 2 * n_kv != n or n_q % head_dim or n_kv % head_dim:
         raise ValueError(f"QKV width {n} does not split into n_q={n_q} and "
                          f"two KV blocks of whole heads of {head_dim}")
-    if (head_dim & (head_dim - 1) or not 2 <= head_dim <= _THREADS
-            or head_dim > d):
-        raise ValueError(f"head_dim must be a power of two in [2, "
-                         f"{min(_THREADS, d)}], got {head_dim}")
+    if head_dim & (head_dim - 1) or not 2 <= head_dim <= d:
+        raise ValueError(f"head_dim must be a power of two in [2, {d}], "
+                         f"got {head_dim}")
     if (packed and qw.shape[0] != (d + 1) // 2) or (not packed
                                                     and qw.shape[0] != d):
         raise ValueError(f"qw {tuple(qw.shape)} does not match D={d} "
@@ -128,8 +167,8 @@ def _validate(x, blocks, ha, hb, sign, qw, sw, pools, ids, n_q, head_dim,
                         ("k_scale", k_scale, torch.float32),
                         ("v_scale", v_scale, torch.float32),
                         ("qw", qw, torch.int8), ("sw", sw, torch.float32),
-                        ("ha", ha, torch.float32), ("hb", hb, torch.float32),
-                        ("sign", sign, torch.float32)):
+                        ("ha", ha, torch.float32),
+                        ("hb", hb, torch.float32)):
         if t.dtype != dt or t.device != dev:
             raise TypeError(f"{name} must be {dt} on {dev}")
     for name, t in (("k_pool", k_pool), ("k_scale", k_scale),
@@ -140,12 +179,10 @@ def _validate(x, blocks, ha, hb, sign, qw, sw, pools, ids, n_q, head_dim,
     for name, t in zip(("page_ids", "row_ids", "positions"), ids):
         if t.shape != (m,) or t.device != dev:
             raise ValueError(f"{name} must be ({m},) on {dev}")
-    k_pad = 2 * qw.shape[0] if packed else d
-    smem = 4 * (2 * m * d + ha.shape[0] ** 2 + hb.shape[0] ** 2) + m * k_pad
-    if smem > _DYN_SMEM_MAX:
-        raise ValueError(f"the prologue needs {smem} B of dynamic shared "
-                         f"memory (D={d}); it takes at most {_DYN_SMEM_MAX}")
-    return k_pad, n_kv
+    for name, t in (("sign", sign), ("blocks", blocks)):
+        if t is not None and (t.dtype != torch.float32 or t.device != dev):
+            raise TypeError(f"{name} must be f32 on {dev}")
+    return n_kv
 
 
 def decode_qkv_prologue(x, blocks, ha, hb, sign, qw, sw, k_pool, k_scale,
@@ -162,7 +199,7 @@ def decode_qkv_prologue(x, blocks, ha, hb, sign, qw, sw, k_pool, k_scale,
     (n_pages, page, KVH, 1) f32, written in place; page_ids, row_ids,
     positions (B,) int. -> (q (B, n_q) f32 rope'd, k_pool, k_scale,
     v_pool, v_scale)."""
-    if not x.is_cuda:
+    if _off_card(x, "decode_qkv_prologue"):
         return decode_qkv_prologue_plain(
             x, blocks, ha, hb, sign, qw, sw, k_pool, k_scale, v_pool,
             v_scale, page_ids, row_ids, positions, n_q=n_q,
@@ -171,26 +208,28 @@ def decode_qkv_prologue(x, blocks, ha, hb, sign, qw, sw, k_pool, k_scale,
     ids = [t.to(torch.int32).contiguous()
            for t in (page_ids, row_ids, positions)]
     pools = (k_pool, k_scale, v_pool, v_scale)
-    k_pad, n_kv = _validate(x, blocks, ha, hb, sign, qw, sw, pools, ids,
-                            n_q, head_dim, kv_bits, act_bits, packed)
-    lib = build.load("decode_layer", _SIGNATURES)
-    x, qw, sw = x.contiguous(), qw.contiguous(), sw.contiguous()
-    ha, hb, sign = ha.contiguous(), hb.contiguous(), sign.contiguous()
-    blocks = None if blocks is None else blocks.contiguous()
+    n_kv = _validate(x, blocks, ha, hb, sign, qw, sw, pools, ids, n_q,
+                     head_dim, kv_bits, act_bits, packed)
+    x, qw, sw, ha, hb, sign, blocks = _contiguous(x, qw, sw, ha, hb, sign,
+                                                  blocks)
     m, d = x.shape
     q = torch.empty((m, n_q), dtype=torch.float32, device=x.device)
     if m == 0:
         return q, k_pool, k_scale, v_pool, v_scale
-    freq = _freq(head_dim, rope_theta, x.device)
     bk = 0 if blocks is None else blocks.shape[1]
+    freq = _freq(head_dim, rope_theta, x.device)
+    lib = build.load("decode_layer", _SIGNATURES)
     code = lib.decode_qkv_prologue(
-        build.ptr(x), int(x.dtype == torch.bfloat16), m, d, k_pad,
+        build.ptr(x), int(x.dtype == torch.bfloat16), m, d,
         build.ptr(blocks), bk, build.ptr(sign), build.ptr(ha), ha.shape[0],
         build.ptr(hb), hb.shape[0], act_bits, build.ptr(qw), int(packed),
         build.ptr(sw), qw.shape[1], n_q, n_kv, head_dim, build.ptr(freq),
         kv_bits, *(build.ptr(t) for t in ids), k_pool.shape[1],
         build.ptr(k_pool), build.ptr(k_scale), build.ptr(v_pool),
         build.ptr(v_scale), build.ptr(q), build.stream_of(x))
+    if code == _INVALID_VALUE:   # a shape the plan refuses: say why
+        prologue_plan(m, d, qw.shape[1], head_dim, ha.shape[0], hb.shape[0],
+                      bk, packed, lib=lib)
     build.check(code, "decode_qkv_prologue")
     decode_qkv_prologue.launches += 1
     return q, k_pool, k_scale, v_pool, v_scale

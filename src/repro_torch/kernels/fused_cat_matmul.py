@@ -7,24 +7,32 @@ Replaces the Pallas TPU kernels ``fused_cat_gemv_w4`` and
     dots) -> per-token asymmetric act quant (signed-shifted codes) ->
     int4-unpack -> exact integer dot -> sx·sw·(acc − zx·colsum)
 
-The CUDA source is ``src/repro_torch/csrc/fused_cat_matmul.cu``: a
-transform-quant launch (one CTA per row, in shared memory) followed by a
-contraction launch (GEMV for M <= 8; above, the tensor-core contraction
-of ``quant_matmul`` and ``quant_matmul_w4``, for int8 or packed int4
-weights). What bounds it
-on the H100 is the packed weight stream (D/2 x N bytes) at decode shapes
-and at the 128-row step alike; the design reads each weight byte once per
-row tile and keeps the codes on chip. The code round trip between the two
-launches costs (K_pad + 8) bytes per row written and read once.
+The CUDA source is ``src/repro_torch/csrc/fused_cat_matmul.cu``. For
+M <= 8 rows (decode) it is ONE launch in thread-block clusters
+(``csrc/cluster_tq.cuh``): each cluster computes the transform and quant
+once, split over its CTAs, which push their codes into every CTA of the
+cluster (distributed shared memory); each CTA then contracts all of them
+against its own output columns, whose weight bytes it stages in shared
+memory by 16-byte loads while the transform runs, and applies the
+epilogue. The plan (cluster size, columns per CTA) is the CUDA source's
+(``csrc/cluster_plan.h``); ``gemv_plan`` reads it. Above 8 rows a
+transform-quant launch (one CTA per row) is followed by the tensor-core
+contraction of ``quant_matmul`` and ``quant_matmul_w4``, for int8 or
+packed int4 weights, the codes crossing HBM once ((K_pad + 8) bytes per
+row). What bounds both on the H100 is the packed weight stream (D/2 x N
+bytes); each weight byte is read once per CTA or row tile.
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch
-in ``<wrapper>.launches``) and takes the plain PyTorch version, which
+in ``<wrapper>.launches``), takes the plain PyTorch version, which
 repeats the kernel's arithmetic in the kernel's op order
-(``ref.kernel_transform_quant`` in the reference), only for CPU tensors.
+(``ref.kernel_transform_quant`` in the reference), for CPU tensors, and
+raises for any other device.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 
 import torch
 
@@ -37,14 +45,83 @@ from .hadamard import hadamard_f32
 from .quant_matmul import quant_matmul_plain, w8a8_plan
 from .quant_matmul_w4 import GEMV_M
 
+_INVALID_VALUE = 1   # cudaErrorInvalidValue
+
 _C = ctypes.c_int
 _P = ctypes.c_void_p
-_HEAD = [_P, _C, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C, _P, _C, _P,
-         _C]                 # x ... n
-_TAIL = [_P] * 5             # qx, sx, zx, out, stream
-# the tiled entry adds the contraction's K splits and their scratch
-_SIGNATURES = {"fused_cat_gemv_w4": _HEAD + _TAIL,
-               "fused_cat_matmul_w4": _HEAD + [_C, _P] + _TAIL}
+_PLAN = ctypes.POINTER(ctypes.c_int)
+# x, x_is_bf16, m, d, blocks, bk, sign, ha, a, hb, b, act_bits, qw, packed,
+# sw, n; the decode entry adds the SM count and its columns per CTA (0:
+# the plan's), the tiled one k_pad, the contraction's K splits and their
+# scratch and the code scratch (qx, sx, zx)
+_OPS = [_P, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C, _P, _C, _P, _C]
+_SIGNATURES = {
+    "fused_cat_gemv_w4": _OPS + [_C, _C, _P, _P],
+    "fused_cat_matmul_w4": _OPS[:4] + [_C] + _OPS[4:] + [_C] + [_P] * 6,
+    "fused_cat_gemv_capacity": [_C, _C],
+    "ctq_gemv_plan": [_C] * 10 + [_PLAN]}
+
+
+# ------------------------------------------------------- cluster plan
+
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """Launch plan of the one-launch decode linear: ``clusters`` clusters
+    of ``cluster`` CTAs; CTA ``rank`` of cluster g computes the transform
+    values of its K set (``k_set``: D/cluster of them) and owns the output
+    columns ``columns(g, rank, n)``, ``cols`` of them; ``smem`` bytes of
+    dynamic shared memory per CTA."""
+    cluster: int
+    clusters: int
+    cols: int
+    smem: int
+
+    def k_set(self, rank: int, a: int, b: int) -> list:
+        """K of CTA ``rank``'s transform values: columns [rank·b/c,
+        (rank+1)·b/c) of every row of the (a, b) view, in its order."""
+        bl = b // self.cluster
+        return [p * b + rank * bl + ll for p in range(a) for ll in range(bl)]
+
+    def columns(self, g: int, rank: int, n: int) -> range:
+        n0 = (g * self.cluster + rank) * self.cols
+        return range(min(n0, n), min(n0 + self.cols, n))
+
+
+def read_plan(fn, what: str, *args) -> tuple:
+    """Call a plan export of ``csrc/cluster_plan.h`` (``ctq_gemv_plan``,
+    ``ctq_prologue_plan``) -> (cluster, clusters, cols, smem); raises
+    ValueError for a shape the kernel does not take."""
+    out = (ctypes.c_int * 4)()
+    if fn(*args, out):
+        raise ValueError(f"{what} does not take this shape {args}: the "
+                         f"transform needs D = a·b, a, b and the CAT block "
+                         f"multiples of 4, and a cluster c <= 8 with a/c, "
+                         f"b/c whole, b/c even, D/c a multiple of 32 and of "
+                         f"the block; M in 1..8; and its shared memory must "
+                         f"fit (csrc/cluster_plan.h)")
+    return tuple(out)
+
+
+def gemv_plan(m: int, d: int, n: int, a: int, b: int, bk: int,
+              packed: bool, sms: int, smem_optin: int = 0, cols: int = 0,
+              lib=None) -> GemvPlan:
+    """The decode kernel's plan for M rows of D = a·b against N columns on
+    a card of ``sms`` SMs (``ctq::gemv_plan``, which the kernel's entry
+    runs on every call): the largest cluster the transform splits over and
+    ``cols`` columns per CTA (0: the plan's own). ``smem_optin`` (0: the
+    current card's) bounds the shared memory per CTA. ``lib``: a library
+    exporting ``ctq_gemv_plan`` (default: the built CUDA library). Raises
+    ValueError for a shape the kernel does not take."""
+    lib = lib or build.load("fused_cat_matmul", _SIGNATURES)
+    return GemvPlan(*read_plan(lib.ctq_gemv_plan, "the decode kernel", m, d,
+                               n, a, b, bk, int(packed), sms, smem_optin,
+                               cols))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ------------------------------------------------------------ plain version
@@ -57,8 +134,9 @@ def transform_quant_plain(x, blocks, ha, hb, sign, act_bits: int):
     xf = x.to(torch.float32)
     if blocks is not None:
         xf = block_diag_f32(xf, blocks)
-    y = hadamard_f32(xf * sign.to(torch.float32), ha, hb)
-    return dynamic_quant_plain(y, act_bits)
+    if sign is not None:
+        xf = xf * sign.to(torch.float32)
+    return dynamic_quant_plain(hadamard_f32(xf, ha, hb), act_bits)
 
 
 def fused_cat_linear_plain(x, blocks, ha, hb, sign, qw, sw, *,
@@ -93,10 +171,6 @@ def _validate(x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
         raise TypeError(f"x must be f32 or bf16, got {x.dtype}")
     if qw.dtype != torch.int8:
         raise TypeError(f"qw must be int8, got {qw.dtype}")
-    smem = 4 * (2 * d + ha.shape[0] ** 2 + hb.shape[0] ** 2)
-    if smem > 48 * 1024:
-        raise ValueError(f"transform stage needs {smem} B of shared memory "
-                         f"(D={d}); the kernel takes at most 48 KiB")
     dev = x.device
     for name, t in (("blocks", blocks), ("ha", ha), ("hb", hb),
                     ("sign", sign), ("sw", sw)):
@@ -106,52 +180,104 @@ def _validate(x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
         raise TypeError(f"qw must be on {dev}")
 
 
-def _launch(fn_name, x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
+def _contiguous(*ts):
+    """Contiguous and 16-byte aligned (the cluster kernels stage their
+    operands by 16-byte copies)."""
+    out = []
+    for t in ts:
+        if t is not None:
+            t = t.contiguous()
+            if t.data_ptr() % 16:
+                t = t.clone()
+        out.append(t)
+    return out
+
+
+def _launch_gemv(x, blocks, ha, hb, sign, qw, sw, act_bits, packed,
+                 cols=0):
+    """One launch of the decode kernel, on its plan with ``cols`` columns
+    per CTA (0: the plan's own); allocates the output only."""
     _validate(x, blocks, ha, hb, sign, qw, sw, act_bits, packed)
-    lib = build.load("fused_cat_matmul", _SIGNATURES)
-    x, qw, sw = x.contiguous(), qw.contiguous(), sw.contiguous()
-    ha, hb, sign = ha.contiguous(), hb.contiguous(), sign.contiguous()
-    blocks = None if blocks is None else blocks.contiguous()
+    x, blocks, ha, hb, sign, qw, sw = _contiguous(x, blocks, ha, hb, sign,
+                                                  qw, sw)
     m, d = x.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
         return out
+    bk = 0 if blocks is None else blocks.shape[1]
+    sms = sm_count(x.device.index or 0)
+    lib = build.load("fused_cat_matmul", _SIGNATURES)
+    code = lib.fused_cat_gemv_w4(
+        build.ptr(x), int(x.dtype == torch.bfloat16), m, d,
+        build.ptr(blocks), bk, build.ptr(sign), build.ptr(ha), ha.shape[0],
+        build.ptr(hb), hb.shape[0], act_bits, build.ptr(qw), int(packed),
+        build.ptr(sw), n, sms, cols, build.ptr(out), build.stream_of(x))
+    if code == _INVALID_VALUE:   # a shape the plan refuses: say why
+        gemv_plan(m, d, n, ha.shape[0], hb.shape[0], bk, packed, sms,
+                  cols=cols, lib=lib)
+    build.check(code, "fused_cat_gemv_w4")
+    return out
+
+
+def _launch_tiled(x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
+    """Stage 1 (transform + quant into code scratch), then the tensor-core
+    contraction."""
+    _validate(x, blocks, ha, hb, sign, qw, sw, act_bits, packed)
+    m, d = x.shape
+    smem = 4 * (2 * d + ha.shape[0] ** 2 + hb.shape[0] ** 2)
+    if smem > 48 * 1024:
+        raise ValueError(f"transform stage needs {smem} B of shared memory "
+                         f"(D={d}); the kernel takes at most 48 KiB")
+    x, blocks, ha, hb, sign, qw, sw = _contiguous(x, blocks, ha, hb, sign,
+                                                  qw, sw)
+    n = qw.shape[1]
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    if m == 0 or n == 0:
+        return out
+    lib = build.load("fused_cat_matmul", _SIGNATURES)
     k_pad = 2 * qw.shape[0] if packed else d
     qx = torch.empty((m, k_pad), dtype=torch.int8, device=x.device)
     sx = torch.empty((m,), dtype=torch.float32, device=x.device)
     zx = torch.empty((m,), dtype=torch.float32, device=x.device)
     bk = 0 if blocks is None else blocks.shape[1]
-    split = ()
-    if fn_name == "fused_cat_matmul_w4":
-        splits, ws = w8a8_plan(m, k_pad, n, x.device)
-        split = (splits, build.ptr(ws))
-    code = getattr(lib, fn_name)(
+    splits, ws = w8a8_plan(m, k_pad, n, x.device)
+    build.check(lib.fused_cat_matmul_w4(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d, k_pad,
         build.ptr(blocks), bk, build.ptr(sign), build.ptr(ha), ha.shape[0],
         build.ptr(hb), hb.shape[0], act_bits, build.ptr(qw), int(packed),
-        build.ptr(sw), n, *split, build.ptr(qx), build.ptr(sx),
-        build.ptr(zx), build.ptr(out), build.stream_of(x))
-    build.check(code, fn_name)
+        build.ptr(sw), n, splits, build.ptr(ws), build.ptr(qx),
+        build.ptr(sx), build.ptr(zx), build.ptr(out), build.stream_of(x)),
+        "fused_cat_matmul_w4")
     return out
+
+
+def _off_card(x, name):
+    """True for a CPU tensor (the plain version runs); raises for a device
+    that is neither the CPU nor CUDA."""
+    if x.device.type == "cpu":
+        return True
+    if not x.is_cuda:
+        raise TypeError(f"{name} runs its kernel on CUDA tensors and its "
+                        f"plain version on CPU tensors, got {x.device}")
+    return False
 
 
 def fused_cat_gemv_w4(x, blocks, ha, hb, sign, qw, sw, *, act_bits: int = 8,
                       packed: bool = True) -> torch.Tensor:
-    """Decode-shaped fused CAT linear for M <= 8 rows.
+    """Decode-shaped fused CAT linear for M <= 8 rows, one launch.
 
     x (M, D) f32/bf16; blocks (n, k, k) f32 CAT factors or None; ha/hb
-    Kronecker Hadamard factors; sign (D,) (a Scale CAT factor folded in);
-    qw (ceil(D/2), N) nibble-packed int4 codes — or (D, N) int8 codes with
-    ``packed=False``; sw (1, N) f32 -> (M, N) f32."""
+    Kronecker Hadamard factors; sign (D,) (a Scale CAT factor folded in)
+    or None for ones; qw (ceil(D/2), N) nibble-packed int4 codes — or (D,
+    N) int8 codes with ``packed=False``; sw (1, N) f32 -> (M, N) f32."""
     if x.shape[0] > GEMV_M:
         raise ValueError(f"GEMV variant is for M <= {GEMV_M}, got "
                          f"M={x.shape[0]}")
-    if not x.is_cuda:
+    if _off_card(x, "fused_cat_gemv_w4"):
         return fused_cat_linear_plain(x, blocks, ha, hb, sign, qw, sw,
                                       act_bits=act_bits, packed=packed)
-    out = _launch("fused_cat_gemv_w4", x, blocks, ha, hb, sign, qw, sw,
-                  act_bits, packed)
+    out = _launch_gemv(x, blocks, ha, hb, sign, qw, sw, act_bits, packed)
     fused_cat_gemv_w4.launches += 1
     return out
 
@@ -161,11 +287,10 @@ def fused_cat_matmul_w4(x, blocks, ha, hb, sign, qw, sw, *,
                         ) -> torch.Tensor:
     """Tiled fused CAT linear for M > 8 rows (operands as in
     ``fused_cat_gemv_w4``)."""
-    if not x.is_cuda:
+    if _off_card(x, "fused_cat_matmul_w4"):
         return fused_cat_linear_plain(x, blocks, ha, hb, sign, qw, sw,
                                       act_bits=act_bits, packed=packed)
-    out = _launch("fused_cat_matmul_w4", x, blocks, ha, hb, sign, qw, sw,
-                  act_bits, packed)
+    out = _launch_tiled(x, blocks, ha, hb, sign, qw, sw, act_bits, packed)
     fused_cat_matmul_w4.launches += 1
     return out
 

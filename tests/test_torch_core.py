@@ -13,10 +13,11 @@ cross with ``repro_torch.convert.from_reference``.
   accumulation) against the same routes of the reference: f32 rtol 1e-5
   (route 3 on rows whose activation codes agree; a value on a rounding
   boundary may move one code step, allowed on <= 0.1 % of rows). Route 3
-  quantizes with ``core.quantizers.quantize``, which divides by the level
-  count as the eager reference does; against ``jax.jit`` of the reference
-  route, which multiplies by the f32 reciprocal, its scales move by an
-  ulp, so it is held at the same rtol there, not bitwise.
+  quantizes as ``jax.jit`` compiles the reference
+  (``core.quantizers.quantize_dynamic``: codes, scales and zero points
+  bitwise), and its epilogue takes the unrounded f32 act scale, as XLA's
+  does: with the transform taken out, bitwise equal to ``jax.jit`` of the
+  reference route in f32 and in bf16.
 """
 import dataclasses
 import pathlib
@@ -321,6 +322,33 @@ def test_dense_route3_matches(packed, act_bits):
     np.testing.assert_array_equal(
         tq.dense(ts_id, xt).numpy(),
         np.asarray(jax.jit(jq.dense)(js_id, jnp.asarray(xt.numpy()))))
+
+
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("act_bits", [4, 8])
+def test_dense_route3_bf16_matches_jitted_reference(packed, act_bits):
+    """Route 3 with bf16 activations against ``jax.jit`` of the
+    reference's ``dense_fused``, bitwise, at the shapes of
+    ``test_dense_route3_matches``. The transform is ``Identity``, which
+    the fused kernel does not decompose, in both packages (so no
+    transform dot enters). XLA computes the epilogue
+    s·sw·(acc − zp·colsum) in f32 with the act scale unrounded (it drops
+    the scale's round trip through bf16) and rounds once to bf16; the
+    port does the same (``quantizers.quantize_dynamic``)."""
+    jp, tp = _qlinear_pair(packed, act_bits, seed=1)
+    js = dataclasses.replace(jq.make_serving(jp, keep_packed=True),
+                             transform=jT.Identity())
+    ts = dataclasses.replace(tq.make_serving(tp, keep_packed=True),
+                             transform=tT.Identity())
+    assert ts.w_eff is None
+    x = np.random.default_rng(8).standard_normal((9, 64)).astype(np.float32)
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    got = tq.dense_fused(ts, xb)
+    want = np.asarray(jax.jit(jq.dense_fused)(
+        js, jnp.asarray(x).astype(jnp.bfloat16)))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  want.astype(np.float32))
 
 
 def test_make_serving_and_concat_match():
