@@ -40,7 +40,23 @@ Phases (any failure exits non-zero before the final line):
              ragged (M, K, N), odd K, several K splits, 4-bit and
              full-range int8 codes and code extremes
              (``check_w4_edges``, ``check_w8a8_edges``); the fused linear
-             with int8 weights too.
+             with int8 weights too; the tiled fused linear (M > 8) also at
+             ragged M (9 to 255) and the widths D 128, 256, 384, 768, with
+             its stage-1 plan, and at M 128 timed with every forced number
+             of rows per cluster (the rows sweep, each bitwise to the
+             plan's) (``check_tiled_edges``). The decode paged attention
+             at the kernels-phase lengths (<= 160), the served ones (<=
+             56) and 8 items of 1024 and of 2048 positions: within 4 bf16
+             ulps of the output's scale (bitwise share recorded), f32
+             queries within 1e-4 of the scale, two calls bitwise equal,
+             one kernel node per call, its split plan, and every forced
+             split timed (the split sweep); at every length of a table
+             (``DECODE_LENGTHS``); and at its edges (B 1..8, hd 32/64/128,
+             g 1/2/4/8, page 8/16/32, lengths 0, 1, ps, ps + 1, null pages
+             and rows past each length poisoned, which must not change a
+             bit) (``check_decode_edges``). Both attentions' library
+             yardstick is ``scaled_dot_product_attention`` on K and V
+             gathered and dequantized outside the timed call.
 4. serving — full-width catlm-60m (8 layers, d 512, 8/4 heads, d_ff 1536,
              vocab 8192), seeded random init, CAT W4A4 int4-packed PTQ on
              the card, 8 mixed requests (32 new tokens each) through the
@@ -71,6 +87,14 @@ Phases (any failure exits non-zero before the final line):
 The second line from the end is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``. Full results also go to
 ``chiprun_out/chip_smoke.json``.
+
+    python3 chip_smoke.py --rows-2-4 [SRC]
+
+times rows 4 and 2 only, of the port package under SRC (another
+checkout's ``src``, such as the parent commit's; default this one's), at
+this script's timed shapes and ``DECODE_LENGTHS``: run it for two
+packages in turns within one call for a before/after of those kernels
+(``compare_rows_2_4``).
 """
 from __future__ import annotations
 
@@ -250,6 +274,11 @@ def check_fused_linear(name, run, rows, card, gen, dev):
                 if not rec["one_call"]["ok"]:
                     fail(f"{name} m={m} d={d} n={n} is not one launch: "
                          f"{json.dumps(rec['one_call'])}")
+            if run is F.fused_cat_matmul_w4:
+                rec["plan"] = dataclasses.asdict(F.tiled_plan(
+                    m, d, a, b, CAT_BLOCK))
+                if m == 128:
+                    rec["rows_sweep_ms"] = rows_sweep(args)
             print(json.dumps(rec))
             if not err <= tol:
                 fail(f"{name} m={m} d={d} n={n}: max error {err} > {tol}")
@@ -262,12 +291,14 @@ def check_fused_linear(name, run, rows, card, gen, dev):
     return out
 
 
-def attention_operands(items, nq, gen, dev, decode):
-    """A pool of int8 pages (page 16, 4 KV heads, hd 64) and work items
-    (q_len, length): pages distinct per item, padding rows q_pos = -1."""
+def attention_operands(items, nq, gen, dev, decode, kvh=4, g=2, hd=64,
+                       ps=16):
+    """A pool of int8 pages (by default page 16, 4 KV heads of hd 64, g 2
+    query rows each) and work items (q_len, length): pages distinct per
+    item, the table as wide as the longest item needs, null pages (0)
+    past each length, padding rows q_pos = -1."""
     import torch
-    kvh, g, hd, ps = 4, 2, 64, 16
-    n_ptab = 10
+    n_ptab = max(1, max(-(-ln // ps) for _, ln in items))
     n_pages = 1 + len(items) * n_ptab
     kp = torch.randint(-127, 128, (n_pages, ps, kvh, hd), generator=gen,
                        dtype=torch.int8)
@@ -304,31 +335,244 @@ def attention_bound(items, dims, nq):
     return bound(nbytes, flops / F32_FLOP_S)
 
 
-def check_attention(name, run, plain, items, nq, card, gen, dev, decode):
+def sdpa_yardstick(args, decode):
+    """The library call for an attention check: one
+    ``scaled_dot_product_attention`` over K and V gathered from the pages
+    and dequantized to q's dtype, with a boolean mask (decode: p < length;
+    ragged: p <= q_pos and p < length), all built outside the timed call;
+    grouped heads by ``enable_gqa`` where this torch has it, else K and V
+    repeated per query head outside the call too. -> (call, what it leaves
+    out, its output in the kernel's layout)."""
+    import torch
+    import torch.nn.functional as tf
+    q, kp, ks, vp, vs, table, lengths, qpos = args
+    if decode:
+        q = q[:, None]
+        qpos = (lengths - 1)[:, None]
+    r, nq, kvh, g, hd = q.shape
+    idx = table.long()
+    k = (kp[idx].float() * ks[idx]).reshape(r, -1, kvh, hd)
+    v = (vp[idx].float() * vs[idx]).reshape(r, -1, kvh, hd)
+    k = k.transpose(1, 2).to(q.dtype).contiguous()      # (R, KVH, S, hd)
+    v = v.transpose(1, 2).to(q.dtype).contiguous()
+    pos = torch.arange(k.shape[2], device=q.device)
+    mask = ((pos[None, None, :] <= qpos[:, :, None])
+            & (pos[None, None, :] < lengths[:, None, None])
+            & (qpos[:, :, None] >= 0))[:, None]          # (R, 1, Q, S)
+    qh = q.permute(0, 2, 3, 1, 4).reshape(r, kvh * g, nq, hd).contiguous()
+    what = ("torch.nn.functional.scaled_dot_product_attention on K, V "
+            "gathered from the pages and dequantized to q's dtype outside "
+            "the timed call (the gather and the dequant left out), boolean "
+            "length/causal mask")
+    try:
+        tf.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                        enable_gqa=True)
+
+        def call():
+            return tf.scaled_dot_product_attention(qh, k, v, attn_mask=mask,
+                                                   enable_gqa=True)
+    except RuntimeError as exc:
+        return None, f"unavailable ({exc}): " + what, None
+    except TypeError:
+        k = k.repeat_interleave(g, dim=1)
+        v = v.repeat_interleave(g, dim=1)
+        what += ", K and V repeated per query head outside the call"
+
+        def call():
+            return tf.scaled_dot_product_attention(qh, k, v, attn_mask=mask)
+    if usable(call) is None:
+        return None, "unavailable: " + what, None
+    out = call().reshape(r, kvh, g, nq, hd).permute(0, 3, 1, 2, 4)
+    return call, what, out[:, 0] if decode else out
+
+
+def profiled_kernels(fn) -> list:
+    """Names of the device kernels that one call of ``fn`` runs."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({e.name for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA})
+
+
+def check_attention(name, run, plain, items, nq, card, gen, dev, decode,
+                    label=""):
     """Hold a paged-attention entry point against its plain version on the
-    valid query rows. Tolerance: 4 bf16 ulps of the output's scale
-    (1.6e-2 relative), since both round their f32 result to bf16."""
+    valid query rows (length 0 decode rows: zeros). Tolerance: 4 bf16 ulps
+    of the output's scale (1.6e-2 relative), since both round their f32
+    result to bf16; the bitwise share is recorded, and a second call on
+    the same inputs must give the same bits. Decode also: f32 queries
+    within 1e-4 of the scale, one kernel node per call (CUDA graph), its
+    plan, and the device ms of every forced split (``SPLITS``), each
+    within the tolerance. The library yardstick is
+    ``sdpa_yardstick``."""
+    import torch
+
+    from repro_torch.kernels import fused_cat_matmul as F
     args, dims = attention_operands(items, nq, gen, dev, decode)
     call = args[:7] if decode else args
     got = run(*call)
     want = plain(*call)
-    valid = (args[7] >= 0)[:, 0] if decode else args[7] >= 0
+    valid = (args[6] > 0) if decode else args[7] >= 0
     diff = (got.float() - want.float()).abs()[valid]
     err = diff.max().item()
     tol = 1.6e-2 * want.float()[valid].abs().max().item()
+    again = run(*call)
+    library, what, lib_out = sdpa_yardstick(args, decode)
     ms, per_call = device_ms(lambda: run(*call)), call_ms(lambda: run(*call))
     plain_ms = device_ms(lambda: plain(*call))
     b_ms, b_by = attention_bound(items, dims, 1 if decode else nq)
-    rec = {"kernel": name, "items": len(items), "q_block": 1 if decode
-           else nq, "max_len": max(ln for _, ln in items), "max_err": err,
-           "tol": tol, "kernel_ms": ms, "call_ms": per_call,
-           "plain_ms": plain_ms,
-           "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-           "card": card}
+    rec = {"kernel": name, "shape": label, "items": len(items),
+           "q_block": 1 if decode else nq,
+           "max_len": max(ln for _, ln in items), "max_err": err,
+           "tol": tol, "bf16_bitwise_share":
+           (got == want)[valid].float().mean().item(),
+           "repeat_bitwise": bool(torch.equal(got, again)),
+           "kernel_ms": ms, "call_ms": per_call, "plain_ms": plain_ms,
+           "library_ms": None if library is None else device_ms(library),
+           "library": what,
+           "library_kernels": None if library is None
+           else profiled_kernels(library),
+           "library_max_err": None if library is None
+           else (lib_out.float() - want.float()).abs()[valid].max().item(),
+           "bound_ms": b_ms, "bound_by": b_by, "card": card}
+    ok = err <= tol and rec["repeat_bitwise"]
+    if decode:
+        from repro_torch.kernels import paged_attention as P
+        if not bool((got[~valid] == 0).all()):
+            fail(f"{name} {label}: a length-0 item is not zeros")
+        q32 = args[0].float()
+        f32_err = (run(q32, *call[1:]) - plain(q32, *call[1:])).abs()[
+            valid].max().item()
+        rec["f32_max_err"] = f32_err
+        rec["f32_tol"] = 1e-4 * want.float()[valid].abs().max().item()
+        ok = ok and f32_err <= rec["f32_tol"]
+        kvh, g, hd, ps = dims
+        rec["plan"] = dataclasses.asdict(P.decode_plan(
+            len(items), kvh, g, hd, ps, args[5].shape[1], F.sm_count(0)))
+        rec["one_call"] = one_launch(lambda: run(*call), "paged_attn_decode")
+        ok = ok and rec["one_call"]["ok"]
+        rec["split_sweep_ms"], rec["split_sweep_max_err"] = {}, {}
+        for split in SPLITS:
+            out = P._launch_decode(*call, split=split)
+            e = (out.float() - want.float()).abs()[valid].max().item()
+            rec["split_sweep_max_err"][split] = e
+            rec["split_sweep_ms"][split] = device_ms(
+                lambda s=split: P._launch_decode(*call, split=s))
+            ok = ok and e <= tol
     print(json.dumps(rec))
-    if not err <= tol:
-        fail(f"{name}: max error {err} > {tol}")
+    if not ok:
+        fail(f"{name} {label}: {json.dumps(rec)}")
     return [rec]
+
+
+# row 4's timed shapes: (label, lengths of the items); decode rows attend
+# p < length
+DECODE_SHAPES = [
+    ("kernels phase, len <= 160", (160, 1, 17, 64, 100, 33, 5, 128)),
+    ("served, len <= 56", (56, 9, 33, 41, 24, 50, 17, 48)),
+    ("long, 8 x 1024", (1024,) * 8),
+    ("long, 8 x 2048", (2048,) * 8)]
+SPLITS = (1, 2, 4, 8)
+# row 4 at one length for all 8 items, page 16
+DECODE_LENGTHS = (1, 16, 56, 128, 160, 256, 512, 1024, 2048)
+
+
+def time_decode_lengths(P, gen, dev) -> list:
+    """Row 4 of the package ``P`` (its ``paged_attention`` module) with 8
+    items all at each length of ``DECODE_LENGTHS`` (bf16 q, 4 KV heads of
+    2 rows, hd 64): device ms per call, the byte bound, and the max error
+    against its plain version (held within 4 bf16 ulps of the scale)."""
+    recs = []
+    for ln in DECODE_LENGTHS:
+        items = [(1, ln)] * 8
+        args, dims = attention_operands(items, 1, gen, dev, True)
+        args = args[:7]
+        want = P.paged_attention_decode_plain(*args)
+        err = (P.paged_attention_decode(*args).float() - want.float()).abs(
+            ).max().item()
+        tol = 1.6e-2 * want.float().abs().max().item()
+        b_ms, b_by = attention_bound(items, dims, 1)
+        recs.append({"kernel": "paged_attention_decode", "length": ln,
+                     "items": 8, "kernel_ms": device_ms(
+                         lambda: P.paged_attention_decode(*args)),
+                     "bound_ms": b_ms, "bound_by": b_by, "max_err": err,
+                     "tol": tol})
+        if not err <= tol:
+            fail(f"paged_attention_decode at length {ln}: {recs[-1]}")
+    return recs
+
+
+def check_decode_edges(gen, dev):
+    """The decode attention (row 4) at its edges, against the plain
+    version on the valid rows (4 bf16 ulps of the scale for bf16 q, 1e-4
+    of the scale for f32 q; length-0 items zeros): B 1..8, hd 32, 64,
+    128, g 1, 2, 4, 8, page sizes 8, 16, 32, lengths 0, 1, ps, ps + 1 and
+    longer, each on the plan's split and forced to 4 (so empty splits and
+    length 0 run in a cluster); two calls bitwise equal; and with the null
+    page 0 and every row past each length poisoned (codes +-127, scales
+    1e8) bitwise equal to the clean call, so no such row is read."""
+    import torch
+
+    from repro_torch.kernels import paged_attention as P
+    recs = []
+    case = 0
+    for hd in (32, 64, 128):
+        for g in (1, 2, 4, 8):
+            for ps in (8, 16, 32):
+                b = 1 + case % 8
+                case += 1
+                lens = [(0, 1, ps, ps + 1, 3 * ps + 5, 1, 2 * ps, 0)[
+                    (i + case) % 8] for i in range(b)]
+                items = [(1, ln) for ln in lens]
+                args, _ = attention_operands(items, 1, gen, dev, True,
+                                             kvh=2, g=g, hd=hd, ps=ps)
+                call = args[:7]
+                valid = args[6] > 0
+                poisoned = [t.clone() for t in call]
+                kp, ks, vp, vs = poisoned[1:5]
+                past = torch.zeros(kp.shape[:2], dtype=torch.bool)
+                past[0] = True                  # the null page
+                for i, ln in enumerate(lens):
+                    for j, page in enumerate(args[5][i].tolist()):
+                        if page:
+                            past[page, max(0, ln - j * ps):] = True
+                past = past.to(dev)
+                kp[past], vp[past], ks[past], vs[past] = 127, -127, 1e8, 1e8
+                for q in (args[0], args[0].float()):
+                    want = P.paged_attention_decode_plain(q, *call[1:])
+                    scale = want.float()[valid].abs().max().item() \
+                        if bool(valid.any()) else 0.0
+                    tol = (1.6e-2 if q.dtype == torch.bfloat16
+                           else 1e-4) * scale
+                    for split in (0, 4):
+                        got = P._launch_decode(q, *call[1:], split=split)
+                        err = ((got.float() - want.float()).abs()[valid]
+                               .max().item() if bool(valid.any()) else 0.0)
+                        rec = {"kernel": "paged_attention_decode", "b": b,
+                               "hd": hd, "g": g, "ps": ps, "lengths": lens,
+                               "dtype": str(q.dtype), "split": split,
+                               "max_err": err, "tol": tol,
+                               "zeros_at_len_0": bool(
+                                   (got[~valid] == 0).all()),
+                               "repeat_bitwise": bool(torch.equal(
+                                   got, P._launch_decode(q, *call[1:],
+                                                         split=split))),
+                               "poison_bitwise": bool(torch.equal(
+                                   got, P._launch_decode(q, *poisoned[1:],
+                                                         split=split)))}
+                        recs.append(rec)
+                        if not (err <= tol and rec["zeros_at_len_0"]
+                                and rec["repeat_bitwise"]
+                                and rec["poison_bitwise"]):
+                            fail(f"paged_attention_decode edge: "
+                                 f"{json.dumps(rec)}")
+    print("paged_attention_decode edges " + json.dumps(recs))
+    return recs
 
 
 def prologue_operands(m, gen, dev, targets, d=512, n_q=512, kvh=4, hd=64):
@@ -492,6 +736,80 @@ def cols_sweep(args) -> dict:
     return out
 
 
+SWEEP_ROWS = (1, 2, 4, 8)
+TILED_EDGE_ROWS = (9, 15, 17, 100, 129, 255)
+TILED_EDGE_WIDTHS = ((128, 256), (256, 128), (384, 1000), (768, 520),
+                     (512, 520), (1536, 512))
+
+
+def rows_sweep(args) -> dict:
+    """Device ms of the tiled fused linear on ``args`` with each forced
+    number of rows per cluster of its transform-quant stage
+    (``SWEEP_ROWS``: fewer rows, more clusters, each staging the factors
+    anew), bitwise to the plan's own choice; the plan's under "plan"."""
+    import torch
+
+    from repro_torch.kernels import fused_cat_matmul as F
+    m, d = args[0].shape
+    want = F._launch_tiled(*args, 4, True)
+    out = {"plan": F.tiled_plan(m, d, args[2].shape[0], args[3].shape[0],
+                                CAT_BLOCK).rows}
+    for rows in SWEEP_ROWS:
+        got = F._launch_tiled(*args, 4, True, rows=rows)
+        if not torch.equal(got, want):
+            fail(f"fused_cat_matmul_w4 with {rows} rows per cluster differs "
+                 f"from the plan's at m={m} d={d}")
+        out[rows] = device_ms(lambda r=rows: F._launch_tiled(
+            *args, 4, True, rows=r))
+    return out
+
+
+def check_tiled_edges(gen, dev):
+    """The tiled fused linear (row 2) bitwise against its plain version on
+    f32 inputs at ragged row counts (``TILED_EDGE_ROWS``: a partial last
+    row group, more groups than the timed shapes) and the repo's other
+    widths (the smoke config's D 128 = 16 x 8 and 256, D 384 and 768 with a
+    factor of 24, ragged N), with int4-packed and int8 weights, and the
+    bare Hadamard (no blocks, no sign) at D 128 and 1536. Each case
+    records its stage-1 plan."""
+    import torch
+
+    from repro_torch.kernels import fused_cat_matmul as F
+    recs = []
+
+    def held(args, packed, rec):
+        got = F.fused_cat_matmul_w4(*args, act_bits=4, packed=packed)
+        want = F.fused_cat_linear_plain(*args, act_bits=4, packed=packed)
+        m, d = args[0].shape
+        plan = F.tiled_plan(m, d, args[2].shape[0], args[3].shape[0],
+                            0 if args[1] is None else CAT_BLOCK)
+        rec.update({"kernel": "fused_cat_matmul_w4", "m": m, "d": d,
+                    "n": args[5].shape[1], "packed": packed,
+                    "plan": dataclasses.asdict(plan),
+                    "max_err": (got - want).abs().max().item(),
+                    "differing": int((got != want).sum().item())})
+        recs.append(rec)
+        if rec["differing"]:
+            fail(f"fused_cat_matmul_w4 edge not bitwise: {json.dumps(rec)}")
+
+    for d, n in TILED_EDGE_WIDTHS:
+        for m in TILED_EDGE_ROWS:
+            args = fused_linear_operands(m, d, n, gen, dev)
+            args[0] = args[0].float()
+            held(args, True, {})
+            w8 = torch.randint(-128, 128, (d, n), generator=gen,
+                               dtype=torch.int8).to(dev)
+            held((*args[:5], w8, args[6]), False, {})
+    for d in (128, 1536):
+        for m in (9, 129):
+            args = fused_linear_operands(m, d, 512, gen, dev)
+            args[0] = args[0].float()
+            args[1] = args[4] = None
+            held(args, True, {"transform": "bare Hadamard, no sign"})
+    print("fused_cat_matmul_w4 edges " + json.dumps(recs))
+    return recs
+
+
 def one_launch(fn, kernel: str, calls: int = 5) -> dict:
     """Whether one call of ``fn`` is one launch of the kernel whose name
     contains ``kernel``: the nodes of a CUDA graph that captures one call
@@ -528,8 +846,10 @@ def one_launch(fn, kernel: str, calls: int = 5) -> dict:
         torch.cuda.synchronize()
     names = sorted({e.name for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA})
-    ok = (kinds == {"KERNEL": 1} and kernel in dot and len(names) == 1
-          and kernel in names[0])
+    # the graph holds one kernel node, this kernel's; the profiler, which
+    # may drop every event of a short kernel, saw no other kernel
+    ok = (kinds == {"KERNEL": 1} and kernel in dot
+          and all(kernel in n for n in names))
     return {"ok": ok, "graph_nodes": kinds, "profiled_device_kernels": names,
             "dot_head": None if kinds else dot[:400]}
 
@@ -1120,7 +1440,8 @@ def profile_serving(engine, reqs) -> dict:
               "fused_cat_gemv": "fused linear decode (one launch)",
               "transform_quant": "fused linear tiled stage 1",
               "mma_kernel": "fused linear tiled contraction",
-              "paged_attn": "paged attention"}
+              "paged_attn_decode": "paged attention decode",
+              "paged_attn_ragged": "paged attention ragged"}
     engine.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -1504,11 +1825,74 @@ def composed_phase(model, params_w4, counters, card, gen):
     return out
 
 
+def compare_rows_2_4(src: Path, card: str, out_dir: Path) -> None:
+    """Time rows 4 and 2 of the port package under ``src`` (another
+    checkout's ``src``, such as the parent commit's, or this one's) at
+    this script's timed shapes, on inputs drawn from one seed in one order
+    (the same for every package): the decode attention at ``DECODE_SHAPES``
+    (max error against its plain version on valid rows) and the tiled
+    fused linear at every main-path (D, N) and ``TILED_ROWS`` (f32
+    outputs differing from the plain version), and the decode attention
+    at each length of ``DECODE_LENGTHS``. Run it for two packages in
+    one call, in turns, for a before/after of the two kernels; writes
+    ``chiprun_out/compare_<tag>.json``."""
+    import hashlib
+
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_cat_matmul as F
+    from repro_torch.kernels import paged_attention as P
+    t0 = time.perf_counter()
+    build.build_all()
+    recs = []
+    gen = torch.Generator().manual_seed(0)
+    dev = torch.device("cuda")
+    for label, lens in DECODE_SHAPES:
+        items = [(1, ln) for ln in lens]
+        args = attention_operands(items, 1, gen, dev, True)[0][:7]
+        got = P.paged_attention_decode(*args)
+        want = P.paged_attention_decode_plain(*args)
+        valid = args[6] > 0
+        recs.append({"kernel": "paged_attention_decode", "shape": label,
+                     "max_err": (got.float() - want.float()).abs()[valid]
+                     .max().item(),
+                     "kernel_ms": device_ms(
+                         lambda: P.paged_attention_decode(*args))})
+    recs += time_decode_lengths(P, gen, dev)
+    for d, n in LINEAR_SHAPES:
+        for m in TILED_ROWS:
+            args = fused_linear_operands(m, d, n, gen, dev)
+            f32 = (args[0].float(), *args[1:])
+            differing = int((F.fused_cat_matmul_w4(f32[0], *f32[1:],
+                                                   act_bits=4)
+                             != F.fused_cat_linear_plain(*f32, act_bits=4))
+                            .sum().item())
+            recs.append({"kernel": "fused_cat_matmul_w4", "m": m, "d": d,
+                         "n": n, "f32_differing": differing,
+                         "kernel_ms": device_ms(lambda: F.fused_cat_matmul_w4(
+                             *args, act_bits=4))})
+    tag = hashlib.sha1(str(src.resolve()).encode()).hexdigest()[:8]
+    res = {"src": str(src), "card": card, "records": recs,
+           "seconds": time.perf_counter() - t0}
+    for rec in recs:
+        print("compare " + json.dumps(rec))
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"compare_{tag}.json").write_text(json.dumps(res, indent=1))
+
+
 def main() -> None:
-    if not (SRC / "repro_torch").is_dir():
-        fail(f"{SRC / 'repro_torch'} not found: run from a checkout of the "
+    compare = None
+    if sys.argv[1:2] == ["--rows-2-4"]:
+        compare = Path(sys.argv[2]) if len(sys.argv) > 2 else SRC
+    elif sys.argv[1:]:
+        fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
+             f"--rows-2-4 [SRC]")
+    src = compare or SRC
+    if not (src / "repro_torch").is_dir():
+        fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
              f"repository")
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a GPU")
@@ -1519,6 +1903,9 @@ def main() -> None:
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if compare is not None:
+        compare_rows_2_4(compare, card, ROOT / "chiprun_out")
+        return
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
@@ -1547,7 +1934,7 @@ def main() -> None:
             dev) + check_gemv_edges(gen, dev),
         "fused_cat_matmul_w4": check_fused_linear(
             "fused_cat_matmul_w4", F.fused_cat_matmul_w4, TILED_ROWS, card,
-            gen, dev),
+            gen, dev) + check_tiled_edges(gen, dev),
         # a unified step: 8 work items (q_len, length) in a 128-row query
         # block — prefill chunks, decode singletons and an empty (padding)
         # item; lengths up to 160
@@ -1556,11 +1943,16 @@ def main() -> None:
             P.paged_attention_ragged_plain,
             [(128, 160), (1, 97), (64, 64), (1, 33), (24, 150), (0, 0),
              (16, 40), (1, 160)], 128, card, gen, dev, decode=False),
-        "paged_attention_decode": check_attention(
-            "paged_attention_decode", P.paged_attention_decode,
-            P.paged_attention_decode_plain,
-            [(1, ln) for ln in (160, 1, 17, 64, 100, 33, 5, 128)], 1, card,
-            gen, dev, decode=True),
+        "paged_attention_decode": [
+            rec for label, lens in DECODE_SHAPES
+            for rec in check_attention(
+                "paged_attention_decode", P.paged_attention_decode,
+                P.paged_attention_decode_plain, [(1, ln) for ln in lens], 1,
+                card, gen, dev, decode=True, label=label)]
+        + check_decode_edges(gen, dev)
+        + [dict(rec, plan=dataclasses.asdict(P.decode_plan(
+            8, 4, 2, 64, 16, -(-rec["length"] // 16), F.sm_count(0))))
+           for rec in time_decode_lengths(P, gen, dev)],
         "decode_qkv_prologue": check_prologue(card, gen, dev)
         + check_prologue_edges(gen, dev),
         **check_contractions(card, gen, dev),
@@ -1579,6 +1971,7 @@ def main() -> None:
     # rows, the 128-row unified step, wgu's D=512 x N=3072), errors over
     # every checked shape
     pick = {"fused_cat_gemv_w4": dict(m=8, d=512, n=3072),
+            "paged_attention_decode": dict(shape=DECODE_SHAPES[0][0]),
             "fused_cat_matmul_w4": dict(m=128, d=512, n=3072),
             "decode_qkv_prologue": dict(m=8),
             "quant_matmul_w4": dict(m=128, d=512, n=3072),
@@ -1616,7 +2009,7 @@ def main() -> None:
         rep = recs[0]
         if name in pick:
             rep = next(r for r in recs
-                       if all(r[k] == v for k, v in pick[name].items()))
+                       if all(r.get(k) == v for k, v in pick[name].items()))
         source, replaces = sources[name]
         # rows 1-5 count serving (b)'s launches, rows 6-11 the composed
         # phase's

@@ -1,0 +1,169 @@
+// Launch plan and shared-memory layout of the decode paged attention
+// (paged_attention.cu, paged_attn_decode_kernel).
+//
+// This header is the one owner of how the kernel splits an item's key
+// positions over the CTAs of a cluster (split_range), of the number of
+// splits (decode_plan) and of every shared-memory region's offset
+// (DecodeLayout). It is plain C++ apart from the __host__ __device__
+// marks, so the kernel, its C entry and a host C++ build (the CPU tests)
+// compile the same rules; Python reads them through pa_decode_plan and
+// pa_split_range, exported by the CUDA library.
+#pragma once
+
+#include <stddef.h>
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#define PA_HD __host__ __device__
+#else
+#define PA_HD
+#endif
+
+namespace pa {
+
+constexpr int kThreads = 128;     // threads per CTA
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 128;       // key positions per chunk, one per thread
+constexpr int kMaxG = 8;          // query rows of a KV head per CTA
+constexpr int kMaxSplit = 8;      // portable cluster size
+constexpr int kMinUnits = 1;      // fewest split units per split of a prefix
+constexpr int kCtasPerSm = 2;     // CTAs per SM the plan's split aims at
+constexpr int kStaticSmem = 1024; // bound on the kernel's static shared memory
+
+PA_HD inline int imin(int a, int b) { return a < b ? a : b; }
+
+PA_HD inline size_t align16(size_t v) {
+  return (v + 15) & ~static_cast<size_t>(15);
+}
+
+// Key positions per split unit: whole pages, about one chunk, so that a
+// page never straddles two splits.
+PA_HD inline int split_unit(int page_size) {
+  return page_size >= kChunk ? page_size : (kChunk / page_size) * page_size;
+}
+
+// The key positions [*lo, *hi) that split `rank` of `split` attends for an
+// item of `len` positions: consecutive runs of whole units, the first
+// ranks taking ceil(units / split) each; empty ranks get lo == hi.
+PA_HD inline void split_range(int len, int page_size, int split, int rank,
+                              int* lo, int* hi) {
+  const int u = split_unit(page_size);
+  const int units = (len + u - 1) / u, per = (units + split - 1) / split;
+  *lo = imin(rank * per * u, len);
+  *hi = imin((rank + 1) * per * u, len);
+}
+
+// Floats of one partial softmax state of gl rows of hd: acc (gl x hd),
+// then m and l (gl each), rounded up to 16 bytes.
+PA_HD inline int slot_floats(int gl, int hd) {
+  return (gl * (hd + 2) + 3) & ~3;
+}
+
+// Byte offsets of the kernel's regions in dynamic shared memory for gl
+// query rows per CTA (gl <= kMaxG), head dim hd and `split` CTAs per
+// cluster: two stages of a chunk (int8 K and V codes, row stride hd,
+// their f32 scales and the positions' token rows in the pools), the
+// scaled query rows, each warp's probabilities of its 32 positions, each
+// warp's partial softmax state and, when split > 1, that of every split
+// (rank 0's).
+struct DecodeLayout {
+  size_t stage, k, v, ks, vs, tok, q, p, warps, part, end;
+  PA_HD DecodeLayout(int gl, int hd, int split) {
+    const size_t slot = 4 * (size_t)slot_floats(gl, hd);
+    k = 0;
+    v = k + (size_t)kChunk * hd;
+    ks = v + (size_t)kChunk * hd;
+    vs = ks + 4 * (size_t)kChunk;
+    tok = vs + 4 * (size_t)kChunk;
+    stage = align16(tok + 4 * (size_t)kChunk);   // stage 1 at k + stage
+    q = 2 * stage;
+    p = q + align16(4 * (size_t)gl * hd);
+    warps = p + align16(4 * (size_t)gl * kChunk);
+    part = warps + align16(kWarps * slot);
+    end = part + (split > 1 ? align16(split * slot) : 0);
+  }
+};
+
+// A launch plan: `split` CTAs (a cluster) per (item, KV head, group of up
+// to kMaxG query rows), `ctas` CTAs in all, `smem` bytes of dynamic shared
+// memory per CTA.
+struct DecodePlan {
+  int split, ctas, smem;
+};
+
+// The decode kernel's plan for b items of kvh KV heads, g query rows per
+// KV head, head dim hd, pages of page_size rows and n_ptab table entries
+// per item (which bound its prefix), on a card of `sms` SMs whose CTAs may
+// opt into `smem_optin` bytes of shared memory. `split` 0 takes the plan's
+// own: the largest power of two up to kMaxSplit that leaves each split at
+// least kMinUnits units of the longest prefix the table holds and at most
+// kCtasPerSm CTAs per SM; so a short prefix takes one split. -> false for
+// a shape the kernel does not take.
+PA_HD inline bool decode_plan(int b, int kvh, int g, int hd, int page_size,
+                              int n_ptab, int sms, int smem_optin, int split,
+                              DecodePlan* p) {
+  if (b < 1 || kvh < 1 || g < 1 || page_size < 1 || n_ptab < 1 || sms < 1
+      || (hd != 32 && hd != 64 && hd != 128))
+    return false;
+  const int groups = (g + kMaxG - 1) / kMaxG, gl = imin(g, kMaxG);
+  const int base = b * kvh * groups;
+  if (split == 0) {
+    const int u = split_unit(page_size);
+    const long long units = ((long long)n_ptab * page_size + u - 1) / u;
+    split = 1;
+    while (split * 2 <= kMaxSplit && units >= (long long)kMinUnits * split * 2
+           && (long long)base * split * 2 <= (long long)kCtasPerSm * sms)
+      split *= 2;
+  }
+  if (split < 1 || split > kMaxSplit) return false;
+  const DecodeLayout lay(gl, hd, split);
+  if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
+  p->split = split;
+  p->ctas = base * split;
+  p->smem = (int)lay.end;
+  return true;
+}
+
+#ifdef __CUDACC__
+// Shared memory a CTA of the current device may opt into, once per device.
+inline int device_smem_optin() {
+  static int cache[16];
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < 0 || dev >= 16) return 0;
+  if (cache[dev] == 0)
+    cudaDeviceGetAttribute(&cache[dev],
+                           cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return cache[dev];
+}
+#endif
+
+}  // namespace pa
+
+// For Python (kernels/paged_attention.decode_plan): out = {split, ctas,
+// smem}; smem_optin 0 reads the current device's (CUDA builds only).
+// Returns 0, or 1 for a shape the kernel does not take.
+extern "C" int pa_decode_plan(int b, int kvh, int g, int hd, int page_size,
+                              int n_ptab, int sms, int smem_optin, int split,
+                              int* out) {
+#ifdef __CUDACC__
+  if (smem_optin == 0) smem_optin = pa::device_smem_optin();
+#endif
+  pa::DecodePlan p;
+  if (!pa::decode_plan(b, kvh, g, hd, page_size, n_ptab, sms, smem_optin,
+                       split, &p))
+    return 1;
+  out[0] = p.split;
+  out[1] = p.ctas;
+  out[2] = p.smem;
+  return 0;
+}
+
+// For Python (kernels/paged_attention.split_range): out = {lo, hi}.
+extern "C" int pa_split_range(int len, int page_size, int split, int rank,
+                              int* out) {
+  if (page_size < 1 || split < 1 || rank < 0 || rank >= split || len < 0)
+    return 1;
+  pa::split_range(len, page_size, split, rank, &out[0], &out[1]);
+  return 0;
+}

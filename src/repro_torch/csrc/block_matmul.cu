@@ -11,9 +11,9 @@
 // the rows allow) in shared memory once, so each block is read once per
 // row tile, not once per row. Each thread owns one output column c and up
 // to kRows rows of the tile, and each output element is one fmaf chain
-// over j = 0..k-1 from 0, in the order tq::block_cat_sign uses: the
-// composed linear's block-CAT equals the fused linear's stage 1 bitwise in
-// f32, and a row's values do not depend on its batch.
+// over j = 0..k-1 from 0, in the order the cluster transform's block-CAT
+// uses (cluster_tq.cuh): the composed linear's block-CAT equals the fused
+// linear's bitwise in f32, and a row's values do not depend on its batch.
 //
 // Bound on this card: bytes (the activation in and out, 2 x M x D x
 // elt, plus the D x k f32 blocks once) over HBM bandwidth; the 2 x M x D x

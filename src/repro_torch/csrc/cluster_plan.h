@@ -1,14 +1,15 @@
 // Launch plans and shared-memory layouts of the thread-block cluster
-// kernels (cluster_tq.cuh): the one-launch decode fused CAT linear
-// (fused_cat_matmul.cu) and the decode QKV prologue (decode_layer.cu).
+// kernels (cluster_tq.cuh): the one-launch decode fused CAT linear and the
+// tiled fused linear's transform-quant stage (fused_cat_matmul.cu), and
+// the decode QKV prologue (decode_layer.cu).
 //
 // This header is the one owner of which shapes the cluster transform
 // takes (splits), of every shared-memory region's offset and of the plans
-// (cluster size, clusters, columns per CTA). It is plain C++ apart from
-// the __host__ __device__ marks, so the kernels, their C entries and a
-// host C++ build (the CPU tests) compile the same rules; Python reads the
-// plans through ctq_gemv_plan / ctq_prologue_plan, exported by both CUDA
-// libraries.
+// (cluster size, clusters, columns or rows per cluster). It is plain C++
+// apart from the __host__ __device__ marks, so the kernels, their C
+// entries and a host C++ build (the CPU tests) compile the same rules;
+// Python reads the plans through ctq_gemv_plan, ctq_tiled_plan and
+// ctq_prologue_plan, exported by the CUDA libraries.
 #pragma once
 
 #include <stddef.h>
@@ -46,10 +47,13 @@ CTQ_HD inline bool splits(int d, int a, int b, int bk, int c) {
 }
 
 // Byte offsets of the transform's regions in dynamic shared memory, for
-// m rows of d, cluster size c, factors a x b, CAT block bk (0: none).
+// m rows of d, cluster size c, factors a x b, CAT block bk (0: none);
+// with all_codes the table of every CTA's codes (the decode kernels'),
+// else none (the tiled stage stores each CTA's own codes).
 struct TqLayout {
   size_t x, sg, blk, hb, ha, y, zt, mm, q, qall, end;
-  CTQ_HD TqLayout(int m, int d, int c, int a, int b, int bk) {
+  CTQ_HD TqLayout(int m, int d, int c, int a, int b, int bk,
+                  bool all_codes = true) {
     const size_t L = d / c;
     size_t o = 0;
     x = o;    o += align16(4 * m * L);          // x slice, f32
@@ -61,7 +65,7 @@ struct TqLayout {
     zt = o;   o += align16(4 * m * L);          // Z of its columns (pushed)
     mm = o;   o += align16(4 * kMaxCluster * 2 * kMaxRows);   // (pushed)
     q = o;    o += align16(m * L);              // its codes, local order
-    qall = o; o += align16((size_t)m * d);      // all codes (pushed)
+    qall = o; o += all_codes ? align16((size_t)m * d) : 0;   // (pushed)
     end = o;
   }
 };
@@ -89,7 +93,8 @@ struct CtaLayout {
 };
 
 // A launch plan: `clusters` clusters of `cluster` CTAs, `cols` output
-// columns per CTA, `smem` bytes of dynamic shared memory per CTA.
+// columns per CTA (the tiled plan: rows per cluster), `smem` bytes of
+// dynamic shared memory per CTA.
 struct Plan {
   int cluster, clusters, cols, smem;
 };
@@ -131,6 +136,27 @@ CTQ_HD inline bool gemv_plan(int m, int d, int n, int a, int b, int bk,
   return true;
 }
 
+// The tiled fused linear's transform-quant plan for m > 0 rows of d = a *
+// b: clusters of the largest size the transform splits over, each
+// transforming `rows` consecutive rows (1..kMaxRows; 0: kMaxRows, so each
+// factor element a CTA reads serves eight rows), ceil(m / rows) clusters.
+// `cols` carries the rows per cluster. -> false for a shape the kernel
+// does not take.
+CTQ_HD inline bool tiled_plan(int m, int d, int a, int b, int bk,
+                              int smem_optin, int rows, Plan* p) {
+  if (rows == 0) rows = kMaxRows;
+  if (m < 1 || rows < 1 || rows > kMaxRows) return false;
+  const int c = cluster_size(d, a, b, bk, 0);
+  if (c == 0) return false;
+  const TqLayout lay(rows, d, c, a, b, bk, false);
+  if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
+  p->cluster = c;
+  p->clusters = (m + rows - 1) / rows;
+  p->cols = rows;
+  p->smem = (int)lay.end;
+  return true;
+}
+
 // The prologue's plan for m rows of d = a * b against n = heads * hd QKV
 // columns: one CTA per head (cols = hd, a multiple of 4), in clusters of
 // the largest size the transform splits over that divides the heads.
@@ -167,10 +193,11 @@ inline int device_smem_optin() {
 
 }  // namespace ctq
 
-// The plans, for Python (kernels/fused_cat_matmul.gemv_plan,
-// kernels/decode_layer.prologue_plan): out = {cluster, clusters, cols,
-// smem}. smem_optin 0 reads the current device's (CUDA builds only).
-// Return 0, or 1 for a shape the kernel does not take.
+// The plans, for Python (kernels/fused_cat_matmul.gemv_plan and
+// tiled_plan, kernels/decode_layer.prologue_plan): out = {cluster,
+// clusters, cols (tiled: rows per cluster), smem}. smem_optin 0 reads
+// the current device's (CUDA builds only). Return 0, or 1 for a shape the
+// kernel does not take.
 extern "C" int ctq_gemv_plan(int m, int d, int n, int a, int b, int bk,
                              int packed, int sms, int smem_optin, int cols,
                              int* out) {
@@ -180,6 +207,20 @@ extern "C" int ctq_gemv_plan(int m, int d, int n, int a, int b, int bk,
   ctq::Plan p;
   if (!ctq::gemv_plan(m, d, n, a, b, bk, packed, sms, smem_optin, cols, &p))
     return 1;
+  out[0] = p.cluster;
+  out[1] = p.clusters;
+  out[2] = p.cols;
+  out[3] = p.smem;
+  return 0;
+}
+
+extern "C" int ctq_tiled_plan(int m, int d, int a, int b, int bk,
+                              int smem_optin, int rows, int* out) {
+#ifdef __CUDACC__
+  if (smem_optin == 0) smem_optin = ctq::device_smem_optin();
+#endif
+  ctq::Plan p;
+  if (!ctq::tiled_plan(m, d, a, b, bk, smem_optin, rows, &p)) return 1;
   out[0] = p.cluster;
   out[1] = p.clusters;
   out[2] = p.cols;

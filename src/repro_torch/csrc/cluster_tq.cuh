@@ -1,7 +1,9 @@
-// The CAT transform and dynamic per-token quant of m <= 8 decode rows,
-// split over the CTAs of a thread-block cluster, for Hopper (sm_90a).
-// Shared by the one-launch fused CAT GEMV (fused_cat_matmul.cu) and the
-// decode QKV prologue (decode_layer.cu).
+// The CAT transform and dynamic per-token quant of m <= 8 rows, split
+// over the CTAs of a thread-block cluster, for Hopper (sm_90a). Shared by
+// the one-launch fused CAT GEMV and the tiled fused linear's
+// transform-quant stage, whose clusters each take a group of up to eight
+// rows (fused_cat_matmul.cu), and by the decode QKV prologue
+// (decode_layer.cu).
 //
 // A cluster of C CTAs computes the transform once. Viewing each row's d
 // values as Y (a, b), CTA `rank` owns
@@ -21,17 +23,22 @@
 //   4. row min/max of its values, pushed to every CTA; after a second
 //      barrier every CTA derives every row's scale and zero point with the
 //      same arithmetic and quantizes its own values;
-//   5. its codes, copied in 16-byte pieces into every CTA's table of all
-//      codes, in cluster order (CTA q's K set at [q * L, (q + 1) * L)),
-//      complete after the caller's next cluster barrier.
+//   5. (decode kernels) its codes, copied in 16-byte pieces into every
+//      CTA's table of all codes, in cluster order (CTA q's K set at [q *
+//      L, (q + 1) * L)), complete after the caller's next cluster barrier;
+//      the tiled stage stores each CTA's own codes to device memory
+//      instead.
 // The factors and the block rows are staged by 16-byte cp.async in their
 // row-major layout, each row's 16-byte chunks XOR-swizzled (swz) so that
 // the 16-byte reads of the eight rows a quarter-warp walks fall on
 // distinct banks where the row width allows. Each transform output is
-// ONE fmaf chain in the order of tq::block_cat_sign / tq::hadamard_rows (over j, then over i, from 0),
-// computed whole by one thread; min/max and the quant are exact in any
-// order. So the codes, scales and zero points equal those of
-// tq::transform_quant_rows (and of the plain version) bitwise. Every
+// ONE fmaf chain from 0, computed whole by one thread: the block-CAT over
+// the block's row j, the first Hadamard dot over j, the second over i,
+// the order of the stand-alone block-CAT and Hadamard kernels
+// (block_matmul.cu, hadamard.cu) and of the plain versions'
+// fma_chain.chain_dot; min/max and the quant are exact in any order. So
+// the codes, scales and zero points equal the plain version's bitwise,
+// whatever the rows, the cluster size or the rows per thread. Every
 // exchange between CTAs is a push before a barrier, so no CTA reads a
 // peer's shared memory and none has to wait for its peers before it
 // exits.
@@ -214,22 +221,26 @@ __device__ void stage_transform(const T* __restrict__ x, int m, int d,
 
 // Transform and asymmetric-quantize (act_bits) the m rows over the
 // cluster. Ends with every row's scale and signed-shifted zero point in
-// s_sx[r], s_zx[r], visible to the block, and this CTA's codes pushed
+// s_sx[r], s_zx[r] and this CTA's codes in lay.q (m rows of L, local
+// order), visible to the block, and with push_codes the codes also pushed
 // into every CTA's table lay.qall (row stride d, cluster order), complete
-// after the caller's next cluster barrier. Called by every thread of
-// every CTA of the cluster, after stage_transform and stage_weights. In
-// each step thread t owns element e = t % L of rows g, g + rg, ..., g +
-// (RPT - 1) rg (g = t / L, rg = max(1, kThreads / L) row groups, RPT =
-// ceil(kMaxRows / rg)): one accumulator per row, each factor element read
-// once for them all; a warp's lanes share g (L % 32 == 0). Rows past m
-// compute on row 0 and are never stored.
+// after the caller's next cluster barrier; without it no CTA touches a
+// peer's shared memory after the function's last cluster barrier. Called
+// by every thread of every CTA of the cluster, after stage_transform and
+// the caller's next cp.async commit (stage_weights, or an empty group).
+// In each step thread t owns element e = t % L of rows g, g + rg, ..., g
+// + (RPT - 1) rg (g = t / L, rg = max(1, kThreads / L) row groups, RPT
+// rows with rg * RPT >= m): one accumulator per row, each factor element
+// read once for them all; a warp's lanes share g (L % 32 == 0). Rows past
+// m compute on row 0 and are never stored.
 template <int RPT>
 __device__ void transform_quant_rows(int m, int d, int c, int rank,
                                      bool has_blocks, int bk,
                                      const float* __restrict__ sign, int a,
                                      int b, int act_bits,
                                      const TqLayout& lay, char* smem,
-                                     float* s_sx, float* s_zx) {
+                                     float* s_sx, float* s_zx,
+                                     bool push_codes) {
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x, L = d / c, k0 = rank * L, bl = b / c;
   const int rg = L >= kThreads ? 1 : kThreads / L;   // row groups
@@ -431,6 +442,7 @@ __device__ void transform_quant_rows(int m, int d, int c, int rank,
     s_q[e] = tq::asym_code(s_y[e], s_sx[r], s_zp[r], act_bits);
   }
   __syncthreads();
+  if (!push_codes) return;
   // 5. the codes into every CTA's table, 16 at a time
   const int l16 = L / 16;
   for (int t = tid; t < c * m * l16; t += kThreads) {
@@ -442,18 +454,20 @@ __device__ void transform_quant_rows(int m, int d, int c, int rank,
   }
 }
 
-// transform_quant_rows with the rows per thread of this slice width.
+// transform_quant_rows with the rows per thread that m rows of this
+// slice width need.
 __device__ inline void transform_quant(int m, int d, int c, int rank,
                                        bool has_blocks, int bk,
                                        const float* __restrict__ sign, int a,
                                        int b, int act_bits,
                                        const TqLayout& lay, char* smem,
-                                       float* s_sx, float* s_zx) {
+                                       float* s_sx, float* s_zx,
+                                       bool push_codes = true) {
   const int L = d / c, rg = L >= kThreads ? 1 : kThreads / L;
-  const int rpt = (kMaxRows + rg - 1) / rg;
+  const int rpt = (m + rg - 1) / rg;
 #define CTQ_ROWS(R)                                                        \
   transform_quant_rows<R>(m, d, c, rank, has_blocks, bk, sign, a, b,       \
-                          act_bits, lay, smem, s_sx, s_zx)
+                          act_bits, lay, smem, s_sx, s_zx, push_codes)
   if (rpt <= 1) {
     CTQ_ROWS(1);
   } else if (rpt <= 2) {

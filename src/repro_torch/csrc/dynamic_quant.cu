@@ -9,8 +9,9 @@
 // src/repro/kernels/dynamic_quant.py:44 (one VMEM pass per token tile:
 // row reduction, scale and zero point, round and clip). Here one CTA per
 // row stages it in shared memory, reduces its range with warp shuffles
-// (tq::row_ranges) and quantizes it (tq::quant_rows: the code the fused
-// linear's stage 1 runs, rintf for jnp.round, the scale by the f32
+// (tq::row_ranges) and quantizes it (tq::quant_rows, whose asymmetric
+// arithmetic, tq::asym_params / asym_code, the fused linear's cluster
+// transform runs too: rintf for jnp.round, the scale by the f32
 // reciprocal, zero point and codes by IEEE division), so codes are
 // bitwise those of the plain version.
 //

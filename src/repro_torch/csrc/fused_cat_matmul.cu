@@ -18,80 +18,96 @@
 // columns per CTA are ctq::gemv_plan's (cluster_plan.h), which the entry
 // computes on every call and Python reads through ctq_gemv_plan.
 //
-// Tiled (m > 8): two launches. Stage 1 (one CTA per row) transforms and
-// quantizes the row in shared memory (transform_quant.cuh) and writes its
-// codes (m, k_pad) int8 plus sx, zx (m,) f32 to a scratch buffer the
-// wrapper allocates; stage 2 is the tensor-core contraction of
-// contract.cuh (int8 weights, or int4-packed ones unpacked to s8 in shared
-// memory), which the composed linear's contractions (quant_matmul.cu)
-// share.
+// Tiled (m > 8): two launches. Stage 1 runs the same cluster transform on
+// groups of up to eight rows, one cluster per group (ctq::tiled_plan: 16
+// clusters of 8 CTAs at 128 rows of D 512, all resident at once); each
+// CTA stores the codes of its own K set straight to a scratch buffer the
+// wrapper allocates ((m, k_pad) int8, plus sx, zx (m,) f32), so the
+// clusters exchange only Z and the row ranges. Stage 2 is the tensor-core
+// contraction of contract.cuh (int8 weights, or int4-packed ones unpacked
+// to s8 in shared memory), which the composed linear's contractions
+// (quant_matmul.cu) share.
 //
 // Bound on this card: at decode shapes the packed-weight bytes (D/2 x N)
 // over HBM bandwidth; at the 128-row ragged step the weight is still the
 // larger stream (D/2 x N vs m x D x 2), so bytes bound both. In practice
-// the decode kernel is bound by its dependent phases (staging, three fmaf
-// chains, three cluster barriers), which the cluster split shortens
-// c-fold against one CTA per row; each weight byte is read once.
+// the decode kernel and the tiled stage 1 are bound by their dependent
+// phases (staging, three fmaf chains, two or three cluster barriers),
+// which the cluster split shortens c-fold against one CTA per row; each
+// weight byte is read once.
 #include "cluster_tq.cuh"
 #include "contract.cuh"
-#include "transform_quant.cuh"
 
 namespace {
 
-constexpr int kStage1Threads = 256;
-
-// Stage 1: transform + dynamic per-token asymmetric quant of one row
-// (transform_quant.cuh). Dynamic shared memory: 2*d + a*a + b*b floats.
-template <typename T>
-__global__ void transform_quant_kernel(
-    const T* __restrict__ x, int d, int k_pad,
+// Tiled stage 1: grid (clusters * c), clusters of c, ctq::kThreads
+// threads. Cluster g transforms and quantizes rows [g * rows, g * rows +
+// mg) (mg = min(rows, m - g * rows)) over its CTAs (cluster_tq.cuh), and
+// CTA `rank` stores the codes of its K set (K = p * b + rank * bl + ll,
+// runs of bl = b / c consecutive K) into qx (row stride k_pad) in vw-byte
+// pieces, rank 0 the rows' sx and zx. Dynamic shared memory: the plan's
+// (ctq::TqLayout without the table of all codes).
+template <typename T, int VW>
+__global__ void __launch_bounds__(ctq::kThreads) cluster_transform_quant_kernel(
+    const T* __restrict__ x, int m, int d, int k_pad, int rows,
     const float* __restrict__ blocks, int bk,
     const float* __restrict__ sign,
     const float* __restrict__ ha, int a,
-    const float* __restrict__ hb, int b,
-    int act_bits,
+    const float* __restrict__ hb, int b, int act_bits,
     int8_t* __restrict__ qx, float* __restrict__ sx, float* __restrict__ zx) {
-  extern __shared__ float smem[];
-  float* s_x = smem;
-  float* s_y = s_x + d;
-  float* s_hat = s_y + d;
-  float* s_hbt = s_hat + a * a;
-  __shared__ float red_min[32], red_max[32];
-  const int row = blockIdx.x;
-  tq::load_factors(ha, a, hb, b, s_hat, s_hbt);
-  tq::transform_quant_rows<T, 1>(x + (size_t)row * d, 1, d, k_pad, blocks,
-                                 bk, sign, s_hat, a, s_hbt, b, act_bits, s_x,
-                                 s_y, red_min, red_max,
-                                 qx + (size_t)row * k_pad, sx + row,
-                                 zx + row);
+  extern __shared__ float4 tq_smem_base[];   // 16-byte aligned
+  char* smem = reinterpret_cast<char*>(tq_smem_base);
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int r0 = (int)(blockIdx.x / c) * rows, mg = min(rows, m - r0);
+  const int L = d / c, bl = b / c;
+  const ctq::TqLayout lay(rows, d, c, a, b, blocks != nullptr ? bk : 0,
+                          false);
+  __shared__ float s_sx[ctq::kMaxRows], s_zx[ctq::kMaxRows];
+  ctq::stage_transform(x + (size_t)r0 * d, mg, d, c, rank, blocks, bk, sign,
+                       ha, a, hb, b, lay, smem);
+  ctq::cp_async_commit();   // no weights: an empty group after the operands
+  ctq::transform_quant(mg, d, c, rank, blocks != nullptr, bk, sign, a, b,
+                       act_bits, lay, smem, s_sx, s_zx, false);
+  const int8_t* s_q = reinterpret_cast<const int8_t*>(smem + lay.q);
+  const int per_row = L / VW;
+  for (int t = threadIdx.x; t < mg * per_row; t += ctq::kThreads) {
+    const int r = t / per_row, kk = (t - r * per_row) * VW;
+    const int p = kk / bl, ll = kk - p * bl;
+    int8_t* dst = qx + (size_t)(r0 + r) * k_pad + p * b + rank * bl + ll;
+    if (VW == 4) {
+      *reinterpret_cast<int*>(dst) =
+          *reinterpret_cast<const int*>(s_q + r * L + kk);
+    } else {
+      *reinterpret_cast<short*>(dst) =
+          *reinterpret_cast<const short*>(s_q + r * L + kk);
+    }
+  }
+  if (rank == 0 && threadIdx.x < mg) {
+    sx[r0 + threadIdx.x] = s_sx[threadIdx.x];
+    zx[r0 + threadIdx.x] = s_zx[threadIdx.x];
+  }
 }
 
 template <typename T>
 cudaError_t launch_stage1(const void* x, int m, int d, int k_pad,
                           const void* blocks, int bk, const void* sign,
                           const void* ha, int a, const void* hb, int b,
-                          int act_bits, void* qx, void* sx, void* zx,
-                          cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (2 * (size_t)d + a * a + b * b);
-  transform_quant_kernel<T><<<m, kStage1Threads, smem, stream>>>(
-      static_cast<const T*>(x), d, k_pad, static_cast<const float*>(blocks),
-      bk, static_cast<const float*>(sign), static_cast<const float*>(ha), a,
-      static_cast<const float*>(hb), b, act_bits, static_cast<int8_t*>(qx),
-      static_cast<float*>(sx), static_cast<float*>(zx));
-  return cudaGetLastError();
-}
-
-cudaError_t stage1(const void* x, int x_is_bf16, int m, int d, int k_pad,
-                   const void* blocks, int bk, const void* sign,
-                   const void* ha, int a, const void* hb, int b, int act_bits,
-                   void* qx, void* sx, void* zx, cudaStream_t stream) {
-  if (x_is_bf16) {
-    return launch_stage1<__nv_bfloat16>(x, m, d, k_pad, blocks, bk, sign, ha,
-                                        a, hb, b, act_bits, qx, sx, zx,
-                                        stream);
-  }
-  return launch_stage1<float>(x, m, d, k_pad, blocks, bk, sign, ha, a, hb, b,
-                              act_bits, qx, sx, zx, stream);
+                          int act_bits, const ctq::Plan& p, void* qx,
+                          void* sx, void* zx, cudaStream_t stream) {
+  // each CTA's runs of bl = b / c codes go out 4 or 2 bytes at a time (bl
+  // is even, k_pad = d a multiple of 32)
+  const bool vec4 = (b / p.cluster) % 4 == 0;
+  auto kernel = vec4 ? cluster_transform_quant_kernel<T, 4>
+                     : cluster_transform_quant_kernel<T, 2>;
+  return ctq::launch_cluster(
+      kernel, p.clusters * p.cluster, p.cluster, (size_t)p.smem, stream,
+      static_cast<const T*>(x), m, d, k_pad, p.cols,
+      static_cast<const float*>(blocks), bk, static_cast<const float*>(sign),
+      static_cast<const float*>(ha), a, static_cast<const float*>(hb), b,
+      act_bits, static_cast<int8_t*>(qx), static_cast<float*>(sx),
+      static_cast<float*>(zx));
 }
 
 // Decode: grid (clusters * c), clusters of c, ctq::kThreads threads. CTA
@@ -204,19 +220,32 @@ extern "C" int fused_cat_gemv_capacity(int cluster, int smem) {
                            cluster, (size_t)smem);
 }
 
-// Tiled entry (m > 8): stage 2 is the tensor-core contraction, for packed
-// or int8 weights, with ``splits`` K splits and their scratch ws
-// (quant_matmul_plan of quant_matmul.cu, with k = k_pad).
-// Returns cudaGetLastError() of the launches.
+// Tiled entry (m > 8): stage 1 is the cluster transform-quant on the plan
+// of ctq::tiled_plan (cluster_plan.h) with ``rows`` rows per cluster (0:
+// the plan's), into the code scratch qx (m, k_pad = d) int8, sx, zx (m,)
+// f32; stage 2 the tensor-core contraction, for packed or int8 weights,
+// with ``splits`` K splits and their scratch ws (quant_matmul_plan of
+// quant_matmul.cu, with k = k_pad). A shape the plan does not take returns
+// cudaErrorInvalidValue. Returns cudaGetLastError() of the launches.
 extern "C" int fused_cat_matmul_w4(
     const void* x, int x_is_bf16, int m, int d, int k_pad,
     const void* blocks, int bk, const void* sign,
     const void* ha, int a, const void* hb, int b, int act_bits,
-    const void* qw, int packed, const void* sw, int n, int splits, void* ws,
-    void* qx, void* sx, void* zx, void* out, void* stream_ptr) {
+    const void* qw, int packed, const void* sw, int n, int rows, int splits,
+    void* ws, void* qx, void* sx, void* zx, void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  cudaError_t err = stage1(x, x_is_bf16, m, d, k_pad, blocks, bk, sign, ha,
-                           a, hb, b, act_bits, qx, sx, zx, stream);
+  ctq::Plan p;
+  if (act_bits < 2 || act_bits > 8 || k_pad != d
+      || !ctq::tiled_plan(m, d, a, b, blocks != nullptr ? bk : 0,
+                          ctq::device_smem_optin(), rows, &p))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      x_is_bf16 ? launch_stage1<__nv_bfloat16>(x, m, d, k_pad, blocks, bk,
+                                               sign, ha, a, hb, b, act_bits,
+                                               p, qx, sx, zx, stream)
+                : launch_stage1<float>(x, m, d, k_pad, blocks, bk, sign, ha,
+                                       a, hb, b, act_bits, p, qx, sx, zx,
+                                       stream);
   if (err != cudaSuccess) return (int)err;
   return (int)contract::launch_mma(qx, k_pad, k_pad, sx, zx, m, k_pad, qw,
                                    packed, sw, n, splits, ws, out, stream);

@@ -14,9 +14,9 @@
 // each with R accumulators in registers, so every factor element read
 // from shared memory serves all R rows of the tile; the slices fill the
 // card when the rows alone are few (M 8). Each output element is one
-// fmaf chain from 0, over j and then over i, exactly as tq::hadamard_rows
-// (the fused linear's stage 1) computes it, so the two agree bitwise in
-// f32; that is why the tensor cores are not used (TF32 rounds the
+// fmaf chain from 0, over j and then over i, exactly as the fused
+// linear's cluster transform (cluster_tq.cuh) computes it, so the two
+// agree bitwise in f32; that is why the tensor cores are not used (TF32 rounds the
 // inputs). Shared memory is laid out so that a warp's reads hit distinct
 // banks or one broadcast word: the row tile with an odd stride per (r, i)
 // row, Ha and Hb's slice transposed.

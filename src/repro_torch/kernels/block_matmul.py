@@ -7,8 +7,8 @@ blocks (n, k, k), in f32, with the output in x's dtype.
 The CUDA source is ``src/repro_torch/csrc/block_matmul.cu``: one CTA per
 (tile of up to 16 rows, block), B_i and the tile's slice of x staged in
 shared memory once, each output element one fmaf chain over its block's
-row of B in the order of the fused linear's stage 1 (``block_cat_sign``
-in ``transform_quant.cuh``), so the two agree bitwise in f32. What bounds
+row of B in the order of the fused linear's cluster transform
+(``csrc/cluster_tq.cuh``), so the two agree bitwise in f32. What bounds
 it on the H100 is bytes (the activation in and out, plus the blocks once)
 over HBM bandwidth; the design reads the activation once, writes it once
 and reads each block once per row tile.

@@ -11,10 +11,10 @@ reciprocal, and divides by the scale for zero point and codes (the eager
 some scales).
 
 The CUDA source is ``src/repro_torch/csrc/dynamic_quant.cu``: one CTA per
-row, the row range by warp shuffles, then the quant of the fused linear's
-stage 1 (``transform_quant.cuh``: ``rintf`` for ``jnp.round``, the same
-reciprocal scale, IEEE division by the scale), so codes are bitwise the
-plain version's. What bounds it on the H100 is bytes (the activation in,
+row, the row range by warp shuffles, then the quant arithmetic the fused
+linear's cluster transform shares (``transform_quant.cuh``: ``rintf`` for
+``jnp.round``, the same reciprocal scale, IEEE division by the scale), so
+codes are bitwise the plain version's. What bounds it on the H100 is bytes (the activation in,
 the codes out) over HBM bandwidth; the design reads and writes each
 element once.
 

@@ -1,7 +1,7 @@
 """Dot products as in-order f32 fma chains, the same on every device.
 
-The CUDA kernels of the transform (``csrc/transform_quant.cuh``:
-``block_cat_sign``, ``hadamard_rows``) compute each output of a dot as
+The CUDA kernels of the transform (``csrc/cluster_tq.cuh``,
+``block_matmul.cu``, ``hadamard.cu``) compute each output of a dot as
 one ``fmaf`` chain over k from 0: acc = fma(x[k], w[k], acc) for k = 0,
 1, ... An f32 product of a library fixes no order: MKL takes another
 micro-kernel under AVX2 than under AVX-512, cuBLAS another kernel for one

@@ -15,12 +15,14 @@ cluster (distributed shared memory); each CTA then contracts all of them
 against its own output columns, whose weight bytes it stages in shared
 memory by 16-byte loads while the transform runs, and applies the
 epilogue. The plan (cluster size, columns per CTA) is the CUDA source's
-(``csrc/cluster_plan.h``); ``gemv_plan`` reads it. Above 8 rows a
-transform-quant launch (one CTA per row) is followed by the tensor-core
-contraction of ``quant_matmul`` and ``quant_matmul_w4``, for int8 or
-packed int4 weights, the codes crossing HBM once ((K_pad + 8) bytes per
-row). What bounds both on the H100 is the packed weight stream (D/2 x N
-bytes); each weight byte is read once per CTA or row tile.
+(``csrc/cluster_plan.h``); ``gemv_plan`` reads it. Above 8 rows the same
+cluster transform runs on groups of up to eight rows, one cluster each
+(``tiled_plan``), every CTA storing the codes of its own K values to a
+scratch buffer; the tensor-core contraction of ``quant_matmul`` and
+``quant_matmul_w4`` follows, for int8 or packed int4 weights, the codes
+crossing HBM once ((K_pad + 8) bytes per row). What bounds both on the
+H100 is the packed weight stream (D/2 x N bytes); each weight byte is
+read once per CTA or row tile.
 
 Each wrapper launches its kernel for CUDA tensors (and counts the launch
 in ``<wrapper>.launches``), takes the plain PyTorch version, which
@@ -52,17 +54,28 @@ _P = ctypes.c_void_p
 _PLAN = ctypes.POINTER(ctypes.c_int)
 # x, x_is_bf16, m, d, blocks, bk, sign, ha, a, hb, b, act_bits, qw, packed,
 # sw, n; the decode entry adds the SM count and its columns per CTA (0:
-# the plan's), the tiled one k_pad, the contraction's K splits and their
-# scratch and the code scratch (qx, sx, zx)
+# the plan's), the tiled one k_pad, its rows per cluster (0: the plan's),
+# the contraction's K splits and their scratch and the code scratch (qx,
+# sx, zx)
 _OPS = [_P, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C, _P, _C, _P, _C]
 _SIGNATURES = {
     "fused_cat_gemv_w4": _OPS + [_C, _C, _P, _P],
-    "fused_cat_matmul_w4": _OPS[:4] + [_C] + _OPS[4:] + [_C] + [_P] * 6,
+    "fused_cat_matmul_w4": (_OPS[:4] + [_C] + _OPS[4:] + [_C, _C]
+                            + [_P] * 6),
     "fused_cat_gemv_capacity": [_C, _C],
-    "ctq_gemv_plan": [_C] * 10 + [_PLAN]}
+    "ctq_gemv_plan": [_C] * 10 + [_PLAN],
+    "ctq_tiled_plan": [_C] * 7 + [_PLAN]}
 
 
 # ------------------------------------------------------- cluster plan
+
+def k_set(cluster: int, rank: int, a: int, b: int) -> list:
+    """K of the transform values of CTA ``rank`` of a cluster: columns
+    [rank·b/c, (rank+1)·b/c) of every row of the (a, b) view, in its
+    order."""
+    bl = b // cluster
+    return [p * b + rank * bl + ll for p in range(a) for ll in range(bl)]
+
 
 @dataclasses.dataclass(frozen=True)
 class GemvPlan:
@@ -77,10 +90,7 @@ class GemvPlan:
     smem: int
 
     def k_set(self, rank: int, a: int, b: int) -> list:
-        """K of CTA ``rank``'s transform values: columns [rank·b/c,
-        (rank+1)·b/c) of every row of the (a, b) view, in its order."""
-        bl = b // self.cluster
-        return [p * b + rank * bl + ll for p in range(a) for ll in range(bl)]
+        return k_set(self.cluster, rank, a, b)
 
     def columns(self, g: int, rank: int, n: int) -> range:
         n0 = (g * self.cluster + rank) * self.cols
@@ -89,15 +99,17 @@ class GemvPlan:
 
 def read_plan(fn, what: str, *args) -> tuple:
     """Call a plan export of ``csrc/cluster_plan.h`` (``ctq_gemv_plan``,
-    ``ctq_prologue_plan``) -> (cluster, clusters, cols, smem); raises
-    ValueError for a shape the kernel does not take."""
+    ``ctq_tiled_plan``, ``ctq_prologue_plan``) -> (cluster, clusters, cols
+    or rows, smem); raises ValueError for a shape the kernel does not
+    take."""
     out = (ctypes.c_int * 4)()
     if fn(*args, out):
         raise ValueError(f"{what} does not take this shape {args}: the "
                          f"transform needs D = a·b, a, b and the CAT block "
                          f"multiples of 4, and a cluster c <= 8 with a/c, "
                          f"b/c whole, b/c even, D/c a multiple of 32 and of "
-                         f"the block; M in 1..8; and its shared memory must "
+                         f"the block; M (decode) or the rows per cluster "
+                         f"(tiled) in 1..8; and its shared memory must "
                          f"fit (csrc/cluster_plan.h)")
     return tuple(out)
 
@@ -116,6 +128,37 @@ def gemv_plan(m: int, d: int, n: int, a: int, b: int, bk: int,
     return GemvPlan(*read_plan(lib.ctq_gemv_plan, "the decode kernel", m, d,
                                n, a, b, bk, int(packed), sms, smem_optin,
                                cols))
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledPlan:
+    """Launch plan of the tiled linear's transform-quant stage:
+    ``clusters`` clusters of ``cluster`` CTAs; cluster g transforms the
+    rows ``row_group(g, m)``, and its CTA ``rank`` computes and stores the
+    codes of the K set ``k_set(rank, a, b)`` of each; ``smem`` bytes of
+    dynamic shared memory per CTA."""
+    cluster: int
+    clusters: int
+    rows: int
+    smem: int
+
+    def row_group(self, g: int, m: int) -> range:
+        return range(min(g * self.rows, m), min((g + 1) * self.rows, m))
+
+    def k_set(self, rank: int, a: int, b: int) -> list:
+        return k_set(self.cluster, rank, a, b)
+
+
+def tiled_plan(m: int, d: int, a: int, b: int, bk: int,
+               smem_optin: int = 0, rows: int = 0, lib=None) -> TiledPlan:
+    """The tiled stage 1's plan for M rows of D = a·b (``ctq::tiled_plan``,
+    which the kernel's entry runs on every call): the largest cluster the
+    transform splits over and ``rows`` rows per cluster (0: the plan's
+    own). ``smem_optin`` and ``lib`` as in ``gemv_plan``. Raises
+    ValueError for a shape the kernel does not take."""
+    lib = lib or build.load("fused_cat_matmul", _SIGNATURES)
+    return TiledPlan(*read_plan(lib.ctq_tiled_plan, "the tiled stage 1", m,
+                                d, a, b, bk, smem_optin, rows))
 
 
 @functools.lru_cache(maxsize=None)
@@ -220,17 +263,14 @@ def _launch_gemv(x, blocks, ha, hb, sign, qw, sw, act_bits, packed,
     return out
 
 
-def _launch_tiled(x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
-    """Stage 1 (transform + quant into code scratch), then the tensor-core
-    contraction."""
+def _launch_tiled(x, blocks, ha, hb, sign, qw, sw, act_bits, packed,
+                  rows=0):
+    """Stage 1 (the cluster transform-quant into code scratch, ``rows``
+    rows per cluster, 0: the plan's), then the tensor-core contraction."""
     _validate(x, blocks, ha, hb, sign, qw, sw, act_bits, packed)
-    m, d = x.shape
-    smem = 4 * (2 * d + ha.shape[0] ** 2 + hb.shape[0] ** 2)
-    if smem > 48 * 1024:
-        raise ValueError(f"transform stage needs {smem} B of shared memory "
-                         f"(D={d}); the kernel takes at most 48 KiB")
     x, blocks, ha, hb, sign, qw, sw = _contiguous(x, blocks, ha, hb, sign,
                                                   qw, sw)
+    m, d = x.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if m == 0 or n == 0:
@@ -242,13 +282,15 @@ def _launch_tiled(x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
     zx = torch.empty((m,), dtype=torch.float32, device=x.device)
     bk = 0 if blocks is None else blocks.shape[1]
     splits, ws = w8a8_plan(m, k_pad, n, x.device)
-    build.check(lib.fused_cat_matmul_w4(
+    code = lib.fused_cat_matmul_w4(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d, k_pad,
         build.ptr(blocks), bk, build.ptr(sign), build.ptr(ha), ha.shape[0],
         build.ptr(hb), hb.shape[0], act_bits, build.ptr(qw), int(packed),
-        build.ptr(sw), n, splits, build.ptr(ws), build.ptr(qx),
-        build.ptr(sx), build.ptr(zx), build.ptr(out), build.stream_of(x)),
-        "fused_cat_matmul_w4")
+        build.ptr(sw), n, rows, splits, build.ptr(ws), build.ptr(qx),
+        build.ptr(sx), build.ptr(zx), build.ptr(out), build.stream_of(x))
+    if code == _INVALID_VALUE:   # a shape the plan refuses: say why
+        tiled_plan(m, d, ha.shape[0], hb.shape[0], bk, rows=rows, lib=lib)
+    build.check(code, "fused_cat_matmul_w4")
     return out
 
 

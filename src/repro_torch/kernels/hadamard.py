@@ -11,8 +11,8 @@ tile of rows (whole, in shared memory) and a slice of the b output
 columns, whose two factor dots stay inside the slice; each thread keeps
 one accumulator per row of the tile, so each factor element it reads
 serves them all, and each output element is one in-order fmaf chain, as
-in the fused linear's stage 1 (``transform_quant.cuh``), so the two agree
-bitwise in f32. The rows per CTA and the width limit (a CTA's shared
+in the fused linear's cluster transform (``csrc/cluster_tq.cuh``), so the
+two agree bitwise in f32. The rows per CTA and the width limit (a CTA's shared
 memory) live in the CUDA source alone. What bounds it on the H100 is
 bytes (the activation in and out) over HBM bandwidth; the design reads
 each row once per column slice and the factors once per CTA.

@@ -2,13 +2,27 @@
 
 Replaces the Pallas TPU kernels ``paged_attention_ragged`` and
 ``paged_attention_decode`` of ``src/repro/kernels/paged_attention.py``.
-The CUDA source is ``src/repro_torch/csrc/paged_attention.cu``: one CTA
-per (work item, KV head, 128 query rows) walks the item's page-table row,
-stages each int8 K/V page dequantized in shared memory, and keeps each
-query row's online-softmax state in f32 registers. What bounds it on the
-H100 is the page bytes of the attended prefix (int8 codes + f32 scales)
-over HBM bandwidth; each page streams once per (item, head, row block),
-and a CTA of padding rows reads nothing.
+The CUDA source is ``src/repro_torch/csrc/paged_attention.cu``.
+
+- Decode: one CTA per (item, KV head, up to 8 query rows) walks the
+  item's key positions in chunks of 128, their int8 K/V rows staged by
+  16-byte ``cp.async`` into a two-stage ring; each thread scores one
+  position for every query row, the chunk's max and sum come by warp
+  shuffles, and threads owning (row, dd) outputs sum the chunk's P·V.
+  Where the table allows long prefixes and the card would sit idle, a
+  thread-block cluster of CTAs splits the item's positions and rank 0
+  combines their partial softmax states in rank order. The split rule
+  and the shared-memory layout are the CUDA source's
+  (``csrc/attention_plan.h``; ``decode_plan`` and ``split_range`` read
+  them). Every sum has a fixed order, so equal inputs give equal bits.
+- Ragged: one CTA per (work item, KV head, 128 query rows) walks the
+  item's page-table row, stages each int8 K/V page dequantized in shared
+  memory, and keeps each query row's online-softmax state in f32
+  registers; a CTA of padding rows reads nothing.
+
+What bounds both on the H100 is the page bytes of the attended prefix
+(int8 codes + f32 scales) over HBM bandwidth: decode reads each once per
+(item, KV head), the ragged kernel once per (item, head, row block).
 
 Contracts (as in the reference):
 
@@ -28,8 +42,10 @@ the kernel and as the masked softmax's uniform mix from the plain version.
 Each wrapper launches its kernel for CUDA tensors (counted in
 ``<wrapper>.launches``) and takes its plain PyTorch version only for CPU
 tensors. The plain versions walk the page table page by page with an
-online softmax, in the reference kernels' op order, as the CUDA kernel
-does. The gather fallbacks (``*_fallback``) are the reference's jnp paths
+online softmax, in the reference kernels' op order, as the ragged CUDA
+kernel does; the decode kernel rescales per warp's 32 positions of a
+chunk and combines warps and splits at the end, the same sums in another
+order. The gather fallbacks (``*_fallback``) are the reference's jnp paths
 for fp pools: they keep the scaled q in f32 and take one softmax over the
 gathered sequence, so they differ from the kernels by that rounding and
 that order.
@@ -37,22 +53,78 @@ that order.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from . import build
+from .fused_cat_matmul import sm_count
 
 _NEG_INF = -1e30
+
+_INVALID_VALUE = 1   # cudaErrorInvalidValue
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _F = ctypes.c_float
+_PLAN = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "paged_attention_ragged": [_P, _C, _P, _P, _P, _P, _P, _C, _P, _P, _C,
                                _C, _C, _C, _C, _C, _F, _P, _P],
+    # ... lengths, B, KVH, g, hd, page_size, q_scale, the card's SMs, the
+    # split (0: the plan's), out, stream
     "paged_attention_decode": [_P, _C, _P, _P, _P, _P, _P, _C, _P, _C, _C,
-                               _C, _C, _C, _F, _P, _P],
+                               _C, _C, _C, _F, _C, _C, _P, _P],
+    "pa_decode_plan": [_C] * 9 + [_PLAN],
+    "pa_split_range": [_C] * 4 + [_PLAN],
 }
+
+
+# ------------------------------------------------------- decode plan
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """Launch plan of the decode kernel: ``split`` CTAs (one cluster) per
+    (item, KV head, group of up to 8 query rows), ``ctas`` in all,
+    ``smem`` bytes of dynamic shared memory per CTA."""
+    split: int
+    ctas: int
+    smem: int
+
+
+def decode_plan(b: int, kvh: int, g: int, hd: int, page_size: int,
+                n_ptab: int, sms: int, smem_optin: int = 0, split: int = 0,
+                lib=None) -> DecodePlan:
+    """The decode kernel's plan (``pa::decode_plan``, which its entry runs
+    on every call) for B items of KVH heads, g query rows per head, pages
+    of ``page_size`` rows and ``n_ptab`` table entries per item, on a card
+    of ``sms`` SMs: ``split`` 0 takes the plan's own number of splits.
+    ``smem_optin`` (0: the current card's) bounds the shared memory per
+    CTA; ``lib`` a library exporting ``pa_decode_plan`` (default: the
+    built CUDA library). Raises ValueError for a shape the kernel does not
+    take."""
+    lib = lib or build.load("paged_attention", _SIGNATURES)
+    out = (ctypes.c_int * 3)()
+    if lib.pa_decode_plan(b, kvh, g, hd, page_size, n_ptab, sms, smem_optin,
+                          split, out):
+        raise ValueError(f"the decode attention does not take B={b}, "
+                         f"KVH={kvh}, g={g}, hd={hd}, page_size={page_size},"
+                         f" n_ptab={n_ptab}, split={split}: it needs hd in "
+                         f"(32, 64, 128), a split in 1..8 and its shared "
+                         f"memory to fit (csrc/attention_plan.h)")
+    return DecodePlan(*out)
+
+
+def split_range(length: int, page_size: int, split: int, rank: int,
+                lib=None) -> range:
+    """The key positions that split ``rank`` of ``split`` attends for an
+    item of ``length`` positions (``pa::split_range``)."""
+    lib = lib or build.load("paged_attention", _SIGNATURES)
+    out = (ctypes.c_int * 2)()
+    if lib.pa_split_range(length, page_size, split, rank, out):
+        raise ValueError(f"no split range for length={length}, page_size="
+                         f"{page_size}, split={split}, rank={rank}")
+    return range(out[0], out[1])
 
 
 # ----------------------------------------------------------- gather paths
@@ -199,6 +271,13 @@ def _contig(*ts):
     return [None if t is None else t.contiguous() for t in ts]
 
 
+def _aligned(t):
+    """Contiguous and 16-byte aligned (the decode kernel stages K and V
+    rows by 16-byte copies)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def paged_attention_ragged(q, k_pages, k_scale, v_pages, v_scale,
                            page_table, lengths, q_pos) -> torch.Tensor:
     """Mixed-q_len paged attention (one launch for a unified step's work
@@ -228,29 +307,45 @@ def paged_attention_ragged(q, k_pages, k_scale, v_pages, v_scale,
     return out
 
 
-def paged_attention_decode(q, k_pages, k_scale, v_pages, v_scale,
-                           page_table, lengths) -> torch.Tensor:
-    """Single-token paged decode attention: q (B, KVH, g, hd), lengths =
-    pos + 1 -> (B, KVH, g, hd) in q's dtype."""
-    if not q.is_cuda:
-        return paged_attention_decode_plain(q, k_pages, k_scale, v_pages,
-                                            v_scale, page_table, lengths)
+def _launch_decode(q, k_pages, k_scale, v_pages, v_scale, page_table,
+                   lengths, split=0):
+    """One launch of the decode kernel with ``split`` CTAs per (item,
+    head, row group) (0: the plan's own); allocates the output only."""
     b, kvh, g, hd = q.shape
     _validate(q, k_pages, k_scale, v_pages, v_scale, page_table, lengths,
               None, kvh)
-    q, k_pages, k_scale, v_pages, v_scale, page_table, lengths = _contig(
-        q, k_pages, k_scale, v_pages, v_scale, page_table, lengths)
+    q, k_scale, v_scale, page_table, lengths = _contig(
+        q, k_scale, v_scale, page_table, lengths)
+    k_pages, v_pages = _aligned(k_pages), _aligned(v_pages)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    n_ptab, ps = page_table.shape[1], k_pages.shape[1]
+    sms = sm_count(q.device.index or 0)
     lib = build.load("paged_attention", _SIGNATURES)
     code = lib.paged_attention_decode(
         build.ptr(q), int(q.dtype == torch.bfloat16), build.ptr(k_pages),
         build.ptr(k_scale), build.ptr(v_pages), build.ptr(v_scale),
-        build.ptr(page_table), page_table.shape[1], build.ptr(lengths), b,
-        kvh, g, hd, k_pages.shape[1], float(hd ** -0.5), build.ptr(out),
+        build.ptr(page_table), n_ptab, build.ptr(lengths), b, kvh, g, hd,
+        ps, float(hd ** -0.5), sms, split, build.ptr(out),
         build.stream_of(q))
+    if code == _INVALID_VALUE:   # a shape the plan refuses: say why
+        decode_plan(b, kvh, g, hd, ps, n_ptab, sms, split=split, lib=lib)
     build.check(code, "paged_attention_decode")
+    return out
+
+
+def paged_attention_decode(q, k_pages, k_scale, v_pages, v_scale,
+                           page_table, lengths) -> torch.Tensor:
+    """Single-token paged decode attention: q (B, KVH, g, hd), lengths =
+    pos + 1 -> (B, KVH, g, hd) in q's dtype. An item of length 0 comes
+    back as zeros from the kernel (and as the masked softmax's uniform mix
+    from the plain version)."""
+    if not q.is_cuda:
+        return paged_attention_decode_plain(q, k_pages, k_scale, v_pages,
+                                            v_scale, page_table, lengths)
+    out = _launch_decode(q, k_pages, k_scale, v_pages, v_scale, page_table,
+                         lengths)
     paged_attention_decode.launches += 1
     return out
 

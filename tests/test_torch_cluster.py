@@ -2,20 +2,24 @@
 wrappers' checks and the ctypes bindings of every CUDA entry point, on
 the CPU (no card, no CUDA compiler).
 
-The decode fused CAT linear (``fused_cat_gemv_w4``, one launch) and the
-decode QKV prologue run in clusters of CTAs whose shape is the CUDA
-source's plan (``csrc/cluster_plan.h``: which shapes the transform splits
-over, the shared-memory layout, the plans), which their entries compute
-on every call. The header is plain C++ apart from CUDA marks, so here it
-is compiled with the host's C++ compiler and its plans are read through
-the same Python functions as on the card (``fused_cat_matmul.gemv_plan``,
+The decode fused CAT linear (``fused_cat_gemv_w4``, one launch), the
+tiled fused linear's transform-quant stage (``fused_cat_matmul_w4``, M >
+8) and the decode QKV prologue run in clusters of CTAs whose shape is the
+CUDA source's plan (``csrc/cluster_plan.h``: which shapes the transform
+splits over, the shared-memory layout, the plans), which their entries
+compute on every call. The header is plain C++ apart from CUDA marks, so
+here it is compiled with the host's C++ compiler and its plans are read
+through the same Python functions as on the card
+(``fused_cat_matmul.gemv_plan`` and ``tiled_plan``,
 ``decode_layer.prologue_plan``). At the serving widths (D 512 and 1536,
 the four serving (D, N) shapes and ragged N) and the smoke and other
 power-of-two-times-three widths (D 128, 256, 384, 768), every M in 1..8,
 int4-packed and int8 weights: every output column and every K element is
 owned exactly once, shared memory per CTA stays within the H100's 227
 KiB, clusters stay at the portable size (8), and each prologue head is
-owned by one CTA. The bindings' argument lists are held against the
+owned by one CTA. The tiled stage's plan owns every row of a step and
+every K of each row once at ragged M and every rows-per-cluster choice,
+and takes exactly the widths the decode kernel's split rule takes. The bindings' argument lists are held against the
 ``extern "C"`` prototypes of ``csrc/*.cu`` and the headers they include.
 """
 import ctypes
@@ -57,6 +61,7 @@ def plan_lib(tmp_path_factory):
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
     for name, sig in (("ctq_gemv_plan", F._SIGNATURES["ctq_gemv_plan"]),
+                      ("ctq_tiled_plan", F._SIGNATURES["ctq_tiled_plan"]),
                       ("ctq_prologue_plan",
                        decode_layer._SIGNATURES["ctq_prologue_plan"])):
         fn = getattr(lib, name)
@@ -171,6 +176,63 @@ def test_plans_refuse_what_the_kernels_do_not_take(plan_lib):
         assert _gemv_plan(plan_lib, 8, d, 64, bk, True).cluster == c, d
 
 
+TILED_ROWS = (9, 15, 17, 100, 128, 129, 255)
+
+
+@pytest.mark.parametrize("d", [512, 1536, 128, 256, 384, 768])
+@pytest.mark.parametrize("rows", [0, 1, 2, 4, 8])
+def test_tiled_plan_owns_every_row_and_k_once(plan_lib, d, rows):
+    """Each row of a ragged step falls in exactly one cluster's row group
+    and each K of it in exactly one CTA's K set, with the decode kernel's
+    cluster size for the width; 8 rows per cluster unless forced."""
+    a, b = _factors(d)
+    for m in TILED_ROWS:
+        plan = F.tiled_plan(m, d, a, b, 32, SMEM_OPTIN, rows, lib=plan_lib)
+        assert plan.rows == (rows or 8)
+        assert plan.cluster == _gemv_plan(plan_lib, 8, d, 64, 32,
+                                          True).cluster
+        assert plan.smem <= SMEM_OPTIN
+        owned = np.zeros(m, int)
+        for g in range(plan.clusters):
+            group = plan.row_group(g, m)
+            assert len(group)                # no idle cluster
+            owned[list(group)] += 1
+        assert (owned == 1).all()
+        k_owned = np.zeros(d, int)
+        for rank in range(plan.cluster):
+            k_owned[plan.k_set(rank, a, b)] += 1
+        assert (k_owned == 1).all()
+
+
+def test_tiled_plan_refuses_what_the_kernel_does_not_take(plan_lib):
+    """The tiled stage refuses exactly the widths the cluster transform
+    does not split (as the decode plan does), rows per cluster outside
+    1..8 and a step of no rows; a wide D that the old one-row-per-CTA
+    stage refused in Python (over 48 KiB of shared memory) is taken."""
+    for d, a, b, bk in ((48, 4, 12, 0), (512, 32, 16, 6), (96, 8, 12, 32),
+                        (128, 16, 8, 32), (512, 32, 16, 0), (768, 32, 24, 0)):
+        try:
+            c = F.gemv_plan(8, d, 64, a, b, bk, True, SMS, SMEM_OPTIN,
+                            lib=plan_lib).cluster
+        except ValueError:
+            c = 0
+        if c:
+            plan = F.tiled_plan(128, d, a, b, bk, SMEM_OPTIN, lib=plan_lib)
+            assert (plan.cluster, plan.clusters) == (c, 16)
+        else:
+            with pytest.raises(ValueError, match="does not take"):
+                F.tiled_plan(128, d, a, b, bk, SMEM_OPTIN, lib=plan_lib)
+    # D 4096: 4 * (2 D + a^2 + b^2) bytes, over the old stage's 48 KiB
+    assert 4 * (2 * 4096 + 64 * 64 * 2) > 48 * 1024
+    assert F.tiled_plan(128, 4096, 64, 64, 32, SMEM_OPTIN,
+                        lib=plan_lib).cluster == 8
+    for m, rows in ((0, 0), (128, 9), (128, -1)):
+        with pytest.raises(ValueError, match="does not take"):
+            F.tiled_plan(m, 512, 32, 16, 32, SMEM_OPTIN, rows, lib=plan_lib)
+    with pytest.raises(ValueError, match="does not take"):
+        F.tiled_plan(128, 1536, 32, 48, 32, 32 * 1024, lib=plan_lib)
+
+
 def _gemv_operands(m, d, n, seed=0):
     r = np.random.default_rng(seed)
     ha, hb = (torch.from_numpy(h.astype(np.float32))
@@ -227,6 +289,27 @@ def test_gemv_wrapper_checks_and_allocates_no_scratch(monkeypatch):
     assert name == "fused_cat_gemv_w4"
     assert len(args) == len(F._SIGNATURES[name])
     assert args[-4:-2] == (SMS, 0)   # the card's SMs; the plan's columns
+
+
+def test_tiled_wrapper_passes_rows_and_checks_no_shared_memory(
+        monkeypatch):
+    """The tiled wrapper leaves the stage-1 plan to the CUDA entry: it
+    passes the rows per cluster (0: the plan's) and the code scratch, and
+    no longer refuses a wide D in Python (the old 48 KiB check)."""
+    lib = _FakeLib()
+    monkeypatch.setattr(build, "load", lambda name, sigs: lib)
+    monkeypatch.setattr(build, "stream_of", lambda t: ctypes.c_void_p(0))
+    monkeypatch.setattr(F, "w8a8_plan", lambda m, k, n, dev: (1, None))
+    x, blocks, ha, hb, sign, qw, sw = _gemv_operands(128, 4096, 64)
+    out = F._launch_tiled(x, blocks, ha, hb, sign, qw, sw, 4, True)
+    assert out.shape == (128, 64)
+    out = F._launch_tiled(x, blocks, ha, hb, sign, qw, sw, 4, True, rows=2)
+    (name, args0), (_, args1) = lib.calls
+    assert name == "fused_cat_matmul_w4"
+    assert len(args0) == len(F._SIGNATURES[name])
+    # x, x_is_bf16, m, d, k_pad, ..., sw, n (16), rows, splits
+    assert (args0[4], args0[16]) == (4096, 64)               # k_pad, n
+    assert (args0[17], args1[17], args0[18]) == (0, 2, 1)    # rows, splits
 
 
 def test_prologue_wrapper_refuses_other_devices():
