@@ -39,7 +39,19 @@ Phases (any failure exits non-zero before the final line):
              timed); W4A8 ``quant_matmul_w4`` and W8A8 ``quant_matmul`` at
              ragged (M, K, N), odd K, several K splits, 4-bit and
              full-range int8 codes and code extremes
-             (``check_w4_edges``, ``check_w8a8_edges``); the fused linear
+             (``check_w4_edges``, ``check_w8a8_edges``); the code GEMV of
+             rows 7 and 8 (``quant_gemv_w4``, ``quant_matmul`` at M <= 8)
+             bitwise at every M in 1..8, odd K, K not a multiple of 16,
+             ragged N, int4 and int8 weights and code extremes, with its
+             plan, one kernel per call, and at M 8, D 512, N 3072 every
+             forced number of columns per CTA timed
+             (``check_code_gemv_edges``, ``code_gemv_cols_sweep``); the
+             fused linear (both entries) and the prologue at the widths
+             the reference takes that split over no cluster (D 63 = 7 x
+             9, 96 = 8 x 12, 24 = 4 x 6, 48 = 6 x 8 and 4 x 12, with and
+             without CAT blocks, blocks of 6, 7, 8, 16), packed and int8,
+             bitwise on f32, one kernel per call (the tiled linear: its
+             two) (``check_width_edges``); the fused linear
              with int8 weights too; the tiled fused linear (M > 8) also at
              ragged M (9 to 255) and the widths D 128, 256, 384, 768, with
              its stage-1 plan, and at M 128 timed with every forced number
@@ -54,9 +66,19 @@ Phases (any failure exits non-zero before the final line):
              (``DECODE_LENGTHS``); and at its edges (B 1..8, hd 32/64/128,
              g 1/2/4/8, page 8/16/32, lengths 0, 1, ps, ps + 1, null pages
              and rows past each length poisoned, which must not change a
-             bit) (``check_decode_edges``). Both attentions' library
-             yardstick is ``scaled_dot_product_attention`` on K and V
-             gathered and dequantized outside the timed call.
+             bit) (``check_decode_edges``). The ragged attention at the
+             kernels-phase step (8 items, Q 128, len <= 160) and the
+             served one (len <= 56) (``RAGGED_SHAPES``): within 4 bf16
+             ulps of the scale, f32 queries within 1e-4 of it, padding
+             rows zeros, two calls bitwise equal, one kernel node per
+             call, its plan; and at its edges (mixed decode and prefill
+             items, padding rows, an item of length 0, q_pos at ps - 1,
+             ps, ps + 1, hd 32/64/128, g 1/2/4/8, page 8/16/32, null
+             pages and positions past each item's horizon poisoned, which
+             must not change a bit) (``check_ragged_edges``). Both
+             attentions' library yardstick is
+             ``scaled_dot_product_attention`` on K and V gathered and
+             dequantized outside the timed call.
 4. serving — full-width catlm-60m (8 layers, d 512, 8/4 heads, d_ff 1536,
              vocab 8192), seeded random init, CAT W4A4 int4-packed PTQ on
              the card, 8 mixed requests (32 new tokens each) through the
@@ -90,11 +112,12 @@ The second line from the end is the per-kernel JSON summary, the last line
 
     python3 chip_smoke.py --rows-2-4 [SRC]
 
-times rows 4 and 2 only, of the port package under SRC (another
-checkout's ``src``, such as the parent commit's; default this one's), at
-this script's timed shapes and ``DECODE_LENGTHS``: run it for two
-packages in turns within one call for a before/after of those kernels
-(``compare_rows_2_4``).
+times rows 1-5, 7 and 8 only (the flag keeps its first name, from when it
+timed rows 2 and 4), of the port package under SRC (another checkout's
+``src``, such as the parent commit's; default this one's), at this
+script's timed shapes and ``DECODE_LENGTHS``: run it for two packages in
+turns within one call for a before/after of those kernels
+(``compare_rows``).
 """
 from __future__ import annotations
 
@@ -111,6 +134,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_S = 3.35e12       # H100 SXM, HBM3
 F32_FLOP_S = 67e12          # f32 outside the tensor cores
+BF16_FLOP_S = 989e12        # bf16 tensor-core peak (dense)
 INT8_OP_S = 1979e12         # int8 tensor-core peak (dense)
 
 # main-path shapes: (D, N) of wqkv, wo, wgu, wd at catlm-60m's full width
@@ -263,7 +287,7 @@ def check_fused_linear(name, run, rows, card, gen, dev):
             if run is F.fused_cat_gemv_w4:
                 # one launch per call, in clusters that can be resident
                 plan = F.gemv_plan(m, d, n, a, b, CAT_BLOCK, True,
-                                   F.sm_count(0))
+                                   build.sm_count(0))
                 lib = build.load("fused_cat_matmul", F._SIGNATURES)
                 rec["plan"] = dataclasses.asdict(plan)
                 rec["resident_clusters"] = lib.fused_cat_gemv_capacity(
@@ -321,9 +345,15 @@ def attention_operands(items, nq, gen, dev, decode, kvh=4, g=2, hd=64,
     return ts, (kvh, g, hd, ps)
 
 
-def attention_bound(items, dims, nq):
+def attention_bound(items, dims, nq, q_parts=1):
+    """Bound of a paged attention over bf16 queries (``q_parts`` 1) or f32
+    queries split into two bf16 parts (2): the score products q·k and the
+    P·V products on the bf16 tensor cores (int8 codes are exact in bf16;
+    P times the V scale is split into two bf16 parts to hold f32
+    accuracy), and five f32 operations per score outside them (K scale,
+    max, exp, sum, V scale)."""
     kvh, g, hd, ps = dims
-    nbytes = flops = 0
+    nbytes = mma_flops = scores = 0
     for ql, ln in items:
         pages = -(-ln // ps)
         nbytes += pages * ps * kvh * (2 * hd + 2 * 4)   # K, V codes + scales
@@ -331,8 +361,9 @@ def attention_bound(items, dims, nq):
         nbytes += ql * kvh * g * hd * 2 * 2              # q in, out
         for j in range(ql):
             horizon = ln - ql + j + 1
-            flops += kvh * g * 4 * horizon * hd
-    return bound(nbytes, flops / F32_FLOP_S)
+            scores += kvh * g * horizon
+            mma_flops += kvh * g * 2 * horizon * hd * (q_parts + 2)
+    return bound(nbytes, mma_flops / BF16_FLOP_S + 5 * scores / F32_FLOP_S)
 
 
 def sdpa_yardstick(args, decode):
@@ -402,16 +433,17 @@ def profiled_kernels(fn) -> list:
 def check_attention(name, run, plain, items, nq, card, gen, dev, decode,
                     label=""):
     """Hold a paged-attention entry point against its plain version on the
-    valid query rows (length 0 decode rows: zeros). Tolerance: 4 bf16 ulps
-    of the output's scale (1.6e-2 relative), since both round their f32
-    result to bf16; the bitwise share is recorded, and a second call on
-    the same inputs must give the same bits. Decode also: f32 queries
-    within 1e-4 of the scale, one kernel node per call (CUDA graph), its
-    plan, and the device ms of every forced split (``SPLITS``), each
-    within the tolerance. The library yardstick is
-    ``sdpa_yardstick``."""
+    valid query rows (length 0 decode rows and ragged padding rows:
+    zeros). Tolerance: 4 bf16 ulps of the output's scale (1.6e-2
+    relative), since both round their f32 result to bf16; the bitwise
+    share is recorded, and a second call on the same inputs must give the
+    same bits; f32 queries within 1e-4 of the scale; one kernel node per
+    call (CUDA graph); its plan. Decode also: the device ms of every
+    forced split (``SPLITS``), each within the tolerance. The library
+    yardstick is ``sdpa_yardstick``."""
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import fused_cat_matmul as F
     args, dims = attention_operands(items, nq, gen, dev, decode)
     call = args[:7] if decode else args
@@ -441,21 +473,27 @@ def check_attention(name, run, plain, items, nq, card, gen, dev, decode,
            else (lib_out.float() - want.float()).abs()[valid].max().item(),
            "bound_ms": b_ms, "bound_by": b_by, "card": card}
     ok = err <= tol and rec["repeat_bitwise"]
+    from repro_torch.kernels import paged_attention as P
+    if not bool((got[~valid] == 0).all()):
+        fail(f"{name} {label}: a length-0 item or padding row is not zeros")
+    q32 = args[0].float()
+    f32_err = (run(q32, *call[1:]) - plain(q32, *call[1:])).abs()[
+        valid].max().item()
+    rec["f32_max_err"] = f32_err
+    rec["f32_tol"] = 1e-4 * want.float()[valid].abs().max().item()
+    ok = ok and f32_err <= rec["f32_tol"]
+    kvh, g, hd, ps = dims
     if decode:
-        from repro_torch.kernels import paged_attention as P
-        if not bool((got[~valid] == 0).all()):
-            fail(f"{name} {label}: a length-0 item is not zeros")
-        q32 = args[0].float()
-        f32_err = (run(q32, *call[1:]) - plain(q32, *call[1:])).abs()[
-            valid].max().item()
-        rec["f32_max_err"] = f32_err
-        rec["f32_tol"] = 1e-4 * want.float()[valid].abs().max().item()
-        ok = ok and f32_err <= rec["f32_tol"]
-        kvh, g, hd, ps = dims
         rec["plan"] = dataclasses.asdict(P.decode_plan(
-            len(items), kvh, g, hd, ps, args[5].shape[1], F.sm_count(0)))
-        rec["one_call"] = one_launch(lambda: run(*call), "paged_attn_decode")
-        ok = ok and rec["one_call"]["ok"]
+            len(items), kvh, g, hd, ps, args[5].shape[1], build.sm_count(0)))
+    else:
+        rec["plan"] = dataclasses.asdict(P.ragged_plan(
+            len(items), nq, kvh, g, hd, ps))
+    rec["one_call"] = one_launch(
+        lambda: run(*call),
+        "paged_attn_decode" if decode else "paged_attn_ragged")
+    ok = ok and rec["one_call"]["ok"]
+    if decode:
         rec["split_sweep_ms"], rec["split_sweep_max_err"] = {}, {}
         for split in SPLITS:
             out = P._launch_decode(*call, split=split)
@@ -573,6 +611,310 @@ def check_decode_edges(gen, dev):
                                  f"{json.dumps(rec)}")
     print("paged_attention_decode edges " + json.dumps(recs))
     return recs
+
+
+# row 3's timed shapes: (label, work items (q_len, length)) in a query
+# block of RAGGED_Q rows per item, as the unified step packs them
+RAGGED_Q = 128
+RAGGED_SHAPES = [
+    ("kernels phase, len <= 160",
+     [(128, 160), (1, 97), (64, 64), (1, 33), (24, 150), (0, 0), (16, 40),
+      (1, 160)]),
+    ("served, len <= 56",
+     [(24, 24), (8, 8), (20, 20), (1, 40), (16, 16), (1, 56), (12, 12),
+      (1, 33)])]
+
+
+def check_ragged_edges(gen, dev):
+    """The ragged attention (row 3) at its edges, against the plain
+    version on the valid rows (q_pos >= 0; 4 bf16 ulps of the scale for
+    bf16 q, 1e-4 of the scale for f32 q; padding rows zeros): mixed decode
+    and prefill items, padding rows past the longest item, an item of
+    length 0 (all rows padding), q_pos at page boundaries (ps - 1, ps, ps
+    + 1), prefill chunks ending mid-page and mid-tile, hd 32, 64, 128, g
+    1, 2, 4, 8, page sizes 8, 16, 32; two calls bitwise equal; and with the
+    null page 0 and every position past each item's horizon (its length)
+    poisoned (codes +-127, scales 1e8) bitwise equal to the clean call, so
+    no such position is read."""
+    import torch
+
+    from repro_torch.kernels import paged_attention as P
+    recs = []
+    case = 0
+    for hd in (32, 64, 128):
+        for g in (1, 2, 4, 8):
+            for ps in (8, 16, 32):
+                case += 1
+                pattern = [(1, ps), (ps + 2, ps + 2), (1, ps + 1), (0, 0),
+                           (5, 3 * ps + 5), (1, ps + 2), (2 * ps, 2 * ps + 3),
+                           (1, 1)]
+                b = 2 + case % 7
+                items = [pattern[(i + case) % 8] for i in range(b)]
+                nq = max(ql for ql, _ in items) + 3 * (case % 3)
+                args, _ = attention_operands(items, nq, gen, dev, False,
+                                             kvh=2, g=g, hd=hd, ps=ps)
+                valid = args[7] >= 0
+                poisoned = [t.clone() for t in args]
+                kp, ks, vp, vs = poisoned[1:5]
+                past = torch.zeros(kp.shape[:2], dtype=torch.bool)
+                past[0] = True                  # the null page
+                for i, (_, ln) in enumerate(items):
+                    for j, page in enumerate(args[5][i].tolist()):
+                        if page:
+                            past[page, max(0, ln - j * ps):] = True
+                past = past.to(dev)
+                kp[past], vp[past], ks[past], vs[past] = 127, -127, 1e8, 1e8
+                for q in (args[0], args[0].float()):
+                    want = P.paged_attention_ragged_plain(q, *args[1:])
+                    scale = want.float()[valid].abs().max().item() \
+                        if bool(valid.any()) else 0.0
+                    tol = (1.6e-2 if q.dtype == torch.bfloat16
+                           else 1e-4) * scale
+                    got = P._launch_ragged(q, *args[1:])
+                    err = ((got.float() - want.float()).abs()[valid]
+                           .max().item() if bool(valid.any()) else 0.0)
+                    rec = {"kernel": "paged_attention_ragged", "items": items,
+                           "q_block": nq, "hd": hd, "g": g, "ps": ps,
+                           "dtype": str(q.dtype), "max_err": err,
+                           "tol": tol,
+                           "zeros_at_padding": bool(
+                               (got[~valid] == 0).all()),
+                           "repeat_bitwise": bool(torch.equal(
+                               got, P._launch_ragged(q, *args[1:]))),
+                           "poison_bitwise": bool(torch.equal(
+                               got, P._launch_ragged(q, *poisoned[1:])))}
+                    recs.append(rec)
+                    if not (err <= tol and rec["zeros_at_padding"]
+                            and rec["repeat_bitwise"]
+                            and rec["poison_bitwise"]):
+                        fail(f"paged_attention_ragged edge: "
+                             f"{json.dumps(rec)}")
+    print("paged_attention_ragged edges " + json.dumps(recs))
+    return recs
+
+
+# (K, N) of the code GEMV's edges: the main-path shapes, odd K, K not a
+# multiple of 16, narrow and ragged N, and a deep K
+GEMV_CODE_EDGES = [(512, 3072), (1536, 512), (63, 40), (1535, 520),
+                   (24, 1000), (16, 8), (4096, 64)]
+# a deep K at a wide N, where 64 columns of int8 weights do not fit in a
+# CTA's shared memory and the plan takes fewer (held at M 1 and 8)
+GEMV_DEEP_WIDE = (4096, 32000)
+GEMV_SWEEP_COLS = (4, 8, 16, 32, 64, 128)
+
+
+def code_gemv_cols_sweep(args, packed) -> dict:
+    """Device ms of the code GEMV (row 7 packed, row 8 int8) on ``args``
+    with each forced number of output columns per CTA
+    (``GEMV_SWEEP_COLS``), bitwise to the plan's own choice; the plan's
+    choice under key "plan"."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import quant_matmul as QM
+    m, k = args[0].shape
+    n = args[3].shape[1]
+    fn = "quant_gemv_w4" if packed else "quant_matmul"
+    extra = dict(gemv=True, planned=not packed)
+    want = QM.launch(fn, *args, **extra)
+    out = {"plan": QM.gemv_plan(m, k, n, packed,
+                                build.sm_count(args[0].device)).cols}
+    for cols in GEMV_SWEEP_COLS:
+        got = QM.launch(fn, *args, cols=cols, **extra)
+        if not torch.equal(got, want):
+            fail(f"{fn} with {cols} columns per CTA differs from the "
+                 f"plan's at m={m} k={k} n={n}")
+        out[cols] = device_ms(lambda c=cols: QM.launch(fn, *args, cols=c,
+                                                       **extra))
+    return out
+
+
+def check_code_gemv_edges(gen, dev):
+    """The code GEMV of rows 7 (``quant_gemv_w4``, packed int4 weights,
+    4-bit codes) and 8 (``quant_matmul`` at M <= 8, int8 weights,
+    full-range int8 codes) bitwise against their plain versions (exact
+    integer accumulation and one epilogue in the same op order) at every
+    M in 1..8 and each (K, N) of ``GEMV_CODE_EDGES`` (odd K: the missing
+    code reads as 0 against the zero high nibble) and at M 1 and 8 at
+    ``GEMV_DEEP_WIDE``, with its plan; and at
+    code extremes, where each sum passes 2^24: codes -128 against -8 (int8:
+    -128) but the last three (1), and alternating -128 / 127 against 7 /
+    -8 (int8: 127 / -128) along K. -> (row 7's records, row 8's)."""
+    import torch
+
+    from repro_torch.core.quantizers import pack_int4
+    from repro_torch.kernels import build
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels import quant_matmul_w4 as QW
+    recs = {True: [], False: []}
+    sms = build.sm_count(dev)
+
+    def held(args, packed, rec):
+        run = QW.quant_gemv_w4 if packed else QM.quant_matmul
+        plain = QW.quant_matmul_w4_plain if packed else QM.quant_matmul_plain
+        got, want = run(*args), plain(*args)
+        m, k = args[0].shape
+        n = args[3].shape[1]
+        rec.update({"kernel": "quant_gemv_w4" if packed else "quant_matmul",
+                    "m": m, "d": k, "n": n,
+                    "plan": dataclasses.asdict(QM.gemv_plan(m, k, n, packed,
+                                                            sms)),
+                    "max_err": (got - want).abs().max().item(),
+                    "differing": int((got != want).sum().item())})
+        recs[packed].append(rec)
+        if rec["differing"]:
+            fail(f"{rec['kernel']} GEMV edge not bitwise: {json.dumps(rec)}")
+
+    cases = [(m, k, n) for k, n in GEMV_CODE_EDGES for m in range(1, 9)]
+    for m, k, n in cases + [(m, *GEMV_DEEP_WIDE) for m in (1, 8)]:
+        for packed in (True, False):
+            args, _ = contraction_operands(m, k, n, gen, dev, packed,
+                                           4 if packed else 8)
+            held(args, packed, {})
+    for m, k, n, pattern in ((8, 1536, 40, "min"), (3, 1535, 24, "min"),
+                             (8, 1536, 72, "alternating"),
+                             (5, 1535, 24, "alternating")):
+        for packed in (True, False):
+            lo, hi = (-8, 7) if packed else (-128, 127)
+            if pattern == "min":
+                qx = torch.full((m, k), -128, dtype=torch.int8)
+                w = torch.full((k, n), lo, dtype=torch.int8)
+                qx[:, -3:], w[-3:] = 1, 1
+            else:
+                qx = torch.where(torch.arange(k) % 2 == 1, 127, -128).to(
+                    torch.int8).expand(m, k).contiguous()
+                w = torch.where(torch.arange(k)[:, None] % 2 == 1, lo,
+                                hi).to(torch.int8).expand(k, n).contiguous()
+            sx = torch.rand((m, 1), generator=gen) * 0.02 + 0.001
+            zx = torch.randint(-128, 128, (m, 1), generator=gen).float()
+            sw = torch.rand((1, n), generator=gen) * 0.02 + 0.001
+            qw = pack_int4(w, axis=0) if packed else w
+            args = [t.to(dev) for t in (qx, sx, zx, qw, sw)]
+            held(args, packed, {"codes": pattern})
+    print("code GEMV edges " + json.dumps(recs[True] + recs[False]))
+    return recs[True], recs[False]
+
+
+# (D, a, b, CAT blocks) the reference's fused kernels take that split over
+# no cluster: a the largest divisor of D <= sqrt(D), as the reference's
+# tests factor D, and D 48 also at 4 x 12
+WIDTH_EDGES = [(63, 7, 9, 0), (63, 7, 9, 7), (96, 8, 12, 0), (96, 8, 12, 6),
+               (96, 8, 12, 16), (24, 4, 6, 0), (24, 4, 6, 3), (48, 6, 8, 0),
+               (48, 4, 12, 0)]
+
+
+def width_operands(m, d, a, b, nblk, n, gen, dev, packed):
+    """Fused-linear operands at any width, as the reference's tests make
+    them: f32 rows, CAT blocks (nblk of D / nblk, or None), arbitrary
+    Kronecker factors (the kernels need no Hadamard structure), a sign,
+    int4-packed or int8 weight codes and their scales."""
+    import torch
+
+    from repro_torch.core.quantizers import pack_int4
+    x = torch.randn((m, d), generator=gen)
+    blocks = None
+    if nblk:
+        bk = d // nblk
+        blocks = (torch.randn((nblk, bk, bk), generator=gen) * 0.3
+                  + torch.eye(bk))
+    ha = torch.randn((a, a), generator=gen) / a ** 0.5
+    hb = torch.randn((b, b), generator=gen) / b ** 0.5
+    sign = torch.randint(0, 2, (d,), generator=gen).float() * 2 - 1
+    if packed:
+        qw = pack_int4(torch.randint(-8, 8, (d, n), generator=gen,
+                                     dtype=torch.int8), axis=0)
+    else:
+        qw = torch.randint(-128, 128, (d, n), generator=gen,
+                           dtype=torch.int8)
+    sw = torch.rand((1, n), generator=gen) * 0.02 + 0.001
+    return [None if t is None else t.to(dev)
+            for t in (x, blocks, ha, hb, sign, qw, sw)]
+
+
+def check_width_edges(gen, dev):
+    """Rows 1, 2 and 5 at the widths of ``WIDTH_EDGES`` (odd D, factors
+    and CAT blocks that are not multiples of 4), with int4-packed and int8
+    weights, bitwise against their plain versions on f32 inputs: the
+    decode linear at M 1, 5, 8 and the tiled one at M 9, 40 (N 40), the
+    prologue at B 1, 3, 8 (4 q + 2 k + 2 v heads of 8, the reference
+    test's); each with its plan, and the decode linear and the prologue
+    one kernel per call (the tiled linear: its two, stage 1 and the
+    contraction). -> {kernel: records}."""
+    import torch
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_layer as L
+    from repro_torch.kernels import fused_cat_matmul as F
+    out = {"fused_cat_gemv_w4": [], "fused_cat_matmul_w4": [],
+           "decode_qkv_prologue": []}
+    kw = dict(n_q=32, head_dim=8, rope_theta=10000.0, kv_bits=8, act_bits=4)
+    for d, a, b, nblk in WIDTH_EDGES:
+        bk = d // nblk if nblk else 0
+        for packed in (True, False):
+            base = {"d": d, "a": a, "b": b, "blocks": nblk, "packed": packed}
+            for name, rows in (("fused_cat_gemv_w4", (1, 5, 8)),
+                               ("fused_cat_matmul_w4", (9, 40))):
+                run = getattr(F, name)
+                for m in rows:
+                    args = width_operands(m, d, a, b, nblk, 40, gen, dev,
+                                          packed)
+                    got = run(*args, act_bits=4, packed=packed)
+                    want = F.fused_cat_linear_plain(*args, act_bits=4,
+                                                    packed=packed)
+                    plan = (F.gemv_plan(m, d, 40, a, b, bk, packed,
+                                        build.sm_count(0))
+                            if m <= 8 else F.tiled_plan(m, d, a, b, bk))
+                    rec = dict(base, kernel=name, m=m,
+                               plan=dataclasses.asdict(plan),
+                               max_err=(got - want).abs().max().item(),
+                               differing=int((got != want).sum().item()))
+                    if m in (8, 40):
+                        rec["one_call"] = one_launch(
+                            lambda: run(*args, act_bits=4, packed=packed),
+                            "fused_cat_gemv_kernel" if m <= 8 else
+                            ("cluster_transform_quant_kernel",
+                             "mma_kernel"))
+                    out[name].append(rec)
+                    if rec["differing"] or not rec.get(
+                            "one_call", {"ok": True})["ok"]:
+                        fail(f"{name} width edge: {json.dumps(rec)}")
+            for m in (1, 3, 8):
+                args = width_operands(m, d, a, b, nblk, 64, gen, dev, packed)
+                shape = (40, 16, 2, 8)
+                pools = [torch.randint(-127, 128, shape, generator=gen,
+                                       dtype=torch.int8),
+                         torch.rand(shape[:3] + (1,), generator=gen),
+                         torch.randint(-127, 128, shape, generator=gen,
+                                       dtype=torch.int8),
+                         torch.rand(shape[:3] + (1,), generator=gen)]
+                pools = [t.to(dev) for t in pools]
+                ids = [torch.tensor(v, dtype=torch.int32, device=dev)
+                       for v in ([1 + i for i in range(m)],
+                                 [(5 * i) % 16 for i in range(m)],
+                                 [16 * i + (5 * i) % 16 for i in range(m)])]
+                got = [t.clone() for t in pools]
+                want = [t.clone() for t in pools]
+                q = L.decode_qkv_prologue(*args, *got, *ids, packed=packed,
+                                          **kw)[0]
+                q_want = L.decode_qkv_prologue_plain(*args, *want, *ids,
+                                                     packed=packed, **kw)[0]
+                diff = int((q != q_want).sum().item()) + sum(
+                    int((g_ != w_).sum().item()) for g_, w_ in zip(got, want))
+                plan = L.prologue_plan(m, d, 64, 8, a, b, bk, packed)
+                rec = dict(base, kernel="decode_qkv_prologue", m=m,
+                           plan=dataclasses.asdict(plan),
+                           max_err=(q - q_want).abs().max().item(),
+                           differing=diff)
+                if m == 8:
+                    rec["one_call"] = one_launch(
+                        lambda: L.decode_qkv_prologue(
+                            *args, *got, *ids, packed=packed, **kw),
+                        "decode_qkv_prologue_kernel")
+                out["decode_qkv_prologue"].append(rec)
+                if diff or not rec.get("one_call", {"ok": True})["ok"]:
+                    fail(f"decode_qkv_prologue width edge: {json.dumps(rec)}")
+    print("width edges " + json.dumps(out))
+    return out
 
 
 def prologue_operands(m, gen, dev, targets, d=512, n_q=512, kvh=4, hd=64):
@@ -719,11 +1061,12 @@ def cols_sweep(args) -> dict:
     plan's own choice; the plan's choice under key "plan"."""
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import fused_cat_matmul as F
     m, d = args[0].shape
     n = args[5].shape[1]
     plan = F.gemv_plan(m, d, n, args[2].shape[0], args[3].shape[0],
-                       CAT_BLOCK, True, F.sm_count(0))
+                       CAT_BLOCK, True, build.sm_count(0))
     want = F._launch_gemv(*args, 4, True)
     out = {"plan": plan.cols}
     for cols in SWEEP_COLS:
@@ -810,14 +1153,14 @@ def check_tiled_edges(gen, dev):
     return recs
 
 
-def one_launch(fn, kernel: str, calls: int = 5) -> dict:
+def one_launch(fn, kernel, calls: int = 5) -> dict:
     """Whether one call of ``fn`` is one launch of the kernel whose name
-    contains ``kernel``: the nodes of a CUDA graph that captures one call
-    (torch's debug dump, ``cudaGraphDebugDotPrint``), by node type, and
-    the device events that ``torch.profiler`` records over ``calls``
-    calls (the profiler may drop events of short kernels, so only their
-    names are held: all of them this kernel's). -> a record with
-    ``ok``."""
+    contains ``kernel`` (a tuple of names: one launch of each, nothing
+    else): the nodes of a CUDA graph that captures one call (torch's debug
+    dump, ``cudaGraphDebugDotPrint``), by node type, and the device events
+    that ``torch.profiler`` records over ``calls`` calls (the profiler may
+    drop events of short kernels, so only their names are held: all of
+    them these kernels'). -> a record with ``ok``."""
     import os
     import re
     import tempfile
@@ -846,10 +1189,12 @@ def one_launch(fn, kernel: str, calls: int = 5) -> dict:
         torch.cuda.synchronize()
     names = sorted({e.name for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA})
-    # the graph holds one kernel node, this kernel's; the profiler, which
-    # may drop every event of a short kernel, saw no other kernel
-    ok = (kinds == {"KERNEL": 1} and kernel in dot
-          and all(kernel in n for n in names))
+    # the graph holds one kernel node per kernel, these kernels'; the
+    # profiler, which may drop every event of a short kernel, saw no other
+    kernels = (kernel,) if isinstance(kernel, str) else tuple(kernel)
+    ok = (kinds == {"KERNEL": len(kernels)}
+          and all(k in dot for k in kernels)
+          and all(any(k in n for k in kernels) for n in names))
     return {"ok": ok, "graph_nodes": kinds, "profiled_device_kernels": names,
             "dot_head": None if kinds else dot[:400]}
 
@@ -865,6 +1210,7 @@ def check_gemv_edges(gen, dev):
     Each case records its cluster plan."""
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import fused_cat_matmul as F
     recs = []
 
@@ -875,7 +1221,7 @@ def check_gemv_edges(gen, dev):
         n = args[5].shape[1]
         plan = F.gemv_plan(m, d, n, args[2].shape[0], args[3].shape[0],
                            0 if args[1] is None else CAT_BLOCK, packed,
-                           F.sm_count(0))
+                           build.sm_count(0))
         rec.update({"kernel": "fused_cat_gemv_w4", "m": m, "d": d, "n": n,
                     "packed": packed, "cluster": plan.cluster,
                     "clusters": plan.clusters, "cols": plan.cols,
@@ -1316,17 +1662,19 @@ def check_w4_edges(gen, dev):
 def check_contractions(card, gen, dev):
     """The code contractions (rows 6, 7, 8) at every main-path (D, N):
     ``quant_gemv_w4`` at 8 rows, ``quant_matmul_w4`` at 128, W8A8
-    ``quant_matmul`` at both, against their plain versions: the two
-    tensor-core contractions bitwise (exact integer accumulation, one
-    epilogue in the same op order), also at ragged shapes, odd K, several
-    K splits and code extremes (``check_w4_edges``,
-    ``check_w8a8_edges``); the GEMV at rtol 1e-5 of the output's scale
-    (its differing outputs recorded). Library: ``torch._int_mm`` of the
+    ``quant_matmul`` at both (8 rows: the code GEMV), against their plain
+    versions, bitwise (exact integer accumulation, one epilogue in the
+    same op order), also at ragged shapes, odd K, several K splits and
+    code extremes (``check_w4_edges``, ``check_w8a8_edges``,
+    ``check_code_gemv_edges``); the code GEMV at M 8 records its plan and,
+    at D 512, N 3072, the device ms of every forced number of columns per
+    CTA (``code_gemv_cols_sweep``). Library: ``torch._int_mm`` of the
     codes against the unpacked int8 weight, which covers the integer
     product only (no nibble unpacking, no epilogue); it needs more than 16
     rows."""
     import torch
 
+    from repro_torch.kernels import build
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels import quant_matmul_w4 as QW
     cases = [("quant_gemv_w4", QW.quant_gemv_w4, QW.quant_matmul_w4_plain,
@@ -1343,26 +1691,35 @@ def check_contractions(card, gen, dev):
                 got, want = run(*args), plain(*args)
                 err = (got - want).abs().max().item()
                 differing = int((got != want).sum().item())
-                bitwise = name != "quant_gemv_w4"
-                tol = 0.0 if bitwise else 1e-5 * want.abs().max().item()
                 library = None
                 if m > 16:
                     library = usable(lambda a=args[0], b=w:
                                      torch._int_mm(a, b))
                 w_bytes = k * n // 2 if packed else k * n
+                extra = {"max_err": err, "tol": 0.0, "differing": differing,
+                         "library": None if library is None else
+                         "torch._int_mm: the integer product only"}
+                if m <= 8:
+                    extra["plan"] = dataclasses.asdict(QM.gemv_plan(
+                        m, k, n, packed, build.sm_count(dev)))
+                    extra["one_call"] = one_launch(lambda: run(*args),
+                                                   "code_gemv_kernel")
+                    if (k, n) == (512, 3072):
+                        extra["cols_sweep_ms"] = code_gemv_cols_sweep(
+                            args, packed)
                 out[name].append(timed_record(
                     name, {"m": m, "d": k, "n": n},
                     lambda: run(*args), lambda: plain(*args), library,
                     m * k + w_bytes + 4 * n + 8 * m + 4 * m * n,
-                    2 * m * k * n / INT8_OP_S, card,
-                    {"max_err": err, "tol": tol, "differing": differing,
-                     "library": None if library is None else
-                     "torch._int_mm: the integer product only"}))
-                if not err <= tol or (bitwise and differing):
-                    fail(f"{name} m={m} k={k} n={n}: max error {err} > "
-                         f"{tol}, {differing} outputs differ")
+                    2 * m * k * n / INT8_OP_S, card, extra))
+                if differing or not extra.get("one_call", {"ok": True})[
+                        "ok"]:
+                    fail(f"{name} m={m} k={k} n={n}: max error {err}, "
+                         f"{differing} outputs differ: {json.dumps(extra)}")
+    w4_gemv, w8_gemv = check_code_gemv_edges(gen, dev)
+    out["quant_gemv_w4"] += w4_gemv
     out["quant_matmul_w4"] += check_w4_edges(gen, dev)
-    out["quant_matmul"] += check_w8a8_edges(gen, dev)
+    out["quant_matmul"] += check_w8a8_edges(gen, dev) + w8_gemv
     return out
 
 
@@ -1825,24 +2182,32 @@ def composed_phase(model, params_w4, counters, card, gen):
     return out
 
 
-def compare_rows_2_4(src: Path, card: str, out_dir: Path) -> None:
-    """Time rows 4 and 2 of the port package under ``src`` (another
+def compare_rows(src: Path, card: str, out_dir: Path) -> None:
+    """Time rows 1-5, 7 and 8 of the port package under ``src`` (another
     checkout's ``src``, such as the parent commit's, or this one's) at
     this script's timed shapes, on inputs drawn from one seed in one order
-    (the same for every package): the decode attention at ``DECODE_SHAPES``
-    (max error against its plain version on valid rows) and the tiled
-    fused linear at every main-path (D, N) and ``TILED_ROWS`` (f32
-    outputs differing from the plain version), and the decode attention
-    at each length of ``DECODE_LENGTHS``. Run it for two packages in
-    one call, in turns, for a before/after of the two kernels; writes
+    (the same for every package), through entry points both packages
+    have: the decode attention (row 4) at ``DECODE_SHAPES`` and each
+    length of ``DECODE_LENGTHS`` and the ragged one (row 3) at
+    ``RAGGED_SHAPES`` (max error against the plain version on valid
+    rows); the tiled fused linear (row 2) at every main-path (D, N) and
+    ``TILED_ROWS`` and the decode fused linear (row 1) at 8 rows (f32
+    outputs differing from the plain version); the decode prologue (row
+    5) at 8 rows; the code GEMV of rows 7 and 8 (``quant_gemv_w4``,
+    ``quant_matmul``) at 8 rows of every main-path (D, N) (outputs
+    differing from the plain version). Run it for two packages in one
+    call, in turns, for a before/after; writes
     ``chiprun_out/compare_<tag>.json``."""
     import hashlib
 
     import torch
 
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_layer as L
     from repro_torch.kernels import fused_cat_matmul as F
     from repro_torch.kernels import paged_attention as P
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels import quant_matmul_w4 as QW
     t0 = time.perf_counter()
     build.build_all()
     recs = []
@@ -1860,18 +2225,48 @@ def compare_rows_2_4(src: Path, card: str, out_dir: Path) -> None:
                      "kernel_ms": device_ms(
                          lambda: P.paged_attention_decode(*args))})
     recs += time_decode_lengths(P, gen, dev)
+    for label, items in RAGGED_SHAPES:
+        args = attention_operands(items, RAGGED_Q, gen, dev, False)[0]
+        got = P.paged_attention_ragged(*args)
+        want = P.paged_attention_ragged_plain(*args)
+        valid = args[7] >= 0
+        recs.append({"kernel": "paged_attention_ragged", "shape": label,
+                     "max_err": (got.float() - want.float()).abs()[valid]
+                     .max().item(),
+                     "kernel_ms": device_ms(
+                         lambda: P.paged_attention_ragged(*args))})
     for d, n in LINEAR_SHAPES:
-        for m in TILED_ROWS:
-            args = fused_linear_operands(m, d, n, gen, dev)
-            f32 = (args[0].float(), *args[1:])
-            differing = int((F.fused_cat_matmul_w4(f32[0], *f32[1:],
-                                                   act_bits=4)
-                             != F.fused_cat_linear_plain(*f32, act_bits=4))
-                            .sum().item())
-            recs.append({"kernel": "fused_cat_matmul_w4", "m": m, "d": d,
-                         "n": n, "f32_differing": differing,
-                         "kernel_ms": device_ms(lambda: F.fused_cat_matmul_w4(
-                             *args, act_bits=4))})
+        for run, rows in ((F.fused_cat_matmul_w4, TILED_ROWS),
+                          (F.fused_cat_gemv_w4, (8,))):
+            for m in rows:
+                args = fused_linear_operands(m, d, n, gen, dev)
+                f32 = (args[0].float(), *args[1:])
+                differing = int((run(*f32, act_bits=4)
+                                 != F.fused_cat_linear_plain(*f32,
+                                                             act_bits=4))
+                                .sum().item())
+                recs.append({"kernel": run.__name__, "m": m, "d": d,
+                             "n": n, "f32_differing": differing,
+                             "kernel_ms": device_ms(
+                                 lambda: run(*args, act_bits=4))})
+        for name, run, plain, packed in (
+                ("quant_gemv_w4", QW.quant_gemv_w4,
+                 QW.quant_matmul_w4_plain, True),
+                ("quant_matmul", QM.quant_matmul, QM.quant_matmul_plain,
+                 False)):
+            args, _ = contraction_operands(8, d, n, gen, dev, packed)
+            recs.append({"kernel": name, "m": 8, "d": d, "n": n,
+                         "differing": int((run(*args) != plain(*args))
+                                          .sum().item()),
+                         "kernel_ms": device_ms(lambda: run(*args))})
+    targets = [(1 + i, (5 * i) % 16, 16 * i + (5 * i) % 16)
+               for i in range(6)] + [(0, 0, 0), (0, 0, 0)]
+    args, pools, ids = prologue_operands(8, gen, dev, targets)
+    kw = dict(n_q=512, head_dim=64, rope_theta=10000.0, kv_bits=8,
+              act_bits=4, packed=True)
+    recs.append({"kernel": "decode_qkv_prologue", "m": 8, "kernel_ms":
+                 device_ms(lambda: L.decode_qkv_prologue(*args, *pools,
+                                                         *ids, **kw))})
     tag = hashlib.sha1(str(src.resolve()).encode()).hexdigest()[:8]
     res = {"src": str(src), "card": card, "records": recs,
            "seconds": time.perf_counter() - t0}
@@ -1904,7 +2299,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     if compare is not None:
-        compare_rows_2_4(compare, card, ROOT / "chiprun_out")
+        compare_rows(compare, card, ROOT / "chiprun_out")
         return
 
     from repro_torch.kernels import build
@@ -1928,21 +2323,25 @@ def main() -> None:
     from repro_torch.kernels import quant_matmul_w4 as QW
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
+    widths = check_width_edges(gen, dev)
     results = {
         "fused_cat_gemv_w4": check_fused_linear(
             "fused_cat_gemv_w4", F.fused_cat_gemv_w4, GEMV_ROWS, card, gen,
-            dev) + check_gemv_edges(gen, dev),
+            dev) + check_gemv_edges(gen, dev) + widths["fused_cat_gemv_w4"],
         "fused_cat_matmul_w4": check_fused_linear(
             "fused_cat_matmul_w4", F.fused_cat_matmul_w4, TILED_ROWS, card,
-            gen, dev) + check_tiled_edges(gen, dev),
+            gen, dev) + check_tiled_edges(gen, dev)
+        + widths["fused_cat_matmul_w4"],
         # a unified step: 8 work items (q_len, length) in a 128-row query
         # block — prefill chunks, decode singletons and an empty (padding)
-        # item; lengths up to 160
-        "paged_attention_ragged": check_attention(
-            "paged_attention_ragged", P.paged_attention_ragged,
-            P.paged_attention_ragged_plain,
-            [(128, 160), (1, 97), (64, 64), (1, 33), (24, 150), (0, 0),
-             (16, 40), (1, 160)], 128, card, gen, dev, decode=False),
+        # item; lengths up to 160, and as served (<= 56)
+        "paged_attention_ragged": [
+            rec for label, items in RAGGED_SHAPES
+            for rec in check_attention(
+                "paged_attention_ragged", P.paged_attention_ragged,
+                P.paged_attention_ragged_plain, items, RAGGED_Q, card, gen,
+                dev, decode=False, label=label)]
+        + check_ragged_edges(gen, dev),
         "paged_attention_decode": [
             rec for label, lens in DECODE_SHAPES
             for rec in check_attention(
@@ -1951,10 +2350,10 @@ def main() -> None:
                 card, gen, dev, decode=True, label=label)]
         + check_decode_edges(gen, dev)
         + [dict(rec, plan=dataclasses.asdict(P.decode_plan(
-            8, 4, 2, 64, 16, -(-rec["length"] // 16), F.sm_count(0))))
+            8, 4, 2, 64, 16, -(-rec["length"] // 16), build.sm_count(0))))
            for rec in time_decode_lengths(P, gen, dev)],
         "decode_qkv_prologue": check_prologue(card, gen, dev)
-        + check_prologue_edges(gen, dev),
+        + check_prologue_edges(gen, dev) + widths["decode_qkv_prologue"],
         **check_contractions(card, gen, dev),
         **check_stages(card, gen, dev),
     }
@@ -1972,6 +2371,7 @@ def main() -> None:
     # every checked shape
     pick = {"fused_cat_gemv_w4": dict(m=8, d=512, n=3072),
             "paged_attention_decode": dict(shape=DECODE_SHAPES[0][0]),
+            "paged_attention_ragged": dict(shape=RAGGED_SHAPES[0][0]),
             "fused_cat_matmul_w4": dict(m=128, d=512, n=3072),
             "decode_qkv_prologue": dict(m=8),
             "quant_matmul_w4": dict(m=128, d=512, n=3072),

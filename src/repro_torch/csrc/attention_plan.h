@@ -1,13 +1,15 @@
-// Launch plan and shared-memory layout of the decode paged attention
-// (paged_attention.cu, paged_attn_decode_kernel).
+// Launch plans and shared-memory layouts of the paged attentions
+// (paged_attention.cu: paged_attn_decode_kernel, paged_attn_ragged_kernel).
 //
-// This header is the one owner of how the kernel splits an item's key
-// positions over the CTAs of a cluster (split_range), of the number of
-// splits (decode_plan) and of every shared-memory region's offset
-// (DecodeLayout). It is plain C++ apart from the __host__ __device__
-// marks, so the kernel, its C entry and a host C++ build (the CPU tests)
-// compile the same rules; Python reads them through pa_decode_plan and
-// pa_split_range, exported by the CUDA library.
+// This header is the one owner of how the decode kernel splits an item's
+// key positions over the CTAs of a cluster (split_range), of the number of
+// splits (decode_plan), of how the ragged kernel tiles an item's query
+// rows (ragged_rows, ragged_plan), of the chunk and tile sizes and of every
+// shared-memory region's offset (DecodeLayout, RaggedLayout). It is plain
+// C++ apart from the __host__ __device__ marks, so the kernels, their C
+// entries and a host C++ build (the CPU tests) compile the same rules;
+// Python reads them through pa_decode_plan, pa_split_range and
+// pa_ragged_plan, exported by the CUDA library.
 #pragma once
 
 #include <stddef.h>
@@ -29,6 +31,12 @@ constexpr int kMaxSplit = 8;      // portable cluster size
 constexpr int kMinUnits = 1;      // fewest split units per split of a prefix
 constexpr int kCtasPerSm = 2;     // CTAs per SM the plan's split aims at
 constexpr int kStaticSmem = 1024; // bound on the kernel's static shared memory
+constexpr int kRaggedRows = 64;   // ragged: query rows per CTA, 16 per warp
+constexpr int kRaggedChunk = 64;  // ragged: key positions per chunk
+constexpr int kRaggedGroups = 2;  // ragged: warp groups splitting the chunks
+constexpr int kRaggedThreads = kThreads * kRaggedGroups;
+constexpr int kRaggedStages = 2 * kRaggedGroups;   // int8 chunk ring
+constexpr int kDefaultSmem = 48 * 1024;   // dynamic smem without opt-in
 
 PA_HD inline int imin(int a, int b) { return a < b ? a : b; }
 
@@ -124,6 +132,71 @@ PA_HD inline bool decode_plan(int b, int kvh, int g, int hd, int page_size,
   return true;
 }
 
+// Byte offsets of the ragged kernel's regions for head dim hd:
+// kRaggedStages stages of a chunk of kRaggedChunk positions (the fields
+// of DecodeLayout's stages: int8 K and V codes, row stride hd, their f32
+// scales and the positions' token rows), then per warp group (`group`
+// bytes apart) its chunk's codes as bf16 for the tensor cores: K
+// (kRaggedChunk rows of hd) and V transposed (hd rows of kRaggedChunk
+// positions, for the P.V product's B operand). After the chunks, the
+// stages hold the groups' softmax states for their combine.
+struct RaggedLayout {
+  size_t stage, k, v, ks, vs, tok, kb, vt, group, end;
+  PA_HD explicit RaggedLayout(int hd) {
+    k = 0;
+    v = k + (size_t)kRaggedChunk * hd;
+    ks = v + (size_t)kRaggedChunk * hd;
+    vs = ks + 4 * (size_t)kRaggedChunk;
+    tok = vs + 4 * (size_t)kRaggedChunk;
+    stage = align16(tok + 4 * (size_t)kRaggedChunk);   // stage s at s stage
+    kb = kRaggedStages * stage;
+    vt = kb + 2 * (size_t)kRaggedChunk * hd;
+    group = 4 * (size_t)kRaggedChunk * hd;             // K and V^T, bf16
+    end = kb + kRaggedGroups * group;
+  }
+};
+
+// The query rows [*lo, *hi) of tile `tile` of an item of nq query
+// positions of g rows each: rows r = qi * g + gi in order, kRaggedRows per
+// tile, so a tile's horizons rise with qi where q_pos does.
+PA_HD inline void ragged_rows(int nq, int g, int tile, int* lo, int* hi) {
+  *lo = imin(tile * kRaggedRows, nq * g);
+  *hi = imin((tile + 1) * kRaggedRows, nq * g);
+}
+
+// A ragged launch plan: `tiles` tiles of query rows per (item, KV head),
+// `ctas` CTAs in all (one per item, KV head and tile), `smem` bytes of
+// dynamic shared memory per CTA.
+struct RaggedPlan {
+  int tiles, ctas, smem;
+};
+
+// The ragged kernel's plan for n_items work items of nq query positions,
+// kvh KV heads of g query rows each and head dim hd, on a card whose CTAs
+// may opt into `smem_optin` bytes of shared memory. -> false for a shape
+// the kernel does not take.
+PA_HD inline bool ragged_plan(int n_items, int nq, int kvh, int g, int hd,
+                              int page_size, int smem_optin, RaggedPlan* p) {
+  if (n_items < 1 || nq < 1 || kvh < 1 || g < 1 || page_size < 1
+      || (hd != 32 && hd != 64 && hd != 128))
+    return false;
+  const long long tiles =
+      ((long long)nq * g + kRaggedRows - 1) / kRaggedRows;
+  const long long ctas = (long long)n_items * kvh * tiles;
+  const RaggedLayout lay(hd);
+  // the stages also hold the groups' states for the combine: per lane of
+  // a group but the first, m and l of two rows and hd / 2 outputs
+  const size_t states =
+      4 * (size_t)(kRaggedGroups - 1) * kThreads * (4 + hd / 2);
+  if (ctas > 0x7fffffffLL || states > lay.kb
+      || lay.end + kStaticSmem > (size_t)smem_optin)
+    return false;
+  p->tiles = (int)tiles;
+  p->ctas = (int)ctas;
+  p->smem = (int)lay.end;
+  return true;
+}
+
 #ifdef __CUDACC__
 // Shared memory a CTA of the current device may opt into, once per device.
 inline int device_smem_optin() {
@@ -156,6 +229,30 @@ extern "C" int pa_decode_plan(int b, int kvh, int g, int hd, int page_size,
   out[0] = p.split;
   out[1] = p.ctas;
   out[2] = p.smem;
+  return 0;
+}
+
+// For Python (kernels/paged_attention.ragged_plan): out = {tiles, ctas,
+// smem}; smem_optin 0 reads the current device's (CUDA builds only).
+// Returns 0, or 1 for a shape the kernel does not take.
+extern "C" int pa_ragged_plan(int n_items, int nq, int kvh, int g, int hd,
+                              int page_size, int smem_optin, int* out) {
+#ifdef __CUDACC__
+  if (smem_optin == 0) smem_optin = pa::device_smem_optin();
+#endif
+  pa::RaggedPlan p;
+  if (!pa::ragged_plan(n_items, nq, kvh, g, hd, page_size, smem_optin, &p))
+    return 1;
+  out[0] = p.tiles;
+  out[1] = p.ctas;
+  out[2] = p.smem;
+  return 0;
+}
+
+// For Python (kernels/paged_attention.ragged_rows): out = {lo, hi}.
+extern "C" int pa_ragged_rows(int nq, int g, int tile, int* out) {
+  if (nq < 0 || g < 1 || tile < 0) return 1;
+  pa::ragged_rows(nq, g, tile, &out[0], &out[1]);
   return 0;
 }
 

@@ -1,11 +1,14 @@
 // Launch plans and shared-memory layouts of the thread-block cluster
 // kernels (cluster_tq.cuh): the one-launch decode fused CAT linear and the
 // tiled fused linear's transform-quant stage (fused_cat_matmul.cu), and
-// the decode QKV prologue (decode_layer.cu).
+// the decode QKV prologue (decode_layer.cu); and of the code GEMV built on
+// the same contraction (quant_matmul.cu, code_gemv_plan).
 //
 // This header is the one owner of which shapes the cluster transform
-// takes (splits), of every shared-memory region's offset and of the plans
-// (cluster size, clusters, columns or rows per cluster). It is plain C++
+// takes (splits: the vector path; general: every other width the
+// reference's kernels take, on a cluster of one CTA), of every
+// shared-memory region's offset and of the plans (cluster size, clusters,
+// columns or rows per cluster). It is plain C++
 // apart from the __host__ __device__ marks, so the kernels, their C
 // entries and a host C++ build (the CPU tests) compile the same rules;
 // Python reads the plans through ctq_gemv_plan, ctq_tiled_plan and
@@ -46,14 +49,31 @@ CTQ_HD inline bool splits(int d, int a, int b, int bk, int c) {
   return L % 32 == 0 && (bk == 0 || L % bk == 0);
 }
 
+// Whether the general path takes d = a * b with CAT block bk (0: none):
+// any factors and any block that divides d, as the reference's kernels
+// (a * b == d, nblk * bk == d); odd d included. It runs the widths that
+// splits() refuses for every c, on a cluster of one CTA, each transform
+// output one scalar fmaf chain (cluster_tq.cuh, transform_quant_any).
+CTQ_HD inline bool general(int d, int a, int b, int bk) {
+  return a >= 1 && b >= 1 && a * b == d && bk >= 0
+         && (bk == 0 || d % bk == 0);
+}
+
+// The K the contraction runs over for d transform values: d rounded up to
+// a whole dp4a group of four (codes and weight rows past d read 0); the
+// table of codes has rows of align16(d) bytes. Both equal d on the vector
+// path (d a multiple of 32).
+CTQ_HD inline int k_groups(int d) { return (d + 3) & ~3; }
+
 // Byte offsets of the transform's regions in dynamic shared memory, for
 // m rows of d, cluster size c, factors a x b, CAT block bk (0: none);
-// with all_codes the table of every CTA's codes (the decode kernels'),
-// else none (the tiled stage stores each CTA's own codes).
+// with all_codes the table of every CTA's codes (the decode kernels';
+// on the general path, `general`, rows of align16(d) codes), else none
+// (the tiled stage stores each CTA's own codes).
 struct TqLayout {
   size_t x, sg, blk, hb, ha, y, zt, mm, q, qall, end;
   CTQ_HD TqLayout(int m, int d, int c, int a, int b, int bk,
-                  bool all_codes = true) {
+                  bool all_codes = true, bool general = false) {
     const size_t L = d / c;
     size_t o = 0;
     x = o;    o += align16(4 * m * L);          // x slice, f32
@@ -65,14 +85,16 @@ struct TqLayout {
     zt = o;   o += align16(4 * m * L);          // Z of its columns (pushed)
     mm = o;   o += align16(4 * kMaxCluster * 2 * kMaxRows);   // (pushed)
     q = o;    o += align16(m * L);              // its codes, local order
-    qall = o; o += all_codes ? align16((size_t)m * d) : 0;   // (pushed)
+    qall = o;
+    o += all_codes ? align16((size_t)m * (general ? align16(d) : d)) : 0;
     end = o;
   }
 };
 
 // The transform's, then the contraction's regions of a CTA that owns
-// `cols` output columns: the weight rows of its columns (row pitch cols
-// rounded up to 16 bytes), the int32 partial sums of kThreads / cols K
+// `cols` output columns: the weight rows of its columns (d K; k_groups(d)
+// on the general path; row pitch cols rounded up to 16 bytes), the int32
+// partial sums of kThreads / cols K
 // slices (m rows and the column sums), its columns' weight scales, and
 // with `outs` its (m, cols) f32 outputs (the prologue's head).
 struct CtaLayout {
@@ -80,12 +102,13 @@ struct CtaLayout {
   int pitch, slices;
   size_t w, part, out, sw, end;
   CTQ_HD CtaLayout(int m, int d, int c, int a, int b, int bk, int packed,
-                   int cols, bool outs)
-      : tq(m, d, c, a, b, bk) {
+                   int cols, bool outs, bool general = false)
+      : tq(m, d, c, a, b, bk, true, general) {
     pitch = (int)align16(cols);
     slices = kThreads / cols;
     w = tq.end;
-    part = w + align16((size_t)(packed ? d / 2 : d) * pitch);
+    const int k = general ? k_groups(d) : d;
+    part = w + align16((size_t)(packed ? k / 2 : k) * pitch);
     out = part + align16(4 * (size_t)slices * (m + 1) * cols);
     sw = out + (outs ? align16(4 * (size_t)m * cols) : 0);
     end = sw + align16(4 * (size_t)cols);
@@ -100,11 +123,13 @@ struct Plan {
 };
 
 // The largest cluster (8, 4, 2, 1) the transform splits over that divides
-// `groups` (0: any), or 0.
+// `groups` (0: any); else 1 for a width the general path takes; else 0.
+// A plan of cluster c runs the vector path where splits(d, a, b, bk, c),
+// the general path otherwise.
 CTQ_HD inline int cluster_size(int d, int a, int b, int bk, int groups) {
   for (int c = kMaxCluster; c >= 1; c /= 2)
     if (splits(d, a, b, bk, c) && (groups <= 0 || groups % c == 0)) return c;
-  return 0;
+  return general(d, a, b, bk) ? 1 : 0;
 }
 
 // The decode fused linear's plan for m rows of d = a * b against n
@@ -127,7 +152,8 @@ CTQ_HD inline bool gemv_plan(int m, int d, int n, int a, int b, int bk,
     cols = need < kMinCols ? kMinCols : need > kThreads ? kThreads : need;
   }
   if (cols < 4 || cols > kThreads || cols % 4) return false;
-  const CtaLayout lay(m, d, c, a, b, bk, packed, cols, false);
+  const CtaLayout lay(m, d, c, a, b, bk, packed, cols, false,
+                      !splits(d, a, b, bk, c));
   if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
   p->cluster = c;
   p->clusters = (n + c * cols - 1) / (c * cols);
@@ -168,11 +194,66 @@ CTQ_HD inline bool prologue_plan(int m, int d, int n, int hd, int a, int b,
     return false;
   const int heads = n / hd, c = cluster_size(d, a, b, bk, heads);
   if (c == 0) return false;
-  const CtaLayout lay(m, d, c, a, b, bk, packed, hd, true);
+  const CtaLayout lay(m, d, c, a, b, bk, packed, hd, true,
+                      !splits(d, a, b, bk, c));
   if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
   p->cluster = c;
   p->clusters = heads / c;
   p->cols = hd;
+  p->smem = (int)lay.end;
+  return true;
+}
+
+// The code GEMV's regions (rows of precomputed codes against a weight,
+// m <= kMaxRows): the m rows of k codes (rows of align16(k) bytes, zero
+// from k to k_groups(k)), the weight rows of its `cols` columns
+// (k_groups(k) K: half as many packed rows; row pitch cols rounded up to
+// 16 bytes), then contract_codes' int32 partial sums and column sums of
+// kThreads / cols K slices.
+struct GemvLayout {
+  int pitch, slices;
+  size_t q, w, part, end;
+  CTQ_HD GemvLayout(int m, int k, int packed, int cols) {
+    const int kg = k_groups(k);
+    pitch = (int)align16(cols);
+    slices = kThreads / cols;
+    q = 0;
+    w = align16((size_t)m * align16(k));
+    part = w + align16((size_t)(packed ? kg / 2 : kg) * pitch);
+    end = part + align16(4 * (size_t)slices * (m + 1) * cols);
+  }
+};
+
+// The code GEMV's plan for m rows of k codes against n columns on a card
+// of `sms` SMs: one CTA (cluster 1) per `cols` output columns, each
+// contracting all of K for them; `cols` a multiple of 4 in [4, kThreads],
+// or 0 for the plan's own: the most of 64, 32, 16, 8 that still give
+// every SM a CTA (ceil(n / cols) >= sms), else 4, so the weight stream
+// spreads over the whole card, halved while the CTA's K x cols weight
+// tile does not fit in shared memory (a deep K). -> false for a shape the
+// kernel does not take (m outside 1..kMaxRows, or more shared memory than
+// a CTA gets even at 4 columns, whose rows take 16 bytes as 16 columns'
+// do: K above about 9,100 int8 or 13,700 packed at m 8).
+CTQ_HD inline bool code_gemv_plan(int m, int k, int n, int packed, int sms,
+                                  int smem_optin, int cols, Plan* p) {
+  if (m < 1 || m > kMaxRows || k < 1 || n < 1 || sms < 1) return false;
+  if (cols == 0) {
+    cols = 4;
+    for (int c = 64; c > 4; c /= 2)
+      if ((n + c - 1) / c >= sms) {
+        cols = c;
+        break;
+      }
+    while (cols > 4 && GemvLayout(m, k, packed, cols).end + kStaticSmem
+                           > (size_t)smem_optin)
+      cols /= 2;
+  }
+  if (cols < 4 || cols > kThreads || cols % 4) return false;
+  const GemvLayout lay(m, k, packed, cols);
+  if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
+  p->cluster = 1;
+  p->clusters = (n + cols - 1) / cols;
+  p->cols = cols;
   p->smem = (int)lay.end;
   return true;
 }
@@ -194,7 +275,8 @@ inline int device_smem_optin() {
 }  // namespace ctq
 
 // The plans, for Python (kernels/fused_cat_matmul.gemv_plan and
-// tiled_plan, kernels/decode_layer.prologue_plan): out = {cluster,
+// tiled_plan, kernels/decode_layer.prologue_plan,
+// kernels/quant_matmul.gemv_plan): out = {cluster,
 // clusters, cols (tiled: rows per cluster), smem}. smem_optin 0 reads
 // the current device's (CUDA builds only). Return 0, or 1 for a shape the
 // kernel does not take.
@@ -236,6 +318,21 @@ extern "C" int ctq_prologue_plan(int m, int d, int n, int hd, int a, int b,
 #endif
   ctq::Plan p;
   if (!ctq::prologue_plan(m, d, n, hd, a, b, bk, packed, smem_optin, &p))
+    return 1;
+  out[0] = p.cluster;
+  out[1] = p.clusters;
+  out[2] = p.cols;
+  out[3] = p.smem;
+  return 0;
+}
+
+extern "C" int ctq_code_gemv_plan(int m, int k, int n, int packed, int sms,
+                                  int smem_optin, int cols, int* out) {
+#ifdef __CUDACC__
+  if (smem_optin == 0) smem_optin = ctq::device_smem_optin();
+#endif
+  ctq::Plan p;
+  if (!ctq::code_gemv_plan(m, k, n, packed, sms, smem_optin, cols, &p))
     return 1;
   out[0] = p.cluster;
   out[1] = p.clusters;

@@ -49,6 +49,15 @@
 // transform): four K per dp4a, int4 nibbles unpacked and sign-extended in
 // registers, exact int32.
 //
+// Widths that split over no cluster (ctq::general: any factors a * b = d,
+// any CAT block dividing d, odd d) take the general path on a cluster of
+// one CTA: the operands staged by 4-byte cp.async and scalar loads, each
+// transform output the same in-order fmaf chain from 0, computed by one
+// thread with scalar reads (stage_transform_any, transform_quant_any);
+// the codes go to a table whose rows are padded with zero codes to a
+// whole dp4a group, against weight rows padded with zeros
+// (zero_weight_rows), so contract_codes adds no term for them.
+//
 // Which shapes split, where each region of shared memory lies and the
 // launch plans are cluster_plan.h's.
 #pragma once
@@ -478,6 +487,133 @@ __device__ inline void transform_quant(int m, int d, int c, int rank,
     CTQ_ROWS(8);
   }
 #undef CTQ_ROWS
+}
+
+// ------------------------------------------------------ the general path
+
+// The general path's operands of the m rows into shared memory: the block
+// rows, the sign, Hb and Ha whole (4-byte cp.async, one commit group) and
+// x as f32 (scalar loads). Call stage_weights (or commit an empty group)
+// right after it; transform_quant_any waits for all of them.
+template <typename T>
+__device__ void stage_transform_any(const T* __restrict__ x, int m, int d,
+                                    const float* __restrict__ blocks, int bk,
+                                    const float* __restrict__ sign,
+                                    const float* __restrict__ ha, int a,
+                                    const float* __restrict__ hb, int b,
+                                    const TqLayout& lay, char* smem) {
+  if (blocks != nullptr)
+    stage_f32(reinterpret_cast<float*>(smem + lay.blk), blocks, d * bk);
+  if (sign != nullptr)
+    stage_f32(reinterpret_cast<float*>(smem + lay.sg), sign, d);
+  stage_f32(reinterpret_cast<float*>(smem + lay.hb), hb, b * b);
+  stage_f32(reinterpret_cast<float*>(smem + lay.ha), ha, a * a);
+  cp_async_commit();
+  float* s_x = reinterpret_cast<float*>(smem + lay.x);
+  for (int t = threadIdx.x; t < m * d; t += kThreads)
+    s_x[t] = tq::to_f32(x[t]);
+}
+
+// Zero the weight rows [from, to) of a staged tile (row pitch ``pitch``):
+// the rows past the weight up to k_groups(d), against zero codes.
+__device__ inline void zero_weight_rows(int8_t* s_w, int pitch, int from,
+                                        int to) {
+  for (int e = from * pitch + threadIdx.x; e < to * pitch; e += kThreads)
+    s_w[e] = 0;
+}
+
+// Transform and asymmetric-quantize (act_bits) the m rows of any width d =
+// a * b on one CTA (the general path; a cluster of one). Each output is
+// the chain of transform_quant_rows in the same order (the block-CAT over
+// the block's row j, Z = Y Hb^T over j, Ha Z over i, each one fmaf chain
+// from 0 by one thread), so the codes, scales and zero points equal the
+// plain version's bitwise as on the vector path. Ends with every row's
+// scale and signed-shifted zero point in s_sx[r], s_zx[r] and its codes
+// at codes[r * ldq + k] for k < kz (0 for k >= d), visible to the block
+// (``codes`` may be shared or device memory). Called by every thread
+// after stage_transform_any and the caller's next cp.async commit
+// (stage_weights, or an empty group), which it does not wait for.
+__device__ inline void transform_quant_any(int m, int d, bool has_blocks,
+                                           int bk,
+                                           const float* __restrict__ sign,
+                                           int a, int b, int act_bits,
+                                           const TqLayout& lay, char* smem,
+                                           float* s_sx, float* s_zx,
+                                           int8_t* codes, size_t ldq,
+                                           int kz) {
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const float* s_x = reinterpret_cast<const float*>(smem + lay.x);
+  const float* s_sg = reinterpret_cast<const float*>(smem + lay.sg);
+  const float* s_blk = reinterpret_cast<const float*>(smem + lay.blk);
+  const float* s_hb = reinterpret_cast<const float*>(smem + lay.hb);
+  const float* s_ha = reinterpret_cast<const float*>(smem + lay.ha);
+  float* s_y = reinterpret_cast<float*>(smem + lay.y);
+  float* s_z = reinterpret_cast<float*>(smem + lay.zt);
+  __shared__ float s_zp[kMaxRows];
+  cp_async_wait_prior();
+  __syncthreads();   // staged operands visible
+  // 1. block-CAT, then * sign: y[r][e] over the block row e
+  for (int t = tid; t < m * d; t += kThreads) {
+    const int r = t / d, e = t - r * d;
+    float acc = s_x[t];
+    if (has_blocks) {
+      const float* xr = s_x + r * d + (e / bk) * bk;
+      const float* brow = s_blk + (size_t)e * bk;
+      acc = 0.f;
+      for (int j = 0; j < bk; ++j) acc = fmaf(xr[j], brow[j], acc);
+    }
+    s_y[t] = acc * (sign != nullptr ? s_sg[e] : 1.f);
+  }
+  __syncthreads();
+  // 2. Z = Y Hb^T: z[r][i][l] over j
+  for (int t = tid; t < m * d; t += kThreads) {
+    const int r = t / d, e = t - r * d, i = e / b, l = e - i * b;
+    const float* yr = s_y + r * d + i * b;
+    const float* hrow = s_hb + l * b;
+    float acc = 0.f;
+    for (int j = 0; j < b; ++j) acc = fmaf(yr[j], hrow[j], acc);
+    s_z[t] = acc;
+  }
+  __syncthreads();
+  // 3. Ha Z: out[r][p][l] over i
+  for (int t = tid; t < m * d; t += kThreads) {
+    const int r = t / d, e = t - r * d, p = e / b, l = e - p * b;
+    const float* zr = s_z + r * d + l;
+    const float* hrow = s_ha + p * a;
+    float acc = 0.f;
+    for (int i = 0; i < a; ++i) acc = fmaf(zr[i * b], hrow[i], acc);
+    s_y[t] = acc;
+  }
+  __syncthreads();
+  // 4. each row's range (a warp per row), scale and zero point
+  for (int r = warp; r < m; r += kWarps) {
+    float mn = INFINITY, mx = -INFINITY;
+    for (int e = lane; e < d; e += 32) {
+      mn = fminf(mn, s_y[r * d + e]);
+      mx = fmaxf(mx, s_y[r * d + e]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, off));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    }
+    if (lane == 0) {
+      float scale, zp;
+      tq::asym_params(mn, mx, act_bits, &scale, &zp);
+      s_sx[r] = scale;
+      s_zp[r] = zp;
+      s_zx[r] = zp - (float)(1 << (act_bits - 1));
+    }
+  }
+  __syncthreads();
+  // 5. the codes, zero past d
+  for (int t = tid; t < m * kz; t += kThreads) {
+    const int r = t / kz, k = t - r * kz;
+    codes[r * ldq + k] =
+        k < d ? tq::asym_code(s_y[r * d + k], s_sx[r], s_zp[r], act_bits)
+              : (int8_t)0;
+  }
+  __syncthreads();
 }
 
 // Exact int32 contraction of m rows of codes (s_q, row stride ldq bytes,

@@ -5,15 +5,11 @@
 //   acc = sum_k qx[m, k] * qw[k, n] in exact int32.
 // Shared by the fused CAT linear's tiled path (fused_cat_matmul.cu, stage
 // 2) and the stand-alone contractions of the composed linear
-// (quant_matmul.cu); the decode fused linear and the decode prologue
-// contract on their own (cluster_tq.cuh).
-//
-// Two kernels. The GEMV (m <= 8, int4-packed or int8 weights: the
-// weight is the only large stream; one CTA per 32 output columns, 8
-// K-slices reduced in shared memory; quant_matmul.cu's decode-shaped
-// entries) and, above 8 rows, the tensor-core
-// one (namespace w8a8 below: mma.sync s8 x s8 -> s32 on 64 x 64 tiles,
-// int4-packed weights unpacked to s8 in shared memory on the way).
+// (quant_matmul.cu) above 8 rows: the tensor-core kernel (namespace w8a8
+// below: mma.sync s8 x s8 -> s32 on 64 x 64 tiles, int4-packed weights
+// unpacked to s8 in shared memory on the way). At m <= 8 rows every
+// contraction runs ctq::contract_codes (cluster_tq.cuh): the decode fused
+// linear, the decode prologue and the code GEMV of quant_matmul.cu.
 // Integer accumulation is exact over all of K, so the column sums ride
 // along and the epilogue runs once (the TPU kernels add one f32 epilogue
 // per K tile; the reference's oracle, like this, applies it once).
@@ -29,86 +25,12 @@
 
 namespace contract {
 
-constexpr int kGemvM = 8;       // rows served by the GEMV contraction
-constexpr int kGemvCols = 32;   // output columns per GEMV CTA
-constexpr int kGemvSlices = 8;  // K-slices per GEMV CTA
-
-__device__ __forceinline__ int lo_nibble(int byte) {
-  return ((byte & 0xF) ^ 8) - 8;
-}
-__device__ __forceinline__ int hi_nibble(int byte) {
-  return (((byte >> 4) & 0xF) ^ 8) - 8;
-}
+constexpr int kGemvM = 8;   // rows served by the GEMV (quant_matmul.cu)
 
 __device__ __forceinline__ float epilogue(float sxv, float swv, int acc,
                                           float zxv, int cs) {
   return __fmul_rn(__fmul_rn(sxv, swv),
                    __fsub_rn((float)acc, __fmul_rn(zxv, (float)cs)));
-}
-
-// GEMV contraction for m <= 8 rows.
-// block (kGemvCols, kGemvSlices); dynamic shared memory: m * k_pad codes.
-template <bool PACKED>
-__global__ void contract_gemv_kernel(
-    const int8_t* __restrict__ qx, int ldq, int k_valid,
-    const float* __restrict__ sx, const float* __restrict__ zx, int m,
-    int k_pad, const int8_t* __restrict__ qw, const float* __restrict__ sw,
-    int n, float* __restrict__ out) {
-  extern __shared__ int8_t s_q[];
-  __shared__ int s_acc[kGemvM][kGemvSlices][kGemvCols];
-  __shared__ int s_cs[kGemvSlices][kGemvCols];
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kGemvCols + tx, nt = kGemvCols * kGemvSlices;
-  for (int i = tid; i < m * k_pad; i += nt) {
-    const int r = i / k_pad, k = i - r * k_pad;
-    s_q[i] = k < k_valid ? qx[(size_t)r * ldq + k] : 0;
-  }
-  __syncthreads();
-  const int col = blockIdx.x * kGemvCols + tx;
-  int acc[kGemvM];
-#pragma unroll
-  for (int r = 0; r < kGemvM; ++r) acc[r] = 0;
-  int cs = 0;
-  if (col < n) {
-    if (PACKED) {
-      const int kp = k_pad / 2;
-      for (int pr = ty; pr < kp; pr += kGemvSlices) {
-        const int byte = qw[(size_t)pr * n + col];
-        const int lo = lo_nibble(byte), hi = hi_nibble(byte);
-        cs += lo + hi;
-#pragma unroll
-        for (int r = 0; r < kGemvM; ++r) {
-          if (r < m) {
-            acc[r] += (int)s_q[r * k_pad + 2 * pr] * lo
-                    + (int)s_q[r * k_pad + 2 * pr + 1] * hi;
-          }
-        }
-      }
-    } else {
-      for (int k = ty; k < k_pad; k += kGemvSlices) {
-        const int w = qw[(size_t)k * n + col];
-        cs += w;
-#pragma unroll
-        for (int r = 0; r < kGemvM; ++r) {
-          if (r < m) acc[r] += (int)s_q[r * k_pad + k] * w;
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kGemvM; ++r) s_acc[r][ty][tx] = acc[r];
-  s_cs[ty][tx] = cs;
-  __syncthreads();
-  if (ty == 0 && col < n) {
-    int total_cs = 0;
-    for (int s = 0; s < kGemvSlices; ++s) total_cs += s_cs[s][tx];
-    const float swv = sw[col];
-    for (int r = 0; r < m; ++r) {
-      int total = 0;
-      for (int s = 0; s < kGemvSlices; ++s) total += s_acc[r][s][tx];
-      out[(size_t)r * n + col] = epilogue(sx[r], swv, total, zx[r], total_cs);
-    }
-  }
 }
 
 // Tensor-core contraction of m > 8 rows against int8 weights (W8A8) or
@@ -423,31 +345,6 @@ inline long long w8a8_scratch(int m, int n, int splits) {
   const long long m_tiles = (m + w8a8::kTM - 1) / w8a8::kTM;
   const long long n_tiles = (n + w8a8::kTN - 1) / w8a8::kTN;
   return (long long)m * n + m_tiles * (n + n_tiles);
-}
-
-// Launch the GEMV contraction (m <= kGemvM). Returns cudaGetLastError().
-inline cudaError_t launch_gemv(const void* qx, int ldq, int k_valid,
-                               const void* sx, const void* zx, int m,
-                               int k_pad, const void* qw, int packed,
-                               const void* sw, int n, void* out,
-                               cudaStream_t stream) {
-  dim3 grid((n + kGemvCols - 1) / kGemvCols);
-  dim3 block(kGemvCols, kGemvSlices);
-  const size_t smem = (size_t)m * k_pad;
-  auto q = static_cast<const int8_t*>(qx);
-  auto s = static_cast<const float*>(sx);
-  auto z = static_cast<const float*>(zx);
-  auto w = static_cast<const int8_t*>(qw);
-  auto sc = static_cast<const float*>(sw);
-  auto o = static_cast<float*>(out);
-  if (packed) {
-    contract_gemv_kernel<true><<<grid, block, smem, stream>>>(
-        q, ldq, k_valid, s, z, m, k_pad, w, sc, n, o);
-  } else {
-    contract_gemv_kernel<false><<<grid, block, smem, stream>>>(
-        q, ldq, k_valid, s, z, m, k_pad, w, sc, n, o);
-  }
-  return cudaGetLastError();
 }
 
 // Launch the tensor-core contraction (m > kGemvM) of qx (row stride ldq,

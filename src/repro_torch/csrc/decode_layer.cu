@@ -22,6 +22,10 @@
 // the per-head amax of the KV quant stay inside the CTA and its codes go
 // straight to the pool.
 //
+// Widths the cluster transform does not split (ctq::general: odd D, any
+// factors, any CAT block dividing D) run on clusters of one head CTA
+// through the general path of cluster_tq.cuh, bitwise as the vector path.
+//
 // Bound on this card: the packed QKV weight (D/2 x N bytes, 256 KiB at
 // full width) over HBM bandwidth; everything else is a few KiB. The design
 // reads each weight byte once (each CTA its own hd columns) and keeps
@@ -40,7 +44,9 @@ constexpr int kMaxRows = ctq::kMaxRows;   // decode rows per launch
 // blockIdx.x owns head blockIdx.x. Dynamic shared memory: the plan's
 // (ctq::CtaLayout with outputs): the transform's (all m x d codes
 // included), the head's weight columns, partial sums and (m, hd) outputs.
-template <typename T, bool PACKED>
+// ANY: the general path (c = 1), K padded to k_groups(d) with zero codes
+// and zero weight rows.
+template <typename T, bool PACKED, bool ANY>
 __global__ void __launch_bounds__(ctq::kThreads) decode_qkv_prologue_kernel(
     const T* __restrict__ x, int m, int d,
     const float* __restrict__ blocks, int bk,
@@ -62,9 +68,9 @@ __global__ void __launch_bounds__(ctq::kThreads) decode_qkv_prologue_kernel(
   const int tid = threadIdx.x, nt = blockDim.x;
   const int head = blockIdx.x;
   const int kvh = n_kv / hd, L = d / c, bl = b / c;
-  const int unit = PACKED ? 2 : 1, w_rows = d / unit;   // K per weight row
+  const int unit = PACKED ? 2 : 1;   // K per weight row
   const ctq::CtaLayout lay(m, d, c, a, b, blocks != nullptr ? bk : 0,
-                           PACKED, hd, true);
+                           PACKED, hd, true, ANY);
   int8_t* s_w = reinterpret_cast<int8_t*>(smem + lay.w);
   int* s_part = reinterpret_cast<int*>(smem + lay.part);
   int* s_pcs = s_part + lay.slices * m * hd;
@@ -76,20 +82,37 @@ __global__ void __launch_bounds__(ctq::kThreads) decode_qkv_prologue_kernel(
   // 1. the transform's operands and the head's weight columns (loads
   //    overlap the transform), then the rows' transform + quant over the
   //    cluster, which leaves all the codes in every CTA
-  ctq::stage_transform(x, m, d, c, rank, blocks, bk, sign, ha, a, hb, b,
-                       lay.tq, smem);
-  ctq::stage_f32(s_sw, sw + head * hd, hd);
-  ctq::stage_weights(s_w, lay.pitch, qw, n, w_rows, L / unit, bl / unit,
-                     b / unit, head * hd, hd, vw);
-  ctq::transform_quant(m, d, c, rank, blocks != nullptr, bk, sign, a, b,
-                       act_bits, lay.tq, smem, s_sx, s_zx);
-  cluster.sync();   // every CTA holds all the codes
+  if constexpr (ANY) {
+    ctq::stage_transform_any(x, m, d, blocks, bk, sign, ha, a, hb, b,
+                             lay.tq, smem);
+    ctq::stage_f32(s_sw, sw + head * hd, hd);
+    const int w_rows = (d + unit - 1) / unit;   // the weight's rows
+    ctq::stage_weights(s_w, lay.pitch, qw, n, w_rows, w_rows, 1, 1,
+                       head * hd, hd, vw);
+    ctq::zero_weight_rows(s_w, lay.pitch, w_rows, ctq::k_groups(d) / unit);
+    ctq::transform_quant_any(
+        m, d, blocks != nullptr, bk, sign, a, b, act_bits, lay.tq, smem,
+        s_sx, s_zx, reinterpret_cast<int8_t*>(smem + lay.tq.qall),
+        ctq::align16(d), ctq::k_groups(d));
+  } else {
+    ctq::stage_transform(x, m, d, c, rank, blocks, bk, sign, ha, a, hb, b,
+                         lay.tq, smem);
+    ctq::stage_f32(s_sw, sw + head * hd, hd);
+    ctq::stage_weights(s_w, lay.pitch, qw, n, d / unit, L / unit, bl / unit,
+                       b / unit, head * hd, hd, vw);
+    ctq::transform_quant(m, d, c, rank, blocks != nullptr, bk, sign, a, b,
+                         act_bits, lay.tq, smem, s_sx, s_zx);
+    cluster.sync();   // every CTA holds all the codes
+  }
   ctq::cp_async_wait_all();
   __syncthreads();
 
-  // 2. the head's hd columns over all of K, then the epilogue
+  // 2. the head's hd columns over all of K (the table's row stride and
+  //    the K contracted: d on the vector path; d rounded up to 16 and to
+  //    a dp4a group on the general one), then the epilogue
   ctq::contract_codes<PACKED, kMaxRows>(
-      reinterpret_cast<const int8_t*>(smem + lay.tq.qall), d, d, s_w,
+      reinterpret_cast<const int8_t*>(smem + lay.tq.qall),
+      ANY ? (int)ctq::align16(d) : d, ANY ? ctq::k_groups(d) : d, s_w,
       lay.pitch, hd, m, s_part, s_pcs);
   for (int t = tid; t < m * hd; t += nt) {
     const int r = t / hd, j = t - r * hd;
@@ -160,9 +183,12 @@ cudaError_t launch(const void* x, int m, int d, const void* blocks, int bk,
                    const void* positions, int page_size, void* k_pool,
                    void* k_scale, void* v_pool, void* v_scale, void* q_out,
                    const ctq::Plan& p, cudaStream_t stream) {
+  auto kernel =
+      ctq::splits(d, a, b, blocks != nullptr ? bk : 0, p.cluster)
+          ? decode_qkv_prologue_kernel<T, PACKED, false>
+          : decode_qkv_prologue_kernel<T, PACKED, true>;
   return ctq::launch_cluster(
-      decode_qkv_prologue_kernel<T, PACKED>, p.clusters * p.cluster,
-      p.cluster, (size_t)p.smem, stream,
+      kernel, p.clusters * p.cluster, p.cluster, (size_t)p.smem, stream,
       static_cast<const T*>(x), m, d, static_cast<const float*>(blocks), bk,
       static_cast<const float*>(sign), static_cast<const float*>(ha), a,
       static_cast<const float*>(hb), b, act_bits,
@@ -214,6 +240,7 @@ extern "C" int decode_qkv_prologue(
 // Clusters of ``cluster`` CTAs of the prologue (bf16 x, packed weights)
 // resident at once with ``smem`` bytes each, or -1 on error.
 extern "C" int decode_qkv_prologue_capacity(int cluster, int smem) {
-  return ctq::max_clusters(decode_qkv_prologue_kernel<__nv_bfloat16, true>,
-                           cluster, (size_t)smem);
+  return ctq::max_clusters(
+      decode_qkv_prologue_kernel<__nv_bfloat16, true, false>, cluster,
+      (size_t)smem);
 }

@@ -28,6 +28,13 @@
 // to s8 in shared memory), which the composed linear's contractions
 // (quant_matmul.cu) share.
 //
+// Widths the cluster transform does not split (ctq::general: odd D, any
+// factors, any CAT block dividing D) run the same kernels on a cluster of
+// one CTA through the general path of cluster_tq.cuh (scalar fmaf chains,
+// codes and weight rows padded with zeros to a whole dp4a group; stage 1
+// stores the codes of its rows byte by byte, zero past D), bitwise to the
+// plain version as the vector path is.
+//
 // Bound on this card: at decode shapes the packed-weight bytes (D/2 x N)
 // over HBM bandwidth; at the 128-row ragged step the weight is still the
 // larger stream (D/2 x N vs m x D x 2), so bytes bound both. In practice
@@ -45,8 +52,10 @@ namespace {
 // mg) (mg = min(rows, m - g * rows)) over its CTAs (cluster_tq.cuh), and
 // CTA `rank` stores the codes of its K set (K = p * b + rank * bl + ll,
 // runs of bl = b / c consecutive K) into qx (row stride k_pad) in vw-byte
-// pieces, rank 0 the rows' sx and zx. Dynamic shared memory: the plan's
-// (ctq::TqLayout without the table of all codes).
+// pieces, rank 0 the rows' sx and zx. VW 1: the general path (c = 1),
+// every code of the rows stored byte by byte, zero at K >= d. Dynamic
+// shared memory: the plan's (ctq::TqLayout without the table of all
+// codes).
 template <typename T, int VW>
 __global__ void __launch_bounds__(ctq::kThreads) cluster_transform_quant_kernel(
     const T* __restrict__ x, int m, int d, int k_pad, int rows,
@@ -65,23 +74,32 @@ __global__ void __launch_bounds__(ctq::kThreads) cluster_transform_quant_kernel(
   const ctq::TqLayout lay(rows, d, c, a, b, blocks != nullptr ? bk : 0,
                           false);
   __shared__ float s_sx[ctq::kMaxRows], s_zx[ctq::kMaxRows];
-  ctq::stage_transform(x + (size_t)r0 * d, mg, d, c, rank, blocks, bk, sign,
-                       ha, a, hb, b, lay, smem);
-  ctq::cp_async_commit();   // no weights: an empty group after the operands
-  ctq::transform_quant(mg, d, c, rank, blocks != nullptr, bk, sign, a, b,
-                       act_bits, lay, smem, s_sx, s_zx, false);
-  const int8_t* s_q = reinterpret_cast<const int8_t*>(smem + lay.q);
-  const int per_row = L / VW;
-  for (int t = threadIdx.x; t < mg * per_row; t += ctq::kThreads) {
-    const int r = t / per_row, kk = (t - r * per_row) * VW;
-    const int p = kk / bl, ll = kk - p * bl;
-    int8_t* dst = qx + (size_t)(r0 + r) * k_pad + p * b + rank * bl + ll;
-    if (VW == 4) {
-      *reinterpret_cast<int*>(dst) =
-          *reinterpret_cast<const int*>(s_q + r * L + kk);
-    } else {
-      *reinterpret_cast<short*>(dst) =
-          *reinterpret_cast<const short*>(s_q + r * L + kk);
+  if constexpr (VW == 1) {
+    ctq::stage_transform_any(x + (size_t)r0 * d, mg, d, blocks, bk, sign,
+                             ha, a, hb, b, lay, smem);
+    ctq::cp_async_commit();   // no weights: an empty group
+    ctq::transform_quant_any(mg, d, blocks != nullptr, bk, sign, a, b,
+                             act_bits, lay, smem, s_sx, s_zx,
+                             qx + (size_t)r0 * k_pad, k_pad, k_pad);
+  } else {
+    ctq::stage_transform(x + (size_t)r0 * d, mg, d, c, rank, blocks, bk,
+                         sign, ha, a, hb, b, lay, smem);
+    ctq::cp_async_commit();   // no weights: an empty group after the operands
+    ctq::transform_quant(mg, d, c, rank, blocks != nullptr, bk, sign, a, b,
+                         act_bits, lay, smem, s_sx, s_zx, false);
+    const int8_t* s_q = reinterpret_cast<const int8_t*>(smem + lay.q);
+    const int per_row = L / VW;
+    for (int t = threadIdx.x; t < mg * per_row; t += ctq::kThreads) {
+      const int r = t / per_row, kk = (t - r * per_row) * VW;
+      const int p = kk / bl, ll = kk - p * bl;
+      int8_t* dst = qx + (size_t)(r0 + r) * k_pad + p * b + rank * bl + ll;
+      if (VW == 4) {
+        *reinterpret_cast<int*>(dst) =
+            *reinterpret_cast<const int*>(s_q + r * L + kk);
+      } else {
+        *reinterpret_cast<short*>(dst) =
+            *reinterpret_cast<const short*>(s_q + r * L + kk);
+      }
     }
   }
   if (rank == 0 && threadIdx.x < mg) {
@@ -97,10 +115,13 @@ cudaError_t launch_stage1(const void* x, int m, int d, int k_pad,
                           int act_bits, const ctq::Plan& p, void* qx,
                           void* sx, void* zx, cudaStream_t stream) {
   // each CTA's runs of bl = b / c codes go out 4 or 2 bytes at a time (bl
-  // is even, k_pad = d a multiple of 32)
+  // is even, k_pad = d a multiple of 32); the general path's byte by byte
   const bool vec4 = (b / p.cluster) % 4 == 0;
-  auto kernel = vec4 ? cluster_transform_quant_kernel<T, 4>
-                     : cluster_transform_quant_kernel<T, 2>;
+  auto kernel =
+      !ctq::splits(d, a, b, blocks != nullptr ? bk : 0, p.cluster)
+          ? cluster_transform_quant_kernel<T, 1>
+      : vec4 ? cluster_transform_quant_kernel<T, 4>
+             : cluster_transform_quant_kernel<T, 2>;
   return ctq::launch_cluster(
       kernel, p.clusters * p.cluster, p.cluster, (size_t)p.smem, stream,
       static_cast<const T*>(x), m, d, k_pad, p.cols,
@@ -113,9 +134,10 @@ cudaError_t launch_stage1(const void* x, int m, int d, int k_pad,
 // Decode: grid (clusters * c), clusters of c, ctq::kThreads threads. CTA
 // `rank` of cluster g owns output columns [n0, n0 + tc), n0 = (g * c +
 // rank) * tc; the cluster shares the transform (cluster_tq.cuh), and each
-// CTA contracts all of K for its columns. Dynamic shared memory: the
-// plan's (ctq::CtaLayout).
-template <typename T, bool PACKED>
+// CTA contracts all of K for its columns. ANY: the general path (c = 1),
+// K padded to k_groups(d) with zero codes and zero weight rows. Dynamic
+// shared memory: the plan's (ctq::CtaLayout).
+template <typename T, bool PACKED, bool ANY>
 __global__ void __launch_bounds__(ctq::kThreads) fused_cat_gemv_kernel(
     const T* __restrict__ x, int m, int d,
     const float* __restrict__ blocks, int bk,
@@ -130,9 +152,9 @@ __global__ void __launch_bounds__(ctq::kThreads) fused_cat_gemv_kernel(
   cg::cluster_group cluster = cg::this_cluster();
   const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int n0 = blockIdx.x * tc, L = d / c, bl = b / c;
-  const int unit = PACKED ? 2 : 1, w_rows = d / unit;   // K per weight row
+  const int unit = PACKED ? 2 : 1;   // K per weight row
   const ctq::CtaLayout lay(m, d, c, a, b, blocks != nullptr ? bk : 0,
-                           PACKED, tc, false);
+                           PACKED, tc, false, ANY);
   int8_t* s_w = reinterpret_cast<int8_t*>(smem + lay.w);
   int* s_part = reinterpret_cast<int*>(smem + lay.part);
   int* s_pcs = s_part + lay.slices * m * tc;
@@ -141,19 +163,38 @@ __global__ void __launch_bounds__(ctq::kThreads) fused_cat_gemv_kernel(
 
   // the transform's operands, then the weight columns, whose loads overlap
   // the transform
-  ctq::stage_transform(x, m, d, c, rank, blocks, bk, sign, ha, a, hb, b,
-                       lay.tq, smem);
-  const int cols = max(min(tc, n - n0), 0);
-  ctq::stage_f32(s_sw, sw + n0, cols);
-  ctq::stage_weights(s_w, lay.pitch, qw, n, w_rows, L / unit, bl / unit,
-                     b / unit, n0, tc, vw);
-  ctq::transform_quant(m, d, c, rank, blocks != nullptr, bk, sign, a, b,
-                       act_bits, lay.tq, smem, s_sx, s_zx);
-  cluster.sync();   // every CTA holds all the codes
+  int cols;
+  if constexpr (ANY) {
+    ctq::stage_transform_any(x, m, d, blocks, bk, sign, ha, a, hb, b,
+                             lay.tq, smem);
+    cols = max(min(tc, n - n0), 0);
+    ctq::stage_f32(s_sw, sw + n0, cols);
+    const int w_rows = (d + unit - 1) / unit;   // the weight's rows
+    ctq::stage_weights(s_w, lay.pitch, qw, n, w_rows, w_rows, 1, 1, n0, tc,
+                       vw);
+    ctq::zero_weight_rows(s_w, lay.pitch, w_rows, ctq::k_groups(d) / unit);
+    ctq::transform_quant_any(
+        m, d, blocks != nullptr, bk, sign, a, b, act_bits, lay.tq, smem,
+        s_sx, s_zx, reinterpret_cast<int8_t*>(smem + lay.tq.qall),
+        ctq::align16(d), ctq::k_groups(d));
+  } else {
+    ctq::stage_transform(x, m, d, c, rank, blocks, bk, sign, ha, a, hb, b,
+                         lay.tq, smem);
+    cols = max(min(tc, n - n0), 0);
+    ctq::stage_f32(s_sw, sw + n0, cols);
+    ctq::stage_weights(s_w, lay.pitch, qw, n, d / unit, L / unit, bl / unit,
+                       b / unit, n0, tc, vw);
+    ctq::transform_quant(m, d, c, rank, blocks != nullptr, bk, sign, a, b,
+                         act_bits, lay.tq, smem, s_sx, s_zx);
+    cluster.sync();   // every CTA holds all the codes
+  }
   ctq::cp_async_wait_all();
   __syncthreads();
+  // the table's row stride and the K contracted: d on the vector path;
+  // d rounded up to 16 and to a dp4a group on the general one
   ctq::contract_codes<PACKED, ctq::kMaxRows>(
-      reinterpret_cast<const int8_t*>(smem + lay.tq.qall), d, d, s_w,
+      reinterpret_cast<const int8_t*>(smem + lay.tq.qall),
+      ANY ? (int)ctq::align16(d) : d, ANY ? ctq::k_groups(d) : d, s_w,
       lay.pitch, tc, m, s_part, s_pcs);
   for (int t = threadIdx.x; t < m * cols; t += ctq::kThreads) {
     const int r = t / cols, j = t - r * cols;
@@ -169,8 +210,12 @@ cudaError_t launch_decode(const void* x, int m, int d, const void* blocks,
                           const void* qw, const void* sw, int n,
                           const ctq::Plan& p, void* out,
                           cudaStream_t stream) {
+  auto kernel =
+      ctq::splits(d, a, b, blocks != nullptr ? bk : 0, p.cluster)
+          ? fused_cat_gemv_kernel<T, PACKED, false>
+          : fused_cat_gemv_kernel<T, PACKED, true>;
   return ctq::launch_cluster(
-      fused_cat_gemv_kernel<T, PACKED>, p.clusters * p.cluster, p.cluster,
+      kernel, p.clusters * p.cluster, p.cluster,
       (size_t)p.smem, stream, static_cast<const T*>(x), m, d,
       static_cast<const float*>(blocks), bk,
       static_cast<const float*>(sign), static_cast<const float*>(ha), a,
@@ -216,14 +261,16 @@ extern "C" int fused_cat_gemv_w4(
 // Clusters of ``cluster`` CTAs of the decode kernel (bf16 x, packed
 // weights) resident at once with ``smem`` bytes each, or -1 on error.
 extern "C" int fused_cat_gemv_capacity(int cluster, int smem) {
-  return ctq::max_clusters(fused_cat_gemv_kernel<__nv_bfloat16, true>,
-                           cluster, (size_t)smem);
+  return ctq::max_clusters(
+      fused_cat_gemv_kernel<__nv_bfloat16, true, false>, cluster,
+      (size_t)smem);
 }
 
 // Tiled entry (m > 8): stage 1 is the cluster transform-quant on the plan
 // of ctq::tiled_plan (cluster_plan.h) with ``rows`` rows per cluster (0:
-// the plan's), into the code scratch qx (m, k_pad = d) int8, sx, zx (m,)
-// f32; stage 2 the tensor-core contraction, for packed or int8 weights,
+// the plan's), into the code scratch qx (m, k_pad) int8 (k_pad = d, or d
+// + 1 for odd d against packed weights: that code is 0), sx, zx (m,) f32;
+// stage 2 the tensor-core contraction, for packed or int8 weights,
 // with ``splits`` K splits and their scratch ws (quant_matmul_plan of
 // quant_matmul.cu, with k = k_pad). A shape the plan does not take returns
 // cudaErrorInvalidValue. Returns cudaGetLastError() of the launches.
@@ -235,7 +282,7 @@ extern "C" int fused_cat_matmul_w4(
     void* ws, void* qx, void* sx, void* zx, void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   ctq::Plan p;
-  if (act_bits < 2 || act_bits > 8 || k_pad != d
+  if (act_bits < 2 || act_bits > 8 || k_pad != d + (packed ? d % 2 : 0)
       || !ctq::tiled_plan(m, d, a, b, blocks != nullptr ? bk : 0,
                           ctq::device_smem_optin(), rows, &p))
     return (int)cudaErrorInvalidValue;

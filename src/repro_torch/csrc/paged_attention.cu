@@ -35,13 +35,29 @@
 // the length is read. The split rule and the shared-memory layout are
 // attention_plan.h's, which the entry runs on every call.
 //
-// Ragged (paged_attn_ragged_kernel): one CTA per (work item, KV head,
-// block of 128 query rows); it walks the item's page-table row, stages
-// each K/V page of its head in shared memory dequantized to f32, and every
-// thread carries one query row's online-softmax state (m, l, acc[hd]) in
-// f32 registers. A query row attends kv positions p with p <= q_pos and p
-// < length; q_pos < 0 marks a padding row, whose output is written as
-// zeros, and a CTA whose rows are all padding reads no page.
+// Ragged (paged_attn_ragged_kernel): one CTA of four warps per (work
+// item, KV head, tile of 64 query rows (qi, gi) in order, 16 per warp).
+// A query row attends kv positions p < its horizon min(q_pos + 1, length);
+// q_pos < 0 marks a padding row (horizon 0), written as zeros. The CTA
+// walks positions in chunks of 64 up to its tile's largest horizon (a
+// chunk past it is never read, a tile of padding reads no page), staged
+// as int8 by the decode kernel's stage_chunk (16-byte cp.async, two-stage
+// ring, K rows swizzled); each chunk's codes are turned into bf16 in
+// shared memory once per CTA (V transposed by 4 x 4 byte blocks, so that
+// the P.V operand's positions are contiguous). Both products run on the tensor cores, mma.sync m16n8k16
+// bf16 x bf16 -> f32: the int8 codes are exact in bf16; a bf16 q is exact
+// as it stands and an f32 q is split into a bf16 high and low part (two
+// products); each score column is multiplied by its K scale after the
+// product; the V scale is folded into the probabilities (p * v_scale),
+// which are split into bf16 high and low parts. The fragments permute the
+// products' inner index so that a thread's codes are contiguous bytes:
+// for the scores, thread t's K bytes [t hd / 4, (t + 1) hd / 4) of a row
+// in one load; for P.V, its 16 positions [16 t, 16 t + 16) of the chunk,
+// which are also the score columns it holds. The online softmax runs per
+// row in registers (a quad's shuffles in a fixed order); a row with no
+// valid position yet keeps m = -inf and adds nothing. Every sum has a
+// fixed order and no float atomic is used, so equal inputs give equal
+// bits.
 //
 // Bound on this card: the int8 page bytes of the attended prefix plus
 // their scales, over HBM bandwidth. Decode reads each byte once per (item,
@@ -49,8 +65,9 @@
 // per item its time is the chain of dependent phases (the first chunk's
 // load, the hd-long score chain, two reductions, the chunk-long P.V
 // chain), which the split shortens at long prefixes while filling the
-// card. The ragged kernel streams each page once per (item, head, row
-// block) but runs one position at a time per query row.
+// card. The ragged kernel reads each page once per (item, head, tile)
+// and spends its time in dependent phases too: the chunk's load, the
+// transpose, the two products and the softmax between them.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -63,8 +80,6 @@ namespace {
 
 namespace cg = cooperative_groups;
 
-constexpr int kRows = 128;   // ragged: query rows (and threads) per CTA
-
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
@@ -76,89 +91,6 @@ __device__ __forceinline__ float round_to(float v, __nv_bfloat16*) {
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
-}
-
-// q, out: (R, nq, kvh, g, HD); pages: (n_pages, page_size, kvh, HD) int8;
-// scales: (n_pages, page_size, kvh, 1) f32; table (R, n_ptab) int32;
-// lengths (R,) int32; q_pos (R, nq) int32.
-// Dynamic shared memory: 2 * page_size * HD floats.
-template <typename T, int HD>
-__global__ void paged_attn_ragged_kernel(
-    const T* __restrict__ q, const int8_t* __restrict__ k_pages,
-    const float* __restrict__ k_scale, const int8_t* __restrict__ v_pages,
-    const float* __restrict__ v_scale, const int32_t* __restrict__ table,
-    int n_ptab, const int32_t* __restrict__ lengths,
-    const int32_t* __restrict__ q_pos, int nq, int kvh, int g,
-    int page_size, float q_scale, T* __restrict__ out) {
-  extern __shared__ float4 pa_smem[];
-  float* s_k = reinterpret_cast<float*>(pa_smem);
-  float* s_v = s_k + page_size * HD;
-  __shared__ int s_horizon;
-  const int item = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x;
-  const int r = blockIdx.z * kRows + tid;
-  const bool active = r < nq * g;
-  const int qi = active ? r / g : 0;
-  const int gi = active ? r - qi * g : 0;
-  const int len = lengths[item];
-  const int qpos = active ? q_pos[item * nq + qi] : -1;
-  const int horizon = qpos >= 0 ? min(qpos + 1, len) : 0;
-  if (tid == 0) s_horizon = 0;
-  __syncthreads();
-  if (horizon > 0) atomicMax(&s_horizon, horizon);
-  __syncthreads();
-  const int cta_horizon = s_horizon;
-  const size_t row_off = ((((size_t)item * nq + qi) * kvh + h) * g + gi) * HD;
-  if (cta_horizon == 0) {
-    if (active) {
-      for (int dd = 0; dd < HD; ++dd) store(out + row_off + dd, 0.f);
-    }
-    return;
-  }
-  T* round_tag = nullptr;
-  float qv[HD], acc[HD];
-#pragma unroll
-  for (int dd = 0; dd < HD; ++dd) {
-    qv[dd] = active ? round_to(to_f32(q[row_off + dd]) * q_scale, round_tag)
-                    : 0.f;
-    acc[dd] = 0.f;
-  }
-  float m = -INFINITY, l = 0.f;
-  const int n_pages = min((cta_horizon + page_size - 1) / page_size, n_ptab);
-  const int32_t* trow = table + (size_t)item * n_ptab;
-  for (int p = 0; p < n_pages; ++p) {
-    const size_t page = (size_t)trow[p];
-    __syncthreads();
-    for (int idx = tid; idx < page_size * HD; idx += kRows) {
-      const int row = idx / HD, dd = idx - row * HD;
-      const size_t tok = (page * page_size + row) * kvh + h;
-      s_k[idx] = (float)k_pages[tok * HD + dd] * k_scale[tok];
-      s_v[idx] = (float)v_pages[tok * HD + dd] * v_scale[tok];
-    }
-    __syncthreads();
-    const int j_end = min(page_size, horizon - p * page_size);
-    for (int j = 0; j < j_end; ++j) {
-      const float* kr = s_k + j * HD;
-      const float* vr = s_v + j * HD;
-      float s = 0.f;
-#pragma unroll
-      for (int dd = 0; dd < HD; ++dd) s = fmaf(qv[dd], kr[dd], s);
-      const float m_new = fmaxf(m, s);
-      const float corr = expf(m - m_new);
-      const float pw = expf(s - m_new);
-      l = l * corr + pw;
-#pragma unroll
-      for (int dd = 0; dd < HD; ++dd) acc[dd] = fmaf(pw, vr[dd], acc[dd] * corr);
-      m = m_new;
-    }
-  }
-  if (active) {
-    const float inv = 1.f / fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int dd = 0; dd < HD; ++dd) {
-      store(out + row_off + dd, horizon > 0 ? acc[dd] * inv : 0.f);
-    }
-  }
 }
 
 // ------------------------------------------------------------- decode
@@ -178,6 +110,9 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
 }
 
 // Byte k of the word wx (an int8 code XOR 0x80, as an unsigned byte u)
@@ -207,12 +142,14 @@ __device__ __forceinline__ int token_row(int page_id, int pos, int page_size,
 
 // Issue the cp.async copies of the n positions of stage `st`, whose token
 // rows are the stage's tok[]: K rows swizzled, V rows as they are, and the
-// f32 scales.
-template <int HD>
+// f32 scales; by pa::kThreads threads, this one t of them. Layout:
+// pa::DecodeLayout or pa::RaggedLayout (the same stage fields).
+template <int HD, typename Layout>
 __device__ __forceinline__ void stage_chunk(
-    char* smem, const pa::DecodeLayout& lay, int st, int n,
+    char* smem, const Layout& lay, int st, int n,
     const int8_t* __restrict__ k_pages, const float* __restrict__ k_scale,
-    const int8_t* __restrict__ v_pages, const float* __restrict__ v_scale) {
+    const int8_t* __restrict__ v_pages, const float* __restrict__ v_scale,
+    int t) {
   constexpr int cpr = HD / 16;
   char* base = smem + st * lay.stage;
   int8_t* s_k = reinterpret_cast<int8_t*>(base + lay.k);
@@ -220,13 +157,13 @@ __device__ __forceinline__ void stage_chunk(
   float* s_ks = reinterpret_cast<float*>(base + lay.ks);
   float* s_vs = reinterpret_cast<float*>(base + lay.vs);
   const int* s_tok = reinterpret_cast<const int*>(base + lay.tok);
-  for (int e = threadIdx.x; e < n * cpr; e += pa::kThreads) {
+  for (int e = t; e < n * cpr; e += pa::kThreads) {
     const int j = e / cpr, jc = e - j * cpr;
     const size_t row = (size_t)s_tok[j] * HD + jc * 16;
     cp_async16(s_k + j * HD + ((jc ^ kswz<HD>(j)) << 4), k_pages + row);
     cp_async16(s_v + j * HD + (jc << 4), v_pages + row);
   }
-  for (int j = threadIdx.x; j < n; j += pa::kThreads) {
+  for (int j = t; j < n; j += pa::kThreads) {
     cp_async4(s_ks + j, k_scale + s_tok[j]);
     cp_async4(s_vs + j, v_scale + s_tok[j]);
   }
@@ -299,7 +236,7 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
   __syncthreads();
   if (n_chunks > 0)
     stage_chunk<HD>(smem, lay, 0, min(pa::kChunk, hi - lo), k_pages,
-                    k_scale, v_pages, v_scale);
+                    k_scale, v_pages, v_scale, tid);
   cp_async_commit();
 
   // the query rows, scaled in f32 and rounded to T
@@ -328,7 +265,7 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
     if (c + 1 < n_chunks)
       stage_chunk<HD>(smem, lay, (c + 1) & 1,
                       min(pa::kChunk, hi - p0 - pa::kChunk), k_pages,
-                      k_scale, v_pages, v_scale);
+                      k_scale, v_pages, v_scale, tid);
     cp_async_commit();
     // the table entry of chunk c + 2's position tid, in flight while this
     // chunk computes; its token row goes to stage c & 1 at the end
@@ -520,6 +457,463 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
   }
 }
 
+// ------------------------------------------------------------- ragged
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 x bf16 -> f32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// x (low half) and y as bf16, rounded to nearest, in one register.
+__device__ __forceinline__ unsigned bf16x2(float x, float y) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// x and y as a bf16 high part (*hi) and the bf16 of the rest (*lo).
+__device__ __forceinline__ void split_bf16x2(float x, float y, unsigned* hi,
+                                             unsigned* lo) {
+  *hi = bf16x2(x, y);
+  const __nv_bfloat162 h = *reinterpret_cast<const __nv_bfloat162*>(hi);
+  *lo = bf16x2(x - __low2float(h), y - __high2float(h));
+}
+
+// The int8 codes k, k + 1 (k = 0 or 2) of the word wx (codes XOR 0x80)
+// as exact bf16 in one register.
+__device__ __forceinline__ unsigned codes_bf16x2(unsigned wx, int k) {
+  return bf16x2(code_f32(wx, k), code_f32(wx, k + 1));
+}
+
+// The 4 x 4 byte block w0..w3 (rows) transposed: out[c] holds byte c of
+// w0, w1, w2, w3, in that order.
+__device__ __forceinline__ void transpose4(unsigned w0, unsigned w1,
+                                           unsigned w2, unsigned w3,
+                                           unsigned (&out)[4]) {
+  const unsigned t0 = __byte_perm(w0, w1, 0x5140);
+  const unsigned t1 = __byte_perm(w0, w1, 0x7362);
+  const unsigned t2 = __byte_perm(w2, w3, 0x5140);
+  const unsigned t3 = __byte_perm(w2, w3, 0x7362);
+  out[0] = __byte_perm(t0, t2, 0x5410);
+  out[1] = __byte_perm(t0, t2, 0x7632);
+  out[2] = __byte_perm(t1, t3, 0x5410);
+  out[3] = __byte_perm(t1, t3, 0x7632);
+}
+
+// The bf16 K rows (2 HD bytes) keep 16-byte piece L of row j at piece L ^
+// kbswz(j, L), and the bf16 V^T rows (kRaggedChunk positions, 128 bytes)
+// piece L of row dd at L ^ vtswz(dd): the two rows a quarter-warp's
+// fragment loads read (lanes 4 gq .. 4 gq + 7: rows of both parities,
+// each lane its own pieces) fall on eight distinct bank groups, and a
+// transpose's writes (16 rows of one position block) on eight.
+__device__ __forceinline__ int kbswz(int j, int piece) {
+  return (j & 1) | (((piece >> 3) & 1) << 1);
+}
+__device__ __forceinline__ int vtswz(int dd) {
+  return ((dd >> 2) & 7) ^ (dd & 1);
+}
+
+// A staged chunk's int8 codes as bf16 for the tensor cores (exact): K rows
+// into s_kb (row j, dd at byte 2 dd of its row, pieces swizzled by
+// kbswz) and V transposed into s_vt (row dd, position p at byte 2 p,
+// pieces swizzled by vtswz), by 4 x 4 byte blocks of (positions 4 pb ..
+// 4 pb + 3, dd 4 db .. 4 db + 3); by pa::kThreads threads, this one t.
+template <int HD>
+__device__ __forceinline__ void convert_chunk(const int8_t* s_k,
+                                              const int8_t* s_v,
+                                              char* s_kb, char* s_vt,
+                                              int t) {
+  constexpr int kW = HD / 4;   // 4-byte words per int8 row
+  for (int e = t; e < pa::kRaggedChunk * kW; e += pa::kThreads) {
+    const int w = e % kW, j = e / kW;
+    const unsigned wx = *reinterpret_cast<const unsigned*>(
+        s_k + j * HD + (((w >> 2) ^ kswz<HD>(j)) << 4) + 4 * (w & 3))
+        ^ 0x80808080u;
+    const int piece = w >> 1;
+    *reinterpret_cast<uint2*>(
+        s_kb + j * 2 * HD + ((piece ^ kbswz(j, piece)) << 4)
+        + 8 * (w & 1)) = make_uint2(codes_bf16x2(wx, 0),
+                                    codes_bf16x2(wx, 2));
+  }
+  for (int e = t; e < pa::kRaggedChunk * kW / 4; e += pa::kThreads) {
+    const int db = e % kW, pb = e / kW;
+    const int8_t* src = s_v + (4 * pb) * HD + 4 * db;
+    unsigned col[4];
+    transpose4(*reinterpret_cast<const unsigned*>(src),
+               *reinterpret_cast<const unsigned*>(src + HD),
+               *reinterpret_cast<const unsigned*>(src + 2 * HD),
+               *reinterpret_cast<const unsigned*>(src + 3 * HD), col);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int dd = 4 * db + c, piece = pb >> 1;
+      const unsigned wx = col[c] ^ 0x80808080u;
+      *reinterpret_cast<uint2*>(
+          s_vt + dd * 2 * pa::kRaggedChunk + ((piece ^ vtswz(dd)) << 4)
+          + 8 * (pb & 1)) = make_uint2(codes_bf16x2(wx, 0),
+                                       codes_bf16x2(wx, 2));
+    }
+  }
+}
+
+// The bf16 words of a lane's fragment run: logical pieces [first, first +
+// n) of a row of s (row stride `pitch` bytes, pieces swizzled by swz),
+// 4 words each.
+template <int N, typename Swz>
+__device__ __forceinline__ void load_run(const char* row, int first,
+                                         Swz swz, unsigned (&w)[4 * N]) {
+#pragma unroll
+  for (int pc = 0; pc < N; ++pc) {
+    const int piece = first + pc;
+    const uint4 v = *reinterpret_cast<const uint4*>(
+        row + ((piece ^ swz(piece)) << 4));
+    w[4 * pc] = v.x;
+    w[4 * pc + 1] = v.y;
+    w[4 * pc + 2] = v.z;
+    w[4 * pc + 3] = v.w;
+  }
+}
+
+// Named barrier `id` (1 + a warp group) over the pa::kThreads threads of
+// one warp group.
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(pa::kThreads) : "memory");
+}
+
+// q, out: (R, nq, kvh, g, HD); pages, scales, table and lengths as the
+// decode kernel's; q_pos (R, nq). Grid pa::ragged_plan's ctas, CTA x tile
+// x % tiles of (item, head) x / tiles, pa::kRaggedThreads threads in
+// pa::kRaggedGroups warp groups: group G takes chunks c = G, G + groups,
+// ... of the tile (stage c % kRaggedStages, its own bf16 buffers) with its
+// own online softmax, and the groups' states are combined at the end in
+// group order. Warp w of a group owns the tile's rows 16 w .. 16 w + 15,
+// lane (gq = lane / 4, tq = lane % 4) the fragment rows gq and gq + 8
+// (rows rA, rB). Fragments (m16n8k16): the scores' inner index k of step
+// s is dd tq HD / 4 + 4 s + {0, 1} for k = 2 tq, 2 tq + 1 and + {2, 3}
+// for k = 2 tq + 8, 2 tq + 9; score column c of n-tile j is position 16
+// (c / 2) + 2 j + c % 2 of the chunk, so lane (gq, tq) holds the scores
+// of positions 16 tq + 2 j + {0, 1}; the P.V inner index of step s is
+// position 16 tq + 4 s + {0, 1} (k = 2 tq, 2 tq + 1) and + {2, 3} (k = 2
+// tq + 8, 2 tq + 9): n-tiles 2 s and 2 s + 1 of the scores. Dynamic
+// shared memory: pa::RaggedLayout(HD).
+template <typename T, int HD>
+__global__ void __launch_bounds__(pa::kRaggedThreads, 1)
+    paged_attn_ragged_kernel(
+        const T* __restrict__ q, const int8_t* __restrict__ k_pages,
+        const float* __restrict__ k_scale,
+        const int8_t* __restrict__ v_pages,
+        const float* __restrict__ v_scale, const int32_t* __restrict__ table,
+        int n_ptab, const int32_t* __restrict__ lengths,
+        const int32_t* __restrict__ q_pos, int nq, int kvh, int g,
+        int page_size, float q_scale, T* __restrict__ out) {
+  constexpr int kSteps = HD / 16;   // k-steps of the scores
+  constexpr int kQd = HD / 4;       // dd of a lane's fragment run
+  constexpr int kDt = HD / 8;       // n-tiles of the output
+  constexpr int kC = pa::kRaggedChunk;
+  constexpr int kGroups = pa::kRaggedGroups, kStages = pa::kRaggedStages;
+  constexpr int kParts = sizeof(T) == 4 ? 2 : 1;   // bf16 parts of q
+  extern __shared__ float4 pa_smem[];
+  char* smem = reinterpret_cast<char*>(pa_smem);
+  __shared__ int s_hmax[pa::kWarps];
+  const pa::RaggedLayout lay(HD);
+  const int tid = threadIdx.x, grp = tid / pa::kThreads;
+  const int gt = tid - grp * pa::kThreads;   // thread within its group
+  const int lane = tid & 31, warp = gt >> 5;
+  const int gq = lane >> 2, tq = lane & 3;
+  const int tiles = (nq * g + pa::kRaggedRows - 1) / pa::kRaggedRows;
+  const int tile = blockIdx.x % tiles, ih = blockIdx.x / tiles;
+  int r_lo, r_hi;   // this tile's query rows
+  pa::ragged_rows(nq, g, tile, &r_lo, &r_hi);
+  const int item = ih / kvh, h = ih - item * kvh;
+  const int32_t* trow = table + (size_t)item * n_ptab;
+  const int width = n_ptab * page_size;   // positions the table holds
+  // the first kStages chunks' table entries (position tid + k
+  // kRaggedThreads) load beside the length and the rows' positions
+  constexpr int kPre = kStages * kC / pa::kRaggedThreads;
+  int pre[kPre];
+#pragma unroll
+  for (int k = 0; k < kPre; ++k) {
+    const int pos = tid + k * pa::kRaggedThreads;
+    pre[k] = pos < width ? trow[pos / page_size] : 0;
+  }
+  const int len = max(min(lengths[item], width), 0);
+  // this lane's rows rA, rB: horizon, output offset
+  int hz[2];
+  bool live[2];
+  size_t off[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r_lo + warp * 16 + gq + 8 * i;
+    live[i] = r < r_hi;
+    const int qi = live[i] ? r / g : 0, gi = live[i] ? r - qi * g : 0;
+    const int qp = live[i] ? q_pos[(size_t)item * nq + qi] : -1;
+    hz[i] = qp >= 0 ? min(qp + 1, len) : 0;
+    off[i] = ((((size_t)item * nq + qi) * kvh + h) * g + gi) * HD;
+  }
+  // the rows' A fragments, scaled in f32 and rounded to T (an f32 row as
+  // bf16 high and low parts); a0a1 / a2a3 rows rA / rB at dd d0 + {0, 1},
+  // a4a5 / a6a7 at d0 + {2, 3}, d0 = tq HD / 4 + 4 s
+  unsigned qa[kParts][kSteps][4];
+  T* round_tag = nullptr;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+#pragma unroll
+    for (int s = 0; s < kSteps; ++s) {
+      float v[4] = {0.f, 0.f, 0.f, 0.f};
+      if (live[i]) {
+        const T* src = q + off[i] + tq * kQd + 4 * s;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          v[e] = round_to(to_f32(src[e]) * q_scale, round_tag);
+      }
+      if constexpr (kParts == 2) {
+        split_bf16x2(v[0], v[1], &qa[0][s][i], &qa[1][s][i]);
+        split_bf16x2(v[2], v[3], &qa[0][s][2 + i], &qa[1][s][2 + i]);
+      } else {
+        qa[0][s][i] = bf16x2(v[0], v[1]);
+        qa[0][s][2 + i] = bf16x2(v[2], v[3]);
+      }
+    }
+  }
+
+  // the tile's horizon: each warp's largest (both groups hold the same
+  // rows), then the CTA's
+  int hw = max(hz[0], hz[1]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    hw = max(hw, __shfl_xor_sync(0xffffffffu, hw, o));
+  if (grp == 0 && lane == 0) s_hmax[warp] = hw;
+  __syncthreads();
+  int th = 0;
+#pragma unroll
+  for (int w = 0; w < pa::kWarps; ++w) th = max(th, s_hmax[w]);
+  const int n_chunks = (th + kC - 1) / kC;
+  // the token rows of the first kStages chunks (chunk c into stage c),
+  // then each group's first chunk's copies
+#pragma unroll
+  for (int k = 0; k < kPre; ++k) {
+    const int pos = tid + k * pa::kRaggedThreads;
+    if (pos < th)
+      reinterpret_cast<int*>(smem + (pos / kC) * lay.stage + lay.tok)[
+          pos % kC] = token_row(pre[k], pos, page_size, kvh, h);
+  }
+  __syncthreads();
+  if (grp < n_chunks)
+    stage_chunk<HD>(smem, lay, grp, min(kC, th - grp * kC), k_pages,
+                    k_scale, v_pages, v_scale, gt);
+  cp_async_commit();
+
+  // running max and (this lane's partial) sum of rows rA, rB over this
+  // group's chunks; the output fragments: o[nt][2 i + e] is row i's dd
+  // nt * 8 + 2 tq + e
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float o[kDt][4];
+#pragma unroll
+  for (int nt = 0; nt < kDt; ++nt)
+    o[nt][0] = o[nt][1] = o[nt][2] = o[nt][3] = 0.f;
+  char* s_kb = smem + lay.kb + grp * lay.group;
+  char* s_vt = smem + lay.vt + grp * lay.group;
+
+  for (int c = grp; c < n_chunks + grp; c += kGroups) {
+    // c may pass the last chunk on a group's last turn: it then computes
+    // nothing but keeps the group's barriers in step
+    const int p0 = c * kC;
+    group_sync(1 + grp);   // chunk c - kGroups's stage and bf16 codes free
+    const int next = c + kGroups;
+    if (next < n_chunks)
+      stage_chunk<HD>(smem, lay, next % kStages, min(kC, th - next * kC),
+                      k_pages, k_scale, v_pages, v_scale, gt);
+    cp_async_commit();
+    // the table entry of chunk c + kStages's position gt, in flight while
+    // this chunk computes; its token row goes to stage c % kStages at the
+    // end
+    const int pos2 = (c + kStages) * kC + gt;
+    const int page2 = gt < kC && pos2 < th ? trow[pos2 / page_size] : 0;
+    cp_async_wait_prior();   // chunk c has landed (this group's copies)
+    group_sync(1 + grp);
+    if (c < n_chunks) {
+      const char* base = smem + (c % kStages) * lay.stage;
+      const float* s_ks = reinterpret_cast<const float*>(base + lay.ks);
+      const float* s_vs = reinterpret_cast<const float*>(base + lay.vs);
+      convert_chunk<HD>(reinterpret_cast<const int8_t*>(base + lay.k),
+                        reinterpret_cast<const int8_t*>(base + lay.v), s_kb,
+                        s_vt, gt);
+      group_sync(1 + grp);
+
+      // scores: n-tile j's column gq is this lane's K row, whose bf16 dd
+      // [tq HD / 4, (tq + 1) HD / 4) are its HD / 32 pieces from tq HD /
+      // 32: words 2 s, 2 s + 1 the B registers of step s
+      // (four n-tiles at a time, their products interleaved, so that no
+      // product waits on the one before it)
+      float sc[8][4];
+#pragma unroll
+      for (int j0 = 0; j0 < 8; j0 += 4) {
+        unsigned kw[4][2 * kSteps];
+#pragma unroll
+        for (int j = j0; j < j0 + 4; ++j) {
+          sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+          const int kr = 16 * (gq >> 1) + 2 * j + (gq & 1);
+          load_run<HD / 32>(s_kb + kr * 2 * HD, tq * (HD / 32),
+                            [kr](int piece) { return kbswz(kr, piece); },
+                            kw[j - j0]);
+        }
+#pragma unroll
+        for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+          for (int part = 0; part < kParts; ++part)
+#pragma unroll
+            for (int j = j0; j < j0 + 4; ++j)
+              mma_bf16(sc[j], qa[part][s], kw[j - j0][2 * s],
+                       kw[j - j0][2 * s + 1]);
+      }
+      // this lane's 16 positions' K and V scales
+      const float* ksc = s_ks + 16 * tq;
+      const float* vsc = s_vs + 16 * tq;
+      // per row: scale, causal mask, the quad's max, online rescale, the
+      // probabilities (0 where masked) and this lane's sum of them
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int lim = hz[i] - p0 - 16 * tq;   // valid while idx < lim
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int idx = 2 * j + e;
+            const float sv =
+                idx < lim ? sc[j][2 * i + e] * ksc[idx] : -INFINITY;
+            sc[j][2 * i + e] = sv;
+            mx = fmaxf(mx, sv);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_run[i], mx);
+        const float corr =
+            m_new == -INFINITY ? 1.f : __expf(m_run[i] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float sv = sc[j][2 * i + e];
+            const float pw = sv == -INFINITY ? 0.f : __expf(sv - m_new);
+            sc[j][2 * i + e] = pw;
+            sum += pw;
+          }
+        l_run[i] = __fadd_rn(__fmul_rn(l_run[i], corr), sum);
+        m_run[i] = m_new;
+#pragma unroll
+        for (int nt = 0; nt < kDt; ++nt) {
+          o[nt][2 * i] *= corr;
+          o[nt][2 * i + 1] *= corr;
+        }
+      }
+      // P.V: the A fragments of p * v_scale (bf16 high and low parts) for
+      // the 4 steps of 16 positions, then each output n-tile against its
+      // bf16 V^T row (a lane's 16 positions: pieces 2 tq, 2 tq + 1; words
+      // 2 s, 2 s + 1 the B registers of step s)
+      unsigned pf[4][2][4];   // [step][high, low][a register]
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+#pragma unroll
+        for (int hx = 0; hx < 2; ++hx)        // n-tile 2 s + hx
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {       // rows rA, rB
+            const int idx = 4 * s + 2 * hx;
+            const float p0v = sc[2 * s + hx][2 * i];
+            const float p1v = sc[2 * s + hx][2 * i + 1];
+            const float w0 = p0v == 0.f ? 0.f : p0v * vsc[idx];
+            const float w1 = p1v == 0.f ? 0.f : p1v * vsc[idx + 1];
+            split_bf16x2(w0, w1, &pf[s][0][2 * hx + i],
+                         &pf[s][1][2 * hx + i]);
+          }
+      // (four output n-tiles at a time, their products interleaved)
+#pragma unroll
+      for (int n0 = 0; n0 < kDt; n0 += 4) {
+        unsigned vw[4][8];
+#pragma unroll
+        for (int nt = n0; nt < n0 + 4; ++nt) {
+          const int dd = nt * 8 + gq;
+          const int sw = vtswz(dd);
+          load_run<2>(s_vt + dd * 2 * kC, 2 * tq, [sw](int) { return sw; },
+                      vw[nt - n0]);
+        }
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+#pragma unroll
+          for (int part = 0; part < 2; ++part)
+#pragma unroll
+            for (int nt = n0; nt < n0 + 4; ++nt)
+              mma_bf16(o[nt], pf[s][part], vw[nt - n0][2 * s],
+                       vw[nt - n0][2 * s + 1]);
+      }
+    }
+    if (gt < kC && pos2 < th)
+      reinterpret_cast<int*>(smem + (c % kStages) * lay.stage + lay.tok)[gt] =
+          token_row(page2, pos2, page_size, kvh, h);
+  }
+
+  // the groups' states, combined in group order by group 0: group G > 0
+  // leaves (m, l, o) of its lanes in the stage memory, no copy in flight
+  cp_async_wait_all();
+  __syncthreads();
+  constexpr int kSlot = 4 + 4 * kDt;   // floats of one lane's state
+  float* part = reinterpret_cast<float*>(smem);
+  if (grp > 0) {
+    float* mine = part + ((grp - 1) * pa::kThreads + gt) * kSlot;
+    mine[0] = m_run[0];
+    mine[1] = m_run[1];
+    mine[2] = l_run[0];
+    mine[3] = l_run[1];
+#pragma unroll
+    for (int nt = 0; nt < kDt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[4 + 4 * nt + e] = o[nt][e];
+  }
+  __syncthreads();
+  if (grp > 0) return;
+#pragma unroll
+  for (int gr = 1; gr < kGroups; ++gr) {
+    const float* peer = part + ((gr - 1) * pa::kThreads + gt) * kSlot;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mp = peer[i], mx = fmaxf(m_run[i], mp);
+      const float e0 = mx == -INFINITY ? 0.f : __expf(m_run[i] - mx);
+      const float e1 = mx == -INFINITY ? 0.f : __expf(mp - mx);
+      l_run[i] = __fadd_rn(__fmul_rn(l_run[i], e0),
+                           __fmul_rn(peer[2 + i], e1));
+#pragma unroll
+      for (int nt = 0; nt < kDt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          o[nt][2 * i + e] =
+              __fadd_rn(__fmul_rn(o[nt][2 * i + e], e0),
+                        __fmul_rn(peer[4 + 4 * nt + 2 * i + e], e1));
+      m_run[i] = mx;
+    }
+  }
+  // each row: the quad's sum (the same tree in every lane), then out =
+  // acc / max(l, 1e-30), zeros for a row with no valid position
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_run[i];
+    l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, 1));
+    l = __fadd_rn(l, __shfl_xor_sync(0xffffffffu, l, 2));
+    if (!live[i]) continue;
+    const float den = fmaxf(l, 1e-30f);
+#pragma unroll
+    for (int nt = 0; nt < kDt; ++nt) {
+      T* dst = out + off[i] + nt * 8 + 2 * tq;
+      store(dst, hz[i] > 0 ? o[nt][2 * i] / den : 0.f);
+      store(dst + 1, hz[i] > 0 ? o[nt][2 * i + 1] / den : 0.f);
+    }
+  }
+}
+
 // Opt the decode kernel <T, HD, G> into `smem` bytes of dynamic shared
 // memory where it needs more than the default 48 KiB; once per size
 // reached, so a steady state (and a graph capture) sets no attribute.
@@ -596,11 +990,20 @@ template <typename T, int HD>
 cudaError_t launch_ragged(const void* q, const void* kp, const void* ks,
                           const void* vp, const void* vs, const void* table,
                           int n_ptab, const void* lengths, const void* q_pos,
-                          int n_items, int nq, int kvh, int g, int page_size,
-                          float q_scale, void* out, cudaStream_t stream) {
-  dim3 grid(n_items, kvh, (nq * g + kRows - 1) / kRows);
-  const size_t smem = sizeof(float) * 2 * (size_t)page_size * HD;
-  paged_attn_ragged_kernel<T, HD><<<grid, kRows, smem, stream>>>(
+                          int nq, int kvh, int g, int page_size,
+                          float q_scale, const pa::RaggedPlan& p, void* out,
+                          cudaStream_t stream) {
+  // opt in above the default 48 KiB once per size reached, so a steady
+  // state (and a graph capture) sets no attribute
+  auto kernel = paged_attn_ragged_kernel<T, HD>;
+  static int granted = pa::kDefaultSmem;
+  if (p.smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+    if (err != cudaSuccess) return err;
+    granted = p.smem;
+  }
+  kernel<<<p.ctas, pa::kRaggedThreads, (size_t)p.smem, stream>>>(
       static_cast<const T*>(q), static_cast<const int8_t*>(kp),
       static_cast<const float*>(ks), static_cast<const int8_t*>(vp),
       static_cast<const float*>(vs), static_cast<const int32_t*>(table),
@@ -614,13 +1017,13 @@ template <typename T>
 cudaError_t launch_ragged_hd(int hd, const void* q, const void* kp,
                              const void* ks, const void* vp, const void* vs,
                              const void* table, int n_ptab,
-                             const void* lengths, const void* q_pos,
-                             int n_items, int nq, int kvh, int g,
-                             int page_size, float q_scale, void* out,
+                             const void* lengths, const void* q_pos, int nq,
+                             int kvh, int g, int page_size, float q_scale,
+                             const pa::RaggedPlan& p, void* out,
                              cudaStream_t stream) {
 #define REPRO_RAGGED_ARGS                                                  \
-  q, kp, ks, vp, vs, table, n_ptab, lengths, q_pos, n_items, nq, kvh, g,   \
-      page_size, q_scale, out, stream
+  q, kp, ks, vp, vs, table, n_ptab, lengths, q_pos, nq, kvh, g, page_size, \
+      q_scale, p, out, stream
   switch (hd) {
     case 32: return launch_ragged<T, 32>(REPRO_RAGGED_ARGS);
     case 64: return launch_ragged<T, 64>(REPRO_RAGGED_ARGS);
@@ -632,7 +1035,10 @@ cudaError_t launch_ragged_hd(int hd, const void* q, const void* kp,
 
 }  // namespace
 
-// Ragged (mixed q_len) entry: q (R, nq, kvh, g, hd), q_pos (R, nq).
+// Ragged (mixed q_len) entry: q (R, nq, kvh, g, hd), q_pos (R, nq). One
+// launch on the plan of pa::ragged_plan (attention_plan.h); a shape the
+// plan does not take returns cudaErrorInvalidValue. Returns the launch's
+// CUDA error.
 extern "C" int paged_attention_ragged(
     const void* q, int q_is_bf16, const void* k_pages, const void* k_scale,
     const void* v_pages, const void* v_scale, const void* table, int n_ptab,
@@ -640,14 +1046,18 @@ extern "C" int paged_attention_ragged(
     int g, int hd, int page_size, float q_scale, void* out,
     void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+  pa::RaggedPlan p;
+  if (!pa::ragged_plan(n_items, nq, kvh, g, hd, page_size,
+                       pa::device_smem_optin(), &p))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = q_is_bf16
       ? launch_ragged_hd<__nv_bfloat16>(hd, q, k_pages, k_scale, v_pages,
                                         v_scale, table, n_ptab, lengths,
-                                        q_pos, n_items, nq, kvh, g,
-                                        page_size, q_scale, out, stream)
+                                        q_pos, nq, kvh, g, page_size,
+                                        q_scale, p, out, stream)
       : launch_ragged_hd<float>(hd, q, k_pages, k_scale, v_pages, v_scale,
-                                table, n_ptab, lengths, q_pos, n_items, nq,
-                                kvh, g, page_size, q_scale, out, stream);
+                                table, n_ptab, lengths, q_pos, nq, kvh, g,
+                                page_size, q_scale, p, out, stream);
   return (int)err;
 }
 

@@ -13,17 +13,28 @@
 // packed weight's last byte carries a zero high nibble and the missing
 // activation code reads as 0, as the reference pads qx.
 //
-// All three run the contractions of contract.cuh that the fused CAT
-// linear's stage 2 runs: the GEMV (quant_gemv_w4; quant_matmul for m <=
-// 8) and the tensor-core one (quant_matmul_w4 at any m, quant_matmul
-// above 8 rows: mma.sync m16n8k32 s8 on 64 x 64 tiles, weights
-// transposed in shared memory, nibbles unpacked to s8 there for the
-// packed weight, K split across CTAs where the tiles alone leave SMs
-// idle).
+// At m <= 8 rows (quant_gemv_w4; quant_matmul for m <= 8) the code GEMV
+// below: one CTA of ctq::kThreads per `cols` output columns (the plan of
+// ctq::code_gemv_plan, cluster_plan.h, which fills every SM), the weight
+// rows of its columns staged by 16-byte cp.async (cluster_tq.cuh
+// stage_weights) and the m rows of codes once per CTA by 16-byte
+// cp.async, then ctq::contract_codes, the dp4a contraction the decode
+// fused linear and the prologue run: K split over kThreads / cols slices
+// of whole dp4a groups, 16 codes of a row per read, the column sums riding
+// along, the slices added in shared memory, one epilogue. Above 8 rows,
+// the tensor-core contraction of contract.cuh that the fused CAT linear's
+// stage 2 runs (quant_matmul_w4 at any m, quant_matmul above 8 rows:
+// mma.sync m16n8k32 s8 on 64 x 64 tiles, weights transposed in shared
+// memory, nibbles unpacked to s8 there for the packed weight, K split
+// across CTAs where the tiles alone leave SMs idle).
 //
 // Bound on this card: the weight codes (k/2 x n packed, k x n int8) over
 // HBM bandwidth at decode shapes and at 128 rows alike; the int8
-// operations (2 m k n) are far below the tensor-core rate.
+// operations (2 m k n) are far below the tensor-core rate. At decode
+// shapes the GEMV is in practice bound by its dependent phases (a load,
+// the contraction, the slice sum, the epilogue), which the plan shortens
+// by spreading the columns over every SM.
+#include "cluster_tq.cuh"
 #include "contract.cuh"
 
 namespace {
@@ -31,16 +42,91 @@ namespace {
 // The packed weight's unpacked row count for k activation codes.
 int k_pad_w4(int k) { return 2 * ((k + 1) / 2); }
 
+// The code GEMV: grid (ceil(n / tc)), ctq::kThreads threads; CTA x owns
+// output columns [x * tc, x * tc + tc). qx (m, k) with row stride ldx
+// (vec: 16-byte rows at a 16-byte aligned address); qw (w_rows, n) int8
+// or packed (bytes of K 2p | 2p + 1 << 4). Dynamic shared memory: the
+// plan's (ctq::GemvLayout).
+template <bool PACKED>
+__global__ void __launch_bounds__(ctq::kThreads) code_gemv_kernel(
+    const int8_t* __restrict__ qx, int ldx, int k, bool vec,
+    const float* __restrict__ sx, const float* __restrict__ zx, int m,
+    const int8_t* __restrict__ qw, const float* __restrict__ sw, int n,
+    int tc, int vw, float* __restrict__ out) {
+  extern __shared__ float4 code_gemv_smem[];   // 16-byte aligned
+  char* smem = reinterpret_cast<char*>(code_gemv_smem);
+  const ctq::GemvLayout lay(m, k, PACKED, tc);
+  int8_t* s_q = reinterpret_cast<int8_t*>(smem + lay.q);
+  int8_t* s_w = reinterpret_cast<int8_t*>(smem + lay.w);
+  int* s_part = reinterpret_cast<int*>(smem + lay.part);
+  int* s_pcs = s_part + lay.slices * m * tc;
+  const int n0 = blockIdx.x * tc, cols = min(tc, n - n0);
+  const int unit = PACKED ? 2 : 1, kg = ctq::k_groups(k);
+  const int ldq = (int)ctq::align16(k), w_rows = (k + unit - 1) / unit;
+  // the weight columns (the larger stream) first, then the codes
+  ctq::stage_weights(s_w, lay.pitch, qw, n, w_rows, w_rows, 1, 1, n0, tc,
+                     vw);
+  ctq::zero_weight_rows(s_w, lay.pitch, w_rows, kg / unit);
+  const int c16 = ldq / 16;
+  for (int t = threadIdx.x; t < m * c16; t += ctq::kThreads) {
+    const int r = t / c16, c = (t - r * c16) * 16;
+    const int8_t* src = qx + (size_t)r * ldx + c;
+    int8_t* dst = s_q + r * ldq + c;
+    if (vec && c + 16 <= k) {
+      contract::w8a8::cp_async16(dst, src);
+    } else {
+      for (int e = 0; e < 16; ++e) dst[e] = c + e < k ? src[e] : (int8_t)0;
+    }
+  }
+  ctq::cp_async_commit();
+  ctq::cp_async_wait_all();
+  __syncthreads();
+  ctq::contract_codes<PACKED, ctq::kMaxRows>(s_q, ldq, kg, s_w, lay.pitch,
+                                             tc, m, s_part, s_pcs);
+  for (int t = threadIdx.x; t < m * cols; t += ctq::kThreads) {
+    const int r = t / cols, j = t - r * cols;
+    out[(size_t)r * n + n0 + j] = contract::epilogue(
+        sx[r], sw[n0 + j], s_part[r * tc + j], zx[r], s_pcs[j]);
+  }
+}
+
+// Launch the code GEMV of m <= 8 rows on the plan of ctq::code_gemv_plan
+// for a card of ``sms`` SMs with ``cols`` columns per CTA (0: the plan's).
+// A shape the plan does not take returns cudaErrorInvalidValue. Returns
+// the launch's CUDA error.
+cudaError_t launch_code_gemv(const void* qx, int m, int k, const void* sx,
+                             const void* zx, const void* qw, int packed,
+                             const void* sw, int n, int sms, int cols,
+                             void* out, cudaStream_t stream) {
+  ctq::Plan p;
+  if (!ctq::code_gemv_plan(m, k, n, packed, sms, ctq::device_smem_optin(),
+                           cols, &p))
+    return cudaErrorInvalidValue;
+  const bool vec = k % 16 == 0 && reinterpret_cast<uintptr_t>(qx) % 16 == 0;
+  const int vw = ctq::weight_vector(qw, n, p.cols);
+  auto kernel = packed ? code_gemv_kernel<true> : code_gemv_kernel<false>;
+  const cudaError_t err = ctq::opt_in(kernel);
+  if (err != cudaSuccess) return err;
+  kernel<<<p.clusters, ctq::kThreads, (size_t)p.smem, stream>>>(
+      static_cast<const int8_t*>(qx), k, k, vec,
+      static_cast<const float*>(sx), static_cast<const float*>(zx), m,
+      static_cast<const int8_t*>(qw), static_cast<const float*>(sw), n,
+      p.cols, vw, static_cast<float*>(out));
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // qx (m, k) int8, sx/zx (m,) f32, qw packed (ceil(k/2), n) int8, sw (n,)
-// f32 -> out (m, n) f32; m <= 8. Returns cudaGetLastError().
+// f32 -> out (m, n) f32; m <= 8, the code GEMV on a card of ``sms`` SMs
+// with ``cols`` columns per CTA (0: the plan's). Returns the launch's CUDA
+// error (cudaErrorInvalidValue for a shape the plan does not take).
 extern "C" int quant_gemv_w4(const void* qx, int m, int k, const void* sx,
                              const void* zx, const void* qw, const void* sw,
-                             int n, void* out, void* stream_ptr) {
-  return (int)contract::launch_gemv(qx, k, k, sx, zx, m, k_pad_w4(k), qw,
-                                    1, sw, n, out,
-                                    static_cast<cudaStream_t>(stream_ptr));
+                             int n, int sms, int cols, void* out,
+                             void* stream_ptr) {
+  return (int)launch_code_gemv(qx, m, k, sx, zx, qw, 1, sw, n, sms, cols,
+                               out, static_cast<cudaStream_t>(stream_ptr));
 }
 
 // As quant_gemv_w4, any m, through the tensor-core contraction with
@@ -66,17 +152,19 @@ extern "C" int quant_matmul_plan(int m, int k, int n, int sms,
   return splits;
 }
 
-// qx (m, k) int8 against int8 weight codes qw (k, n): the GEMV for m <= 8,
-// the tensor-core contraction above with ``splits`` K splits and their
-// scratch ws, as quant_matmul_plan gives them. Returns cudaGetLastError().
+// qx (m, k) int8 against int8 weight codes qw (k, n): the code GEMV for m
+// <= 8 (on ``sms`` SMs, ``cols`` columns per CTA, 0: the plan's), the
+// tensor-core contraction above with ``splits`` K splits and their
+// scratch ws, as quant_matmul_plan gives them. Returns the launches' CUDA
+// error.
 extern "C" int quant_matmul(const void* qx, int m, int k, const void* sx,
                             const void* zx, const void* qw, const void* sw,
-                            int n, int splits, void* ws, void* out,
-                            void* stream_ptr) {
+                            int n, int splits, void* ws, int sms, int cols,
+                            void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (m <= contract::kGemvM)
-    return (int)contract::launch_gemv(qx, k, k, sx, zx, m, k, qw, 0, sw, n,
-                                      out, stream);
+    return (int)launch_code_gemv(qx, m, k, sx, zx, qw, 0, sw, n, sms, cols,
+                                 out, stream);
   return (int)contract::launch_mma(qx, k, k, sx, zx, m, k, qw, 0, sw, n,
                                    splits, ws, out, stream);
 }

@@ -16,6 +16,7 @@ a nonzero code.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -96,6 +97,25 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
+
+
+def off_card(x, name: str) -> bool:
+    """True for a CPU tensor (the caller runs its plain version), False
+    for a CUDA one (it launches its kernel); raises for any other
+    device."""
+    if x.device.type == "cpu":
+        return True
+    if not x.is_cuda:
+        raise TypeError(f"{name} runs its kernel on CUDA tensors and its "
+                        f"plain version on CPU tensors, got {x.device}")
+    return False
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """SMs of the CUDA ``device`` (a ``torch.device`` or an index)."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def check(code: int, what: str) -> None:

@@ -41,7 +41,7 @@ from repro_torch.models.layers import quantize_kv, rope, rope_freq
 
 from . import build
 from .fused_cat_matmul import (_INVALID_VALUE, _PLAN, GEMV_M, _contiguous,
-                               _off_card, fused_cat_linear_plain, read_plan)
+                               fused_cat_linear_plain, read_plan)
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
@@ -199,7 +199,7 @@ def decode_qkv_prologue(x, blocks, ha, hb, sign, qw, sw, k_pool, k_scale,
     (n_pages, page, KVH, 1) f32, written in place; page_ids, row_ids,
     positions (B,) int. -> (q (B, n_q) f32 rope'd, k_pool, k_scale,
     v_pool, v_scale)."""
-    if _off_card(x, "decode_qkv_prologue"):
+    if build.off_card(x, "decode_qkv_prologue"):
         return decode_qkv_prologue_plain(
             x, blocks, ha, hb, sign, qw, sw, k_pool, k_scale, v_pool,
             v_scale, page_ids, row_ids, positions, n_q=n_q,

@@ -15,10 +15,12 @@ cluster (distributed shared memory); each CTA then contracts all of them
 against its own output columns, whose weight bytes it stages in shared
 memory by 16-byte loads while the transform runs, and applies the
 epilogue. The plan (cluster size, columns per CTA) is the CUDA source's
-(``csrc/cluster_plan.h``); ``gemv_plan`` reads it. Above 8 rows the same
-cluster transform runs on groups of up to eight rows, one cluster each
-(``tiled_plan``), every CTA storing the codes of its own K values to a
-scratch buffer; the tensor-core contraction of ``quant_matmul`` and
+(``csrc/cluster_plan.h``); ``gemv_plan`` reads it. Widths that split over
+no cluster (odd D, factors or a CAT block that are not multiples of 4)
+run on clusters of one CTA through the general path, bitwise alike.
+Above 8 rows the same cluster transform runs on groups of up to eight
+rows, one cluster each (``tiled_plan``), every CTA storing the codes of
+its own K values to a scratch buffer; the tensor-core contraction of ``quant_matmul`` and
 ``quant_matmul_w4`` follows, for int8 or packed int4 weights, the codes
 crossing HBM once ((K_pad + 8) bytes per row). What bounds both on the
 H100 is the packed weight stream (D/2 x N bytes); each weight byte is
@@ -34,7 +36,6 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import functools
 
 import torch
 
@@ -105,12 +106,11 @@ def read_plan(fn, what: str, *args) -> tuple:
     out = (ctypes.c_int * 4)()
     if fn(*args, out):
         raise ValueError(f"{what} does not take this shape {args}: the "
-                         f"transform needs D = a·b, a, b and the CAT block "
-                         f"multiples of 4, and a cluster c <= 8 with a/c, "
-                         f"b/c whole, b/c even, D/c a multiple of 32 and of "
-                         f"the block; M (decode) or the rows per cluster "
-                         f"(tiled) in 1..8; and its shared memory must "
-                         f"fit (csrc/cluster_plan.h)")
+                         f"transform needs D = a·b and a CAT block that "
+                         f"divides D; M (decode) or the rows per cluster "
+                         f"(tiled) in 1..8; the decode columns per CTA a "
+                         f"multiple of 4 up to 256; and its shared memory "
+                         f"must fit (csrc/cluster_plan.h)")
     return tuple(out)
 
 
@@ -159,12 +159,6 @@ def tiled_plan(m: int, d: int, a: int, b: int, bk: int,
     lib = lib or build.load("fused_cat_matmul", _SIGNATURES)
     return TiledPlan(*read_plan(lib.ctq_tiled_plan, "the tiled stage 1", m,
                                 d, a, b, bk, smem_optin, rows))
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(index: int) -> int:
-    """SMs of CUDA device ``index``."""
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 # ------------------------------------------------------------ plain version
@@ -249,7 +243,7 @@ def _launch_gemv(x, blocks, ha, hb, sign, qw, sw, act_bits, packed,
     if m == 0 or n == 0:
         return out
     bk = 0 if blocks is None else blocks.shape[1]
-    sms = sm_count(x.device.index or 0)
+    sms = build.sm_count(x.device)
     lib = build.load("fused_cat_matmul", _SIGNATURES)
     code = lib.fused_cat_gemv_w4(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d,
@@ -294,17 +288,6 @@ def _launch_tiled(x, blocks, ha, hb, sign, qw, sw, act_bits, packed,
     return out
 
 
-def _off_card(x, name):
-    """True for a CPU tensor (the plain version runs); raises for a device
-    that is neither the CPU nor CUDA."""
-    if x.device.type == "cpu":
-        return True
-    if not x.is_cuda:
-        raise TypeError(f"{name} runs its kernel on CUDA tensors and its "
-                        f"plain version on CPU tensors, got {x.device}")
-    return False
-
-
 def fused_cat_gemv_w4(x, blocks, ha, hb, sign, qw, sw, *, act_bits: int = 8,
                       packed: bool = True) -> torch.Tensor:
     """Decode-shaped fused CAT linear for M <= 8 rows, one launch.
@@ -316,7 +299,7 @@ def fused_cat_gemv_w4(x, blocks, ha, hb, sign, qw, sw, *, act_bits: int = 8,
     if x.shape[0] > GEMV_M:
         raise ValueError(f"GEMV variant is for M <= {GEMV_M}, got "
                          f"M={x.shape[0]}")
-    if _off_card(x, "fused_cat_gemv_w4"):
+    if build.off_card(x, "fused_cat_gemv_w4"):
         return fused_cat_linear_plain(x, blocks, ha, hb, sign, qw, sw,
                                       act_bits=act_bits, packed=packed)
     out = _launch_gemv(x, blocks, ha, hb, sign, qw, sw, act_bits, packed)
@@ -329,7 +312,7 @@ def fused_cat_matmul_w4(x, blocks, ha, hb, sign, qw, sw, *,
                         ) -> torch.Tensor:
     """Tiled fused CAT linear for M > 8 rows (operands as in
     ``fused_cat_gemv_w4``)."""
-    if _off_card(x, "fused_cat_matmul_w4"):
+    if build.off_card(x, "fused_cat_matmul_w4"):
         return fused_cat_linear_plain(x, blocks, ha, hb, sign, qw, sw,
                                       act_bits=act_bits, packed=packed)
     out = _launch_tiled(x, blocks, ha, hb, sign, qw, sw, act_bits, packed)

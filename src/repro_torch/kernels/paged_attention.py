@@ -15,14 +15,22 @@ The CUDA source is ``src/repro_torch/csrc/paged_attention.cu``.
   and the shared-memory layout are the CUDA source's
   (``csrc/attention_plan.h``; ``decode_plan`` and ``split_range`` read
   them). Every sum has a fixed order, so equal inputs give equal bits.
-- Ragged: one CTA per (work item, KV head, 128 query rows) walks the
-  item's page-table row, stages each int8 K/V page dequantized in shared
-  memory, and keeps each query row's online-softmax state in f32
-  registers; a CTA of padding rows reads nothing.
+- Ragged: one CTA per (work item, KV head, tile of 64 query rows), two
+  warp groups of four warps taking turns at the item's positions in
+  chunks of 64 up to the tile's largest horizon (never past it), staged
+  as int8 like decode's and turned into bf16 in shared memory;
+  the scores and P·V run on the tensor cores (``mma.sync`` bf16 -> f32:
+  int8 codes exact in bf16, an f32 q split into bf16 high and low parts,
+  the K scale applied to each score column, the V scale folded into the
+  probabilities, which are split likewise), with an online softmax per
+  row in registers, the groups combined in order. Its tile and chunk
+  sizes and layout are ``csrc/attention_plan.h``'s (``ragged_plan`` and
+  ``ragged_rows`` read them); every sum has a fixed order, so equal
+  inputs give equal bits.
 
 What bounds both on the H100 is the page bytes of the attended prefix
 (int8 codes + f32 scales) over HBM bandwidth: decode reads each once per
-(item, KV head), the ragged kernel once per (item, head, row block).
+(item, KV head), the ragged kernel once per (item, head, row tile).
 
 Contracts (as in the reference):
 
@@ -40,12 +48,13 @@ length). Only valid rows are defined: padding rows come back as zeros from
 the kernel and as the masked softmax's uniform mix from the plain version.
 
 Each wrapper launches its kernel for CUDA tensors (counted in
-``<wrapper>.launches``) and takes its plain PyTorch version only for CPU
-tensors. The plain versions walk the page table page by page with an
-online softmax, in the reference kernels' op order, as the ragged CUDA
-kernel does; the decode kernel rescales per warp's 32 positions of a
-chunk and combines warps and splits at the end, the same sums in another
-order. The gather fallbacks (``*_fallback``) are the reference's jnp paths
+``<wrapper>.launches``), takes its plain PyTorch version only for CPU
+tensors and raises for any other device. The plain versions walk the
+page table page by page with an online softmax, in the reference
+kernels' op order; the decode kernel rescales per warp's 32 positions of
+a chunk and combines warps and splits at the end, and the ragged kernel
+per 64-position chunk on the tensor cores, combining its two warp
+groups at the end: the same sums in another order. The gather fallbacks (``*_fallback``) are the reference's jnp paths
 for fp pools: they keep the scaled q in f32 and take one softmax over the
 gathered sequence, so they differ from the kernels by that rounding and
 that order.
@@ -58,7 +67,6 @@ import dataclasses
 import torch
 
 from . import build
-from .fused_cat_matmul import sm_count
 
 _NEG_INF = -1e30
 
@@ -77,6 +85,8 @@ _SIGNATURES = {
                                _C, _C, _C, _F, _C, _C, _P, _P],
     "pa_decode_plan": [_C] * 9 + [_PLAN],
     "pa_split_range": [_C] * 4 + [_PLAN],
+    "pa_ragged_plan": [_C] * 7 + [_PLAN],
+    "pa_ragged_rows": [_C] * 3 + [_PLAN],
 }
 
 
@@ -124,6 +134,46 @@ def split_range(length: int, page_size: int, split: int, rank: int,
     if lib.pa_split_range(length, page_size, split, rank, out):
         raise ValueError(f"no split range for length={length}, page_size="
                          f"{page_size}, split={split}, rank={rank}")
+    return range(out[0], out[1])
+
+
+@dataclasses.dataclass(frozen=True)
+class RaggedPlan:
+    """Launch plan of the ragged kernel: ``tiles`` tiles of query rows
+    per (item, KV head) (``ragged_rows``), one CTA each, ``ctas`` in all,
+    ``smem`` bytes of dynamic shared memory per CTA."""
+    tiles: int
+    ctas: int
+    smem: int
+
+
+def ragged_plan(n_items: int, nq: int, kvh: int, g: int, hd: int,
+                page_size: int, smem_optin: int = 0, lib=None
+                ) -> RaggedPlan:
+    """The ragged kernel's plan (``pa::ragged_plan``, which its entry runs
+    on every call) for ``n_items`` work items of ``nq`` query positions,
+    KVH heads of g query rows and head dim hd. ``smem_optin`` (0: the
+    current card's) bounds the shared memory per CTA; ``lib`` a library
+    exporting ``pa_ragged_plan`` (default: the built CUDA library).
+    Raises ValueError for a shape the kernel does not take."""
+    lib = lib or build.load("paged_attention", _SIGNATURES)
+    out = (ctypes.c_int * 3)()
+    if lib.pa_ragged_plan(n_items, nq, kvh, g, hd, page_size, smem_optin,
+                          out):
+        raise ValueError(f"the ragged attention does not take R={n_items}, "
+                         f"Q={nq}, KVH={kvh}, g={g}, hd={hd}, page_size="
+                         f"{page_size}: it needs hd in (32, 64, 128) and its "
+                         f"shared memory to fit (csrc/attention_plan.h)")
+    return RaggedPlan(*out)
+
+
+def ragged_rows(nq: int, g: int, tile: int, lib=None) -> range:
+    """The query rows r = qi·g + gi of an item that tile ``tile`` of the
+    ragged kernel owns (``pa::ragged_rows``)."""
+    lib = lib or build.load("paged_attention", _SIGNATURES)
+    out = (ctypes.c_int * 2)()
+    if lib.pa_ragged_rows(nq, g, tile, out):
+        raise ValueError(f"no ragged rows for nq={nq}, g={g}, tile={tile}")
     return range(out[0], out[1])
 
 
@@ -272,8 +322,8 @@ def _contig(*ts):
 
 
 def _aligned(t):
-    """Contiguous and 16-byte aligned (the decode kernel stages K and V
-    rows by 16-byte copies)."""
+    """Contiguous and 16-byte aligned (the kernels stage K and V rows by
+    16-byte copies and read q rows in whole fragments)."""
     t = t.contiguous()
     return t.clone() if t.data_ptr() % 16 else t
 
@@ -282,28 +332,40 @@ def paged_attention_ragged(q, k_pages, k_scale, v_pages, v_scale,
                            page_table, lengths, q_pos) -> torch.Tensor:
     """Mixed-q_len paged attention (one launch for a unified step's work
     items) -> (R, Q, KVH, g, hd) in q's dtype."""
-    if not q.is_cuda:
+    if build.off_card(q, "paged_attention_ragged"):
         return paged_attention_ragged_plain(q, k_pages, k_scale, v_pages,
                                             v_scale, page_table, lengths,
                                             q_pos)
+    out = _launch_ragged(q, k_pages, k_scale, v_pages, v_scale, page_table,
+                         lengths, q_pos)
+    paged_attention_ragged.launches += 1
+    return out
+
+
+def _launch_ragged(q, k_pages, k_scale, v_pages, v_scale, page_table,
+                   lengths, q_pos):
+    """One launch of the ragged kernel on its plan; allocates the output
+    only."""
     r, nq, kvh, g, hd = q.shape
     _validate(q, k_pages, k_scale, v_pages, v_scale, page_table, lengths,
               q_pos, kvh)
-    q, k_pages, k_scale, v_pages, v_scale, page_table, lengths, q_pos = \
-        _contig(q, k_pages, k_scale, v_pages, v_scale, page_table, lengths,
-                q_pos)
+    q, k_scale, v_scale, page_table, lengths, q_pos = _contig(
+        q, k_scale, v_scale, page_table, lengths, q_pos)
+    q, k_pages, v_pages = _aligned(q), _aligned(k_pages), _aligned(v_pages)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    ps = k_pages.shape[1]
     lib = build.load("paged_attention", _SIGNATURES)
     code = lib.paged_attention_ragged(
         build.ptr(q), int(q.dtype == torch.bfloat16), build.ptr(k_pages),
         build.ptr(k_scale), build.ptr(v_pages), build.ptr(v_scale),
         build.ptr(page_table), page_table.shape[1], build.ptr(lengths),
-        build.ptr(q_pos), r, nq, kvh, g, hd, k_pages.shape[1],
-        float(hd ** -0.5), build.ptr(out), build.stream_of(q))
+        build.ptr(q_pos), r, nq, kvh, g, hd, ps, float(hd ** -0.5),
+        build.ptr(out), build.stream_of(q))
+    if code == _INVALID_VALUE:   # a shape the plan refuses: say why
+        ragged_plan(r, nq, kvh, g, hd, ps, lib=lib)
     build.check(code, "paged_attention_ragged")
-    paged_attention_ragged.launches += 1
     return out
 
 
@@ -321,7 +383,7 @@ def _launch_decode(q, k_pages, k_scale, v_pages, v_scale, page_table,
     if out.numel() == 0:
         return out
     n_ptab, ps = page_table.shape[1], k_pages.shape[1]
-    sms = sm_count(q.device.index or 0)
+    sms = build.sm_count(q.device)
     lib = build.load("paged_attention", _SIGNATURES)
     code = lib.paged_attention_decode(
         build.ptr(q), int(q.dtype == torch.bfloat16), build.ptr(k_pages),
@@ -341,7 +403,7 @@ def paged_attention_decode(q, k_pages, k_scale, v_pages, v_scale,
     pos + 1 -> (B, KVH, g, hd) in q's dtype. An item of length 0 comes
     back as zeros from the kernel (and as the masked softmax's uniform mix
     from the plain version)."""
-    if not q.is_cuda:
+    if build.off_card(q, "paged_attention_decode"):
         return paged_attention_decode_plain(q, k_pages, k_scale, v_pages,
                                             v_scale, page_table, lengths)
     out = _launch_decode(q, k_pages, k_scale, v_pages, v_scale, page_table,

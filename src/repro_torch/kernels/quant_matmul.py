@@ -8,8 +8,11 @@ Replaces the Pallas TPU kernel ``quant_matmul`` of
 for int8 activation codes qx (M, K), sx/zpx (M, 1) f32, int8 weight codes
 qw (K, N) and sw (1, N) f32 -> (M, N) f32.
 
-The CUDA source is ``src/repro_torch/csrc/quant_matmul.cu``: the GEMV of
-the fused linear's stage 2 (``contract.cuh``) for M <= 8, and above it a
+The CUDA source is ``src/repro_torch/csrc/quant_matmul.cu``: for M <= 8
+the code GEMV, one CTA per few output columns on a plan that fills every
+SM (``gemv_plan``), its weight columns and the codes staged by 16-byte
+``cp.async`` and contracted by the dp4a contraction the decode fused
+linear runs (``csrc/cluster_tq.cuh`` ``contract_codes``); above it a
 tensor-core kernel: 64x64 output tiles, each product an ``mma.sync``
 m16n8k32 s8 x s8 -> s32, the (K, N) weight tile copied raw into shared
 memory (``cp.async``, a four-deep ring over K) and transposed there with
@@ -24,12 +27,13 @@ and apply the epilogue once, as ``ref.quant_matmul`` does. What bounds it
 on the H100 is the weight bytes (K x N) over HBM bandwidth.
 
 The wrapper launches the kernel for CUDA tensors (counted in
-``quant_matmul.launches``) and takes the plain PyTorch version only for
-CPU tensors.
+``quant_matmul.launches``), takes the plain PyTorch version only for CPU
+tensors and raises for any other device.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
@@ -39,16 +43,23 @@ from . import build
 
 GEMV_M = 8   # rows served by the GEMV (the reference's _GEMV_M)
 
+_INVALID_VALUE = 1   # cudaErrorInvalidValue
+
 _C = ctypes.c_int
 _P = ctypes.c_void_p
-# every entry of quant_matmul.cu: the GEMV, and the tensor-core
-# contractions, which add the K splits and their scratch
-_GEMV = [_P, _C, _C, _P, _P, _P, _P, _C, _P, _P]
-_MMA = [_P, _C, _C, _P, _P, _P, _P, _C, _C, _P, _P, _P]
-_SIGNATURES = {"quant_gemv_w4": _GEMV, "quant_matmul_w4": _MMA,
-               "quant_matmul": _MMA,
+# every entry of quant_matmul.cu: qx, m, k, sx, zx, qw, sw, n, then the
+# tensor-core contraction's K splits and their scratch, the GEMV's SM
+# count and columns per CTA (0: the plan's), out, stream
+_OPS = [_P, _C, _C, _P, _P, _P, _P, _C]
+_SPLIT = [_C, _P]
+_GEMV = [_C, _C]
+_SIGNATURES = {"quant_gemv_w4": _OPS + _GEMV + [_P, _P],
+               "quant_matmul_w4": _OPS + _SPLIT + [_P, _P],
+               "quant_matmul": _OPS + _SPLIT + _GEMV + [_P, _P],
                "quant_matmul_plan": [_C, _C, _C, _C,
-                                     ctypes.POINTER(ctypes.c_longlong)]}
+                                     ctypes.POINTER(ctypes.c_longlong)],
+               "ctq_code_gemv_plan": [_C] * 7
+               + [ctypes.POINTER(ctypes.c_int)]}
 
 
 def quant_matmul_plain(qx, sx, zpx, qw, sw) -> torch.Tensor:
@@ -81,26 +92,69 @@ def validate(qx, sx, zpx, qw, sw, w_rows: int) -> None:
             raise TypeError(f"all operands must be on {qx.device}")
 
 
-def launch(fn_name, qx, sx, zpx, qw, sw, planned: bool = False
-           ) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class GemvPlan:
+    """Launch plan of the code GEMV (M <= 8): ``ctas`` CTAs, CTA i owning
+    the output columns ``columns(i, n)``, ``cols`` of them, each
+    contracting all of K; ``smem`` bytes of dynamic shared memory per
+    CTA."""
+    ctas: int
+    cols: int
+    smem: int
+
+    def columns(self, i: int, n: int) -> range:
+        return range(min(i * self.cols, n), min((i + 1) * self.cols, n))
+
+
+def gemv_plan(m: int, k: int, n: int, packed: bool, sms: int,
+              smem_optin: int = 0, cols: int = 0, lib=None) -> GemvPlan:
+    """The code GEMV's plan (``ctq::code_gemv_plan`` of
+    ``csrc/cluster_plan.h``, which the entries run on every call) for M
+    rows of K codes against N columns on a card of ``sms`` SMs: ``cols``
+    columns per CTA (0: the plan's own, the most that still give every SM
+    a CTA). ``smem_optin`` (0: the current card's) bounds the shared
+    memory per CTA; ``lib`` a library exporting ``ctq_code_gemv_plan``
+    (default: the built CUDA library). Raises ValueError for a shape the
+    kernel does not take."""
+    lib = lib or build.load("quant_matmul", _SIGNATURES)
+    out = (ctypes.c_int * 4)()
+    if lib.ctq_code_gemv_plan(m, k, n, int(packed), sms, smem_optin, cols,
+                              out):
+        raise ValueError(f"the code GEMV does not take M={m}, K={k}, N={n},"
+                         f" cols={cols}: it needs M in 1..8, the columns "
+                         f"per CTA a multiple of 4 up to 256 and its shared "
+                         f"memory (M + 16 bytes per K) to fit "
+                         f"(csrc/cluster_plan.h)")
+    return GemvPlan(out[1], out[2], out[3])
+
+
+def launch(fn_name, qx, sx, zpx, qw, sw, planned: bool = False,
+           gemv: bool = False, cols: int = 0) -> torch.Tensor:
     """Run entry ``fn_name`` of ``quant_matmul.cu`` -> (M, N) f32; a
     ``planned`` entry also takes the K splits of ``w8a8_plan`` and their
-    scratch."""
+    scratch, a ``gemv`` one the card's SM count and ``cols`` columns per
+    CTA (0: the plan's)."""
     m, k = qx.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
     if m == 0 or n == 0:
         return out
     lib = build.load("quant_matmul", _SIGNATURES)
-    split = ()
+    extra = ()
     if planned:
         splits, ws = w8a8_plan(m, k, n, qx.device)
-        split = (splits, build.ptr(ws))
+        extra = (splits, build.ptr(ws))
+    if gemv:
+        sms = build.sm_count(qx.device)
+        extra += (sms, cols)
     qx, sx, zpx, qw, sw = (t.contiguous() for t in (qx, sx, zpx, qw, sw))
-    build.check(getattr(lib, fn_name)(
+    code = getattr(lib, fn_name)(
         build.ptr(qx), m, k, build.ptr(sx), build.ptr(zpx), build.ptr(qw),
-        build.ptr(sw), n, *split, build.ptr(out), build.stream_of(qx)),
-        fn_name)
+        build.ptr(sw), n, *extra, build.ptr(out), build.stream_of(qx))
+    if code == _INVALID_VALUE and gemv and m <= GEMV_M:   # say why
+        gemv_plan(m, k, n, fn_name == "quant_gemv_w4", sms, cols=cols,
+                  lib=lib)
+    build.check(code, fn_name)
     return out
 
 
@@ -111,7 +165,7 @@ def w8a8_plan(m: int, k: int, n: int, device):
     both (``quant_matmul_plan``), from its tile shape and the card's SM
     count."""
     lib = build.load("quant_matmul", _SIGNATURES)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = build.sm_count(device)
     ints = ctypes.c_longlong(0)
     splits = lib.quant_matmul_plan(m, k, n, sms, ctypes.byref(ints))
     ws = (torch.zeros(ints.value, dtype=torch.int32, device=device)
@@ -122,10 +176,11 @@ def w8a8_plan(m: int, k: int, n: int, device):
 def quant_matmul(qx, sx, zpx, qw, sw) -> torch.Tensor:
     """qx (M, K) int8, sx/zpx (M, 1) f32, qw (K, N) int8, sw (1, N) f32
     -> (M, N) f32."""
-    if not qx.is_cuda:
+    if build.off_card(qx, "quant_matmul"):
         return quant_matmul_plain(qx, sx, zpx, qw, sw)
     validate(qx, sx, zpx, qw, sw, qx.shape[1])
-    out = launch("quant_matmul", qx, sx, zpx, qw, sw, planned=True)
+    out = launch("quant_matmul", qx, sx, zpx, qw, sw, planned=True,
+                 gemv=True)
     quant_matmul.launches += 1
     return out
 

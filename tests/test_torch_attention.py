@@ -1,5 +1,5 @@
-"""The decode paged attention (row 4) on the CPU: its split plan, its
-wrapper's launch, and its plain version against the JAX reference.
+"""The paged attentions (rows 3 and 4) on the CPU: their plans, their
+wrappers' launches, and their plain versions against the JAX reference.
 
 The CUDA decode kernel (``csrc/paged_attention.cu``) splits an item's key
 positions over the CTAs of a thread-block cluster on the plan of
@@ -22,6 +22,16 @@ bf16 queries within one bf16 ulp with at least 99 % of the outputs
 bitwise equal, as ``test_torch_kernels.
 test_bf16_plain_attention_follows_pallas_kernels`` holds the smaller
 cases.
+
+The ragged attention (row 3) tiles each item's query rows (qi, gi) in
+order, 64 per CTA, on the plan of the same header (``ragged_plan``,
+``ragged_rows``): every row of every item is owned by one tile. Its plain
+version is held against the reference's Pallas ``paged_attention_ragged``
+in interpret mode at the edges the card's check runs (mixed decode and
+prefill items, padding rows, an item of length 0, q_pos at page
+boundaries, hd 32 and 64, g 1, 2, 4, pages of 8 and 16) on the valid
+rows, at the tolerances above; its wrapper passes the shapes in the
+order of the C prototype and allocates only its output.
 """
 import ctypes
 import shutil
@@ -33,6 +43,7 @@ import pytest
 import torch
 
 from repro.kernels.paged_attention import paged_attention_decode as j_decode
+from repro.kernels.paged_attention import paged_attention_ragged as j_ragged
 from repro_torch.kernels import build
 from repro_torch.kernels import paged_attention as P
 
@@ -53,7 +64,8 @@ def plan_lib(tmp_path_factory):
                     str(build.CSRC / "attention_plan.h"), "-o", str(out)],
                    check=True, capture_output=True)
     lib = ctypes.CDLL(str(out))
-    for name in ("pa_decode_plan", "pa_split_range"):
+    for name in ("pa_decode_plan", "pa_split_range", "pa_ragged_plan",
+                 "pa_ragged_rows"):
         fn = getattr(lib, name)
         fn.argtypes = P._SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -173,7 +185,7 @@ def test_decode_wrapper_passes_the_card_and_the_split(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(build, "load", lambda name, sigs: lib)
     monkeypatch.setattr(build, "stream_of", lambda t: ctypes.c_void_p(0))
-    monkeypatch.setattr(P, "sm_count", lambda index: SMS)
+    monkeypatch.setattr(build, "sm_count", lambda device: SMS)
     allocs = []
     for name in ("empty", "zeros", "empty_like", "zeros_like", "full"):
         real = getattr(torch, name)
@@ -192,3 +204,111 @@ def test_decode_wrapper_passes_the_card_and_the_split(monkeypatch):
     # ..., lengths, B, KVH, g, hd, page_size, q_scale, sms, split, out, stream
     assert first[9:14] == (2, 4, 2, 64, 16)
     assert first[15:17] == (SMS, 0) and second[15:17] == (SMS, 4)
+
+
+@pytest.mark.parametrize("nq,g", [(1, 1), (1, 8), (32, 2), (33, 2),
+                                  (128, 2), (40, 3), (7, 8), (256, 1)])
+def test_ragged_plan_owns_every_row_once(plan_lib, nq, g):
+    """Every query row r = qi·g + gi of an item lies in one tile of 64
+    rows, in order, with no empty tile; one CTA per (item, KV head,
+    tile); shared memory within the card's at hd 32, 64 and 128."""
+    plan = P.ragged_plan(8, nq, 4, g, 64, 16, SMEM_OPTIN, lib=plan_lib)
+    assert plan.tiles == -(-nq * g // 64)
+    assert plan.ctas == 8 * 4 * plan.tiles
+    owned = np.zeros(nq * g, int)
+    for tile in range(plan.tiles):
+        rows = P.ragged_rows(nq, g, tile, lib=plan_lib)
+        assert len(rows) and rows.start == 64 * tile
+        owned[list(rows)] += 1
+    assert (owned == 1).all()
+    for hd in (32, 64, 128):
+        assert P.ragged_plan(8, nq, 4, g, hd, 16, SMEM_OPTIN,
+                             lib=plan_lib).smem <= SMEM_OPTIN
+
+
+def test_ragged_plan_refuses_what_the_kernel_does_not_take(plan_lib):
+    for bad in (dict(hd=48), dict(hd=256), dict(nq=0), dict(g=0),
+                dict(ps=0), dict(n=0), dict(smem=32 * 1024)):
+        kw = dict(n=8, nq=128, g=2, hd=64, ps=16, smem=SMEM_OPTIN) | bad
+        with pytest.raises(ValueError, match="does not take"):
+            P.ragged_plan(kw["n"], kw["nq"], 4, kw["g"], kw["hd"], kw["ps"],
+                          kw["smem"], lib=plan_lib)
+
+
+def _ragged_case(seed, items, nq, kvh, g, hd, ps):
+    """Work items (q_len, length) in a query block of nq rows: distinct
+    pages per item, null pages past each length, padding rows q_pos -1."""
+    r = np.random.default_rng(seed)
+    n_ptab = max(1, max(-(-ln // ps) for _, ln in items))
+    n_pages = 1 + len(items) * n_ptab
+    kp = r.integers(-127, 128, (n_pages, ps, kvh, hd)).astype(np.int8)
+    vp = r.integers(-127, 128, (n_pages, ps, kvh, hd)).astype(np.int8)
+    ks = r.uniform(0.01, 0.1, (n_pages, ps, kvh, 1)).astype(np.float32)
+    vs = r.uniform(0.01, 0.1, (n_pages, ps, kvh, 1)).astype(np.float32)
+    table = np.zeros((len(items), n_ptab), np.int32)
+    qpos = np.full((len(items), nq), -1, np.int32)
+    for i, (ql, ln) in enumerate(items):
+        used = -(-ln // ps)
+        table[i, :used] = 1 + i * n_ptab + np.arange(used)
+        qpos[i, :ql] = np.arange(ln - ql, ln)
+    lengths = np.asarray([ln for _, ln in items], np.int32)
+    q = r.standard_normal((len(items), nq, kvh, g, hd)).astype(np.float32)
+    return [q, kp, ks, vp, vs, table, lengths, qpos]
+
+
+RAGGED_EDGES = [  # (hd, g, ps): the card's edge grid, cut to CPU size
+    (32, 1, 8), (32, 4, 16), (64, 2, 8), (64, 1, 16), (32, 2, 8)]
+
+
+@pytest.mark.parametrize("hd,g,ps", RAGGED_EDGES)
+def test_plain_ragged_matches_pallas_at_edges(hd, g, ps):
+    """Mixed decode and prefill items, q_pos at ps - 1, ps, ps + 1, a
+    prefill chunk ending past a page, an item of length 0 and padding
+    rows past the longest item, on the valid rows: f32 queries at rtol
+    1e-5 (atol 1e-5 of the scale), bf16 queries within one bf16 ulp with
+    at least 99 % bitwise."""
+    items = [(1, ps), (ps + 2, ps + 2), (1, ps + 1), (0, 0),
+             (5, 3 * ps + 5), (1, ps + 2), (1, 1)]
+    nq = ps + 5
+    args = _ragged_case(hd * 10 + g + ps, items, nq, 2, g, hd, ps)
+    valid = args[-1] >= 0
+    want = np.asarray(j_ragged(*map(jnp.asarray, args), interpret=True))
+    got = P.paged_attention_ragged(*map(_t, args)).numpy()
+    np.testing.assert_allclose(got[valid], want[valid], rtol=1e-5,
+                               atol=1e-5 * np.abs(want[valid]).max())
+    jq = jnp.asarray(args[0]).astype(jnp.bfloat16)
+    want = np.asarray(j_ragged(jq, *map(jnp.asarray, args[1:]),
+                               interpret=True).astype(jnp.float32))
+    tq = _t(np.asarray(jq.astype(jnp.float32))).to(torch.bfloat16)
+    got = P.paged_attention_ragged(tq, *map(_t, args[1:])).float().numpy()
+    ulps = _bf16_ulps(got[valid], want[valid])
+    assert ulps.max() <= 1 and (ulps == 0).float().mean() >= 0.99
+
+
+def test_ragged_wrapper_passes_the_shapes(monkeypatch):
+    """The ragged launch passes (R, Q, KVH, g, hd, page_size) in the order
+    of the C prototype and allocates the output and nothing else; a
+    device that is neither CUDA nor the CPU raises."""
+    args = [_t(a) for a in _ragged_case(4, [(3, 9), (1, 17)], 5, 4, 2, 64,
+                                        16)]
+    with pytest.raises(TypeError, match="CUDA tensors"):
+        P.paged_attention_ragged(args[0].to("meta"), *args[1:])
+    lib = _FakeLib()
+    monkeypatch.setattr(build, "load", lambda name, sigs: lib)
+    monkeypatch.setattr(build, "stream_of", lambda t: ctypes.c_void_p(0))
+    allocs = []
+    for name in ("empty", "zeros", "empty_like", "zeros_like", "full"):
+        real = getattr(torch, name)
+
+        def spy(*a, _real=real, _name=name, **kw):
+            allocs.append(_name)
+            return _real(*a, **kw)
+        monkeypatch.setattr(torch, name, spy)
+    out = P._launch_ragged(*args)
+    assert allocs == ["empty_like"] and out.shape == args[0].shape
+    (name, call), = lib.calls
+    assert name == "paged_attention_ragged"
+    assert len(call) == len(P._SIGNATURES[name])
+    # q, bf16, k, ks, v, vs, table, n_ptab, lengths, q_pos, R, Q, KVH, g,
+    # hd, page_size, q_scale, out, stream
+    assert call[7] == 2 and call[10:16] == (2, 5, 4, 2, 64, 16)

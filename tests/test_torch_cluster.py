@@ -19,8 +19,16 @@ owned exactly once, shared memory per CTA stays within the H100's 227
 KiB, clusters stay at the portable size (8), and each prologue head is
 owned by one CTA. The tiled stage's plan owns every row of a step and
 every K of each row once at ragged M and every rows-per-cluster choice,
-and takes exactly the widths the decode kernel's split rule takes. The bindings' argument lists are held against the
-``extern "C"`` prototypes of ``csrc/*.cu`` and the headers they include.
+and takes exactly the widths the decode kernel's plan takes. Widths that
+split over no cluster (odd D, factors or CAT blocks that are not
+multiples of 4: the reference's own test widths) take the general path on
+a cluster of one CTA, which owns every K; only what the reference refuses
+(a CAT block that does not divide D), M or rows outside 1..8 and shared
+memory that does not fit are refused. The code GEMV of rows 7 and 8
+(``quant_matmul.gemv_plan``, the same header) owns every output column
+once and spreads N 3072 over more CTAs than the card has SMs. The
+bindings' argument lists are held against the ``extern "C"`` prototypes
+of ``csrc/*.cu`` and the headers they include.
 """
 import ctypes
 import re
@@ -63,7 +71,9 @@ def plan_lib(tmp_path_factory):
     for name, sig in (("ctq_gemv_plan", F._SIGNATURES["ctq_gemv_plan"]),
                       ("ctq_tiled_plan", F._SIGNATURES["ctq_tiled_plan"]),
                       ("ctq_prologue_plan",
-                       decode_layer._SIGNATURES["ctq_prologue_plan"])):
+                       decode_layer._SIGNATURES["ctq_prologue_plan"]),
+                      ("ctq_code_gemv_plan",
+                       quant_matmul._SIGNATURES["ctq_code_gemv_plan"])):
         fn = getattr(lib, name)
         fn.argtypes = sig
         fn.restype = ctypes.c_int
@@ -155,12 +165,15 @@ def test_prologue_plan_owns_each_head_once(plan_lib, packed, d, hd, n_q, kvh,
 def test_plans_refuse_what_the_kernels_do_not_take(plan_lib):
     with pytest.raises(ValueError, match="does not take"):
         _gemv_plan(plan_lib, 9, 512, 64, 32, True)
-    with pytest.raises(ValueError, match="does not take"):
-        F.gemv_plan(4, 48, 64, 4, 12, 0, True, SMS, SMEM_OPTIN,
-                    lib=plan_lib)                 # D/c never % 32
+    # D 48 at factors 4 x 12 (D/c never % 32) is the reference's width:
+    # the general path takes it, on a cluster of one CTA owning every K
+    plan = F.gemv_plan(4, 48, 64, 4, 12, 0, True, SMS, SMEM_OPTIN,
+                       lib=plan_lib)
+    assert plan.cluster == 1 and sorted(plan.k_set(0, 4, 12)) == list(
+        range(48))
     with pytest.raises(ValueError, match="does not take"):
         F.gemv_plan(4, 512, 64, 32, 16, 6, True, SMS, SMEM_OPTIN,
-                    lib=plan_lib)                 # CAT block not % 4
+                    lib=plan_lib)                 # CAT block 6 !| D 512
     with pytest.raises(ValueError, match="does not take"):
         F.gemv_plan(8, 1536, 512, 32, 48, 32, True, SMS, 64 * 1024,
                     lib=plan_lib)                 # shared memory too small
@@ -205,10 +218,12 @@ def test_tiled_plan_owns_every_row_and_k_once(plan_lib, d, rows):
 
 
 def test_tiled_plan_refuses_what_the_kernel_does_not_take(plan_lib):
-    """The tiled stage refuses exactly the widths the cluster transform
-    does not split (as the decode plan does), rows per cluster outside
-    1..8 and a step of no rows; a wide D that the old one-row-per-CTA
-    stage refused in Python (over 48 KiB of shared memory) is taken."""
+    """The tiled stage refuses exactly the widths the decode plan refuses
+    (a CAT block that does not divide D), rows per cluster outside 1..8
+    and a step of no rows, and takes the rest on the decode plan's
+    cluster (the general path's one CTA for D 48 at 4 x 12); a wide D
+    that the old one-row-per-CTA stage refused in Python (over 48 KiB of
+    shared memory) is taken."""
     for d, a, b, bk in ((48, 4, 12, 0), (512, 32, 16, 6), (96, 8, 12, 32),
                         (128, 16, 8, 32), (512, 32, 16, 0), (768, 32, 24, 0)):
         try:
@@ -222,6 +237,7 @@ def test_tiled_plan_refuses_what_the_kernel_does_not_take(plan_lib):
         else:
             with pytest.raises(ValueError, match="does not take"):
                 F.tiled_plan(128, d, a, b, bk, SMEM_OPTIN, lib=plan_lib)
+        assert (c == 0) == (d == 512 and bk == 6)   # 6 !| 512 only
     # D 4096: 4 * (2 D + a^2 + b^2) bytes, over the old stage's 48 KiB
     assert 4 * (2 * 4096 + 64 * 64 * 2) > 48 * 1024
     assert F.tiled_plan(128, 4096, 64, 64, 32, SMEM_OPTIN,
@@ -231,6 +247,181 @@ def test_tiled_plan_refuses_what_the_kernel_does_not_take(plan_lib):
             F.tiled_plan(m, 512, 32, 16, 32, SMEM_OPTIN, rows, lib=plan_lib)
     with pytest.raises(ValueError, match="does not take"):
         F.tiled_plan(128, 1536, 32, 48, 32, 32 * 1024, lib=plan_lib)
+
+
+# (D, a, b, CAT block) the reference's fused kernels take that split over
+# no cluster: its tests' widths (a the largest divisor of D <= sqrt(D)),
+# CAT blocks that are not multiples of 4, and D 48 at 4 x 12
+GENERAL = [(63, 7, 9, 0), (63, 7, 9, 9), (96, 8, 12, 0), (96, 8, 12, 16),
+           (96, 8, 12, 6), (24, 4, 6, 0), (24, 4, 6, 8), (48, 6, 8, 0),
+           (48, 4, 12, 0), (1, 1, 1, 0), (1001, 7, 143, 0)]
+
+
+@pytest.mark.parametrize("d,a,b,bk", GENERAL)
+@pytest.mark.parametrize("packed", [True, False])
+def test_general_widths_own_every_k_once(plan_lib, d, a, b, bk, packed):
+    """The plans take every width the reference's kernels take on a
+    cluster of one CTA (the general path), whose K set is all of D in
+    order, with every output column (decode), row (tiled) and head
+    (prologue) owned once and shared memory within the card's."""
+    for m in range(1, 9):
+        plan = F.gemv_plan(m, d, 40, a, b, bk, packed, SMS, SMEM_OPTIN,
+                           lib=plan_lib)
+        assert plan.cluster == 1 and plan.smem <= SMEM_OPTIN
+        assert plan.k_set(0, a, b) == list(range(d))
+        owned = np.zeros(40, int)
+        for g in range(plan.clusters):
+            owned[list(plan.columns(g, 0, 40))] += 1
+        assert (owned == 1).all()
+        pro = decode_layer.prologue_plan(m, d, 64, 8, a, b, bk, packed,
+                                         SMEM_OPTIN, lib=plan_lib)
+        assert (pro.cluster, pro.clusters, pro.cols) == (1, 8, 8)
+    for m in (9, 40, 129):
+        plan = F.tiled_plan(m, d, a, b, bk, SMEM_OPTIN, lib=plan_lib)
+        assert plan.cluster == 1 and plan.smem <= SMEM_OPTIN
+        owned = np.zeros(m, int)
+        for g in range(plan.clusters):
+            owned[list(plan.row_group(g, m))] += 1
+        assert (owned == 1).all()
+
+
+def test_general_path_refuses_what_the_reference_refuses(plan_lib):
+    """A CAT block that does not divide D, factors that do not span it,
+    and shared memory too small for the general path are refused."""
+    for m, d, a, b, bk in ((8, 96, 8, 12, 5), (8, 63, 7, 9, 2),
+                           (8, 63, 7, 8, 0), (8, 96, 0, 96, 0)):
+        with pytest.raises(ValueError, match="does not take"):
+            F.gemv_plan(m, d, 40, a, b, bk, True, SMS, SMEM_OPTIN,
+                        lib=plan_lib)
+        with pytest.raises(ValueError, match="does not take"):
+            F.tiled_plan(16, d, a, b, bk, SMEM_OPTIN, lib=plan_lib)
+    with pytest.raises(ValueError, match="does not take"):
+        F.gemv_plan(8, 1001, 40, 7, 143, 0, True, SMS, 64 * 1024,
+                    lib=plan_lib)
+
+
+# (K, N) of the code GEMV: the serving shapes, odd K, K not a multiple of
+# 16, narrow and ragged N, a deep K, and a deep K at a wide N (where 64
+# columns of int8 weights no longer fit in shared memory)
+CODE_GEMV = [(512, 3072), (512, 1024), (512, 512), (1536, 512), (63, 40),
+             (1535, 520), (24, 1000), (16, 8), (4096, 64), (4096, 32000)]
+
+
+def _code_gemv_fits(m, k, n, packed, cols, lib):
+    try:
+        quant_matmul.gemv_plan(m, k, n, packed, SMS, SMEM_OPTIN, cols,
+                               lib=lib)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("k,n", CODE_GEMV)
+@pytest.mark.parametrize("packed", [True, False])
+def test_code_gemv_plan_owns_every_column_once(plan_lib, k, n, packed):
+    """The code GEMV's plan (rows 7 and 8 at M <= 8) owns each output
+    column once at every M in 1..8, with a power-of-two number of columns
+    per CTA that still gives every SM a CTA where N allows it (192 CTAs at
+    N 3072, where the old GEMV's 32-column CTAs left 36 SMs idle), and
+    shared memory within the card's: twice the columns either leaves SMs
+    idle or does not fit."""
+    for m in range(1, 9):
+        plan = quant_matmul.gemv_plan(m, k, n, packed, SMS, SMEM_OPTIN,
+                                      lib=plan_lib)
+        assert plan.cols in (4, 8, 16, 32, 64)
+        assert plan.smem <= SMEM_OPTIN
+        owned = np.zeros(n, int)
+        for i in range(plan.ctas):
+            owned[list(plan.columns(i, n))] += 1
+        assert (owned == 1).all()
+        if n >= 4 * SMS:
+            assert plan.ctas >= SMS
+            wider = 2 * plan.cols
+            assert (plan.cols == 64 or -(-n // wider) < SMS
+                    or not _code_gemv_fits(m, k, n, packed, wider, plan_lib))
+    if (k, n) == (512, 3072):
+        assert (plan.cols, plan.ctas) == (16, 192)
+    if (k, n) == (4096, 32000):
+        assert (plan.cols, plan.ctas) == ((64, 500) if packed
+                                          else (32, 1000))
+
+
+def test_code_gemv_plan_forced_columns_and_refusals(plan_lib):
+    """Forced columns per CTA (a multiple of 4 up to 256) are taken and own
+    every column; M outside 1..8, other column counts and shared memory
+    too small are refused; the plan's own columns shrink for a deep K."""
+    for cols in (4, 8, 12, 16, 32, 64, 128, 256):
+        plan = quant_matmul.gemv_plan(8, 512, 3072, True, SMS, SMEM_OPTIN,
+                                      cols, lib=plan_lib)
+        assert plan.cols == cols and plan.ctas == -(-3072 // cols)
+    for m, cols, smem in ((0, 0, SMEM_OPTIN), (9, 0, SMEM_OPTIN),
+                          (8, 6, SMEM_OPTIN), (8, 260, SMEM_OPTIN),
+                          (8, 0, 16 * 1024)):
+        with pytest.raises(ValueError, match="does not take"):
+            quant_matmul.gemv_plan(m, 4096, 3072, False, SMS, smem, cols,
+                                   lib=plan_lib)
+    # the plan takes fewer columns for a deep K, and refuses a K so deep
+    # that its narrowest weight tile (16 bytes a row) does not fit
+    for k, packed, cols in ((9000, False, 16), (9600, False, None),
+                            (13500, True, 16), (14400, True, None)):
+        if cols is None:
+            with pytest.raises(ValueError, match="does not take"):
+                quant_matmul.gemv_plan(8, k, 32000, packed, SMS, SMEM_OPTIN,
+                                       lib=plan_lib)
+        else:
+            plan = quant_matmul.gemv_plan(8, k, 32000, packed, SMS,
+                                          SMEM_OPTIN, lib=plan_lib)
+            assert plan.cols == cols
+
+
+def test_code_gemv_wrappers_pass_the_card_and_columns(monkeypatch):
+    """Rows 7 and 8's wrappers run the plain version for CPU tensors and
+    raise for a device that is neither CUDA nor the CPU; their launches
+    pass the card's SM count and the forced columns per CTA (0: the
+    plan's), W8A8 also its K splits, in the order of the C prototypes,
+    and allocate the output and nothing else."""
+    from repro_torch.kernels import quant_matmul_w4 as QW
+    r = np.random.default_rng(5)
+    qx = torch.from_numpy(r.integers(-8, 8, (8, 63)).astype(np.int8))
+    sx = torch.from_numpy(r.uniform(0.01, 0.1, (8, 1)).astype(np.float32))
+    zx = torch.from_numpy(r.integers(-8, 8, (8, 1)).astype(np.float32))
+    w = torch.from_numpy(r.integers(-8, 8, (63, 40)).astype(np.int8))
+    sw = torch.from_numpy(r.uniform(0.01, 0.1, (1, 40)).astype(np.float32))
+    packed = pack_int4(w, axis=0)
+    assert torch.equal(QW.quant_gemv_w4(qx, sx, zx, packed, sw),
+                       QW.quant_matmul_w4_plain(qx, sx, zx, packed, sw))
+    assert torch.equal(quant_matmul.quant_matmul(qx, sx, zx, w, sw),
+                       quant_matmul.quant_matmul_plain(qx, sx, zx, w, sw))
+    with pytest.raises(TypeError, match="CUDA tensors"):
+        QW.quant_gemv_w4(qx.to("meta"), sx, zx, packed, sw)
+    with pytest.raises(TypeError, match="CUDA tensors"):
+        quant_matmul.quant_matmul(qx.to("meta"), sx, zx, w, sw)
+    lib = _FakeLib()
+    monkeypatch.setattr(build, "load", lambda name, sigs: lib)
+    monkeypatch.setattr(build, "stream_of", lambda t: ctypes.c_void_p(0))
+    monkeypatch.setattr(build, "sm_count", lambda device: SMS)
+    monkeypatch.setattr(quant_matmul, "w8a8_plan",
+                        lambda m, k, n, device: (1, None))
+    allocs = []
+    for name in ("empty", "zeros", "empty_like", "zeros_like", "full"):
+        real = getattr(torch, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            allocs.append(_name)
+            return _real(*args, **kw)
+        monkeypatch.setattr(torch, name, spy)
+    out = quant_matmul.launch("quant_gemv_w4", qx, sx, zx, packed, sw,
+                              gemv=True)
+    quant_matmul.launch("quant_matmul", qx, sx, zx, w, sw, planned=True,
+                        gemv=True, cols=32)
+    assert allocs == ["empty", "empty"] and out.shape == (8, 40)
+    (w4, a4), (w8, a8) = lib.calls
+    assert (w4, w8) == ("quant_gemv_w4", "quant_matmul")
+    assert len(a4) == len(quant_matmul._SIGNATURES[w4])
+    assert len(a8) == len(quant_matmul._SIGNATURES[w8])
+    # qx, m, k, sx, zx, qw, sw, n, [splits, ws,] sms, cols, out, stream
+    assert a4[1:3] == (8, 63) and a4[7:10] == (40, SMS, 0)
+    assert a8[7:9] == (40, 1) and a8[10:12] == (SMS, 32)
 
 
 def _gemv_operands(m, d, n, seed=0):
@@ -274,7 +465,7 @@ def test_gemv_wrapper_checks_and_allocates_no_scratch(monkeypatch):
     lib = _FakeLib()
     monkeypatch.setattr(build, "load", lambda name, sigs: lib)
     monkeypatch.setattr(build, "stream_of", lambda t: ctypes.c_void_p(0))
-    monkeypatch.setattr(F, "sm_count", lambda index: SMS)
+    monkeypatch.setattr(build, "sm_count", lambda device: SMS)
     allocs = []
     for name in ("empty", "zeros", "empty_like", "zeros_like", "full"):
         real = getattr(torch, name)

@@ -43,8 +43,9 @@ def _t(a):
     return None if a is None else torch.from_numpy(np.array(a, copy=True))
 
 
-def _operands(b, d, seed, n_blocks):
-    """Prologue operands and a pre-filled pool, made with numpy."""
+def _operands(b, d, seed, n_blocks, a=4):
+    """Prologue operands and a pre-filled pool, made with numpy (Kronecker
+    factors a x d / a)."""
     r = np.random.default_rng(seed)
     x = r.standard_normal((b, d)).astype(np.float32)
     blocks = None
@@ -52,7 +53,7 @@ def _operands(b, d, seed, n_blocks):
         bk = d // n_blocks
         blocks = (r.standard_normal((n_blocks, bk, bk)) * 0.3
                   + np.eye(bk)).astype(np.float32)
-    a, bb = 4, d // 4
+    bb = d // a
     ha = (r.standard_normal((a, a)) / np.sqrt(a)).astype(np.float32)
     hb = (r.standard_normal((bb, bb)) / np.sqrt(bb)).astype(np.float32)
     sign = (r.integers(0, 2, d) * 2 - 1).astype(np.float32)
@@ -68,10 +69,10 @@ def _operands(b, d, seed, n_blocks):
 
 
 def _run_three(b, seed, n_blocks=3, packed=True, pids=None, rows=None,
-               positions=None):
+               positions=None, d=24, a=4):
     """-> (port, JAX kernel, oracle) outputs and the original pools."""
-    x, blocks, ha, hb, sign, qw, sw, pools = _operands(b, 24, seed,
-                                                       n_blocks)
+    x, blocks, ha, hb, sign, qw, sw, pools = _operands(b, d, seed,
+                                                       n_blocks, a)
     pids = np.arange(1, 1 + b) if pids is None else pids
     rows = np.full(b, 1) if rows is None else rows
     positions = np.arange(3, 3 + b) if positions is None else positions
@@ -105,6 +106,19 @@ def _assert_matches(port, want):
 @pytest.mark.parametrize("packed", [True, False])
 def test_prologue_matches_reference(n_blocks, packed):
     port, kern, oracle, _ = _run_three(8, 0, n_blocks, packed)
+    _assert_matches(port, kern)
+    _assert_matches(port, oracle)
+
+
+@pytest.mark.parametrize("d,a,n_blocks", [(24, 4, 3), (63, 7, 7),
+                                           (96, 8, 16), (48, 4, 0)])
+@pytest.mark.parametrize("packed", [True, False])
+def test_prologue_matches_reference_at_general_widths(d, a, n_blocks,
+                                                      packed):
+    """Widths the card takes on its general path (odd D, CAT blocks and
+    factors that are not multiples of 4): the plain prologue against the
+    Pallas kernel in interpret mode and the oracle."""
+    port, kern, oracle, _ = _run_three(8, d, n_blocks, packed, d=d, a=a)
     _assert_matches(port, kern)
     _assert_matches(port, oracle)
 

@@ -323,6 +323,25 @@ def test_fused_matches_reference(packed, m, d, n, n_blocks):
                  packed=packed)
 
 
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("m,d,n,n_blocks", [
+    (3, 96, 40, 16),       # CAT block 6 (not a multiple of 4), GEMV
+    (17, 96, 40, 16),      # the same, tiled
+    (5, 24, 40, 3),        # the prologue's reference width, GEMV
+    (12, 24, 40, 3),       # ... tiled
+    (4, 48, 40, 0),        # D 48 = 6 x 8
+    (11, 63, 40, 7),       # odd K, tiled, with blocks
+])
+def test_fused_matches_reference_at_general_widths(packed, m, d, n,
+                                                   n_blocks):
+    """Widths the cluster transform splits over no cluster of, which the
+    card takes on its general path (one CTA per cluster, scalar chains):
+    the plain version, which the card is held to bitwise, against the
+    Pallas kernels in interpret mode and the oracle."""
+    _check_fused(m, d, n, seed=m * 100 + d + n_blocks, n_blocks=n_blocks,
+                 packed=packed)
+
+
 @pytest.mark.parametrize("act_bits", [4, 8])
 def test_fused_act_bits(act_bits):
     _check_fused(9, 64, 48, seed=act_bits, n_blocks=4, act_bits=act_bits)
