@@ -98,6 +98,17 @@ Phases (any failure exits non-zero before the final line):
              free-running through the reference routes is reported too: on
              random weights one different token changes every later one,
              so that number measures divergence more than the path.
+   Then the legacy schedule, the reference's default engine (prefill on
+             admit, power-of-two buckets, one batched decode per step;
+             ``legacy_phase``), on the same model and requests: (c) the
+             slot cache, (c') the paged pool through the gather path, (d)
+             the paged pool with the paged kernels (the decode attention
+             and the two-launch decode). Each: a counted pass and two
+             warm passes (tok/s, TTFT, ITL, host ms and dispatches per
+             step). (c) and (c') must be token-identical, (d)'s counted
+             pass must launch rows 1, 2, 4 and 5, and the reference
+             routes, teacher-forced, must predict >= 90 % of (c)'s and
+             (d)'s tokens.
 5. composed — ``ops.cat_transform_matmul`` (block-CAT -> Hadamard ->
              dynamic quant -> W4A8 GEMV / tiled or W8A8 contraction, four
              launches) on all 32 serving linears of the served CAT-W4A4
@@ -112,7 +123,7 @@ The second line from the end is the per-kernel JSON summary, the last line
 
     python3 chip_smoke.py --rows-2-4 [SRC]
 
-times rows 1-5, 7 and 8 only (the flag keeps its first name, from when it
+times rows 1-5, 7, 8 and 9 only (the flag keeps its first name, from when it
 timed rows 2 and 4), of the port package under SRC (another checkout's
 ``src``, such as the parent commit's; default this one's), at this
 script's timed shapes and ``DECODE_LENGTHS``: run it for two packages in
@@ -122,6 +133,7 @@ turns within one call for a before/after of those kernels
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import subprocess
@@ -1494,24 +1506,142 @@ def check_stages(card, gen, dev):
             if not ok or f32_same != 1.0:
                 fail(f"hadamard_transform m={m} d={d}: max error {err}, "
                      f"f32 bitwise share {f32_same}")
-            # dynamic quant (the Hadamard output, as on the path)
+            # dynamic quant (the Hadamard output, as on the path), beside
+            # its floor: an empty kernel and a copy of its bytes at its
+            # grid, and its time at each forced number of rows per CTA
             y = H.hadamard_transform(x, ha, hb, sign)
             got = DQ.dynamic_quant(y, 4)
             want = DQ.dynamic_quant_plain(y, 4)
             diffs = [int((g != w).sum().item()) for g, w in zip(got, want)]
+            floor = {k: device_ms(lambda k=k: dq_floor(y, k))
+                     for k in ("empty", "copy")}
+            sweep = {r: device_ms(lambda r=r: DQ.dynamic_quant(
+                y, 4, rows=r)) for r in (1, 2, 4, 8)}
             out["dynamic_quant"].append(timed_record(
                 "dynamic_quant", shape, lambda: DQ.dynamic_quant(y, 4),
                 lambda: DQ.dynamic_quant_plain(y, 4), None,
                 3 * m * d + 8 * m, 6 * m * d / F32_FLOP_S, card,
                 {"max_err": (got[0].int() - want[0].int()).abs().max()
                  .item(), "codes_scales_zps_differing": diffs,
-                 "tol": "bitwise"}))
-            if any(diffs):
+                 "tol": "bitwise", "plan": DQ.plan(m, d, 2)._asdict(),
+                 "empty_kernel_ms": floor["empty"],
+                 "copy_kernel_ms": floor["copy"], "rows_sweep_ms": sweep,
+                 "one_call": one_launch(lambda: DQ.dynamic_quant(y, 4),
+                                        "dynamic_quant_kernel"),
+                 "library": "none: no one PyTorch call computes a per-row "
+                            "asymmetric quant (torch.aminmax gives only "
+                            "the range)"}))
+            if any(diffs) or not out["dynamic_quant"][-1]["one_call"][
+                    "ok"]:
                 fail(f"dynamic_quant m={m} d={d}: {diffs} codes/scales/zps "
-                     f"differ from the plain version")
+                     f"differ from the plain version, or not one kernel "
+                     f"per call")
     out["block_diag_matmul"] += edges
     out["hadamard_transform"] += had_edges
+    out["dynamic_quant"] += check_dq_edges(gen, dev)
     return out
+
+
+DQ_FLOOR_SIGNATURES = {"dq_floor": [ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_void_p]}
+
+
+def dq_floor(x, kind: str):
+    """The floor of ``dynamic_quant`` on a CUDA x (m, d) at the kernel's
+    grid (``csrc/dq_floor.cu``, a library of its own that the port never
+    loads): ``kind`` "empty" launches an empty kernel, "copy" a kernel
+    that moves the quant's bytes (x in; one byte per element and 8 bytes
+    per row out) with no arithmetic. -> the copy's outputs (q, scale,
+    zp)."""
+    import torch
+
+    from repro_torch.kernels import build
+    m, d = x.shape
+    q = torch.empty((m, d), dtype=torch.int8, device=x.device)
+    scale = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    zp = torch.empty((m, 1), dtype=torch.float32, device=x.device)
+    lib = build.load("dq_floor", DQ_FLOOR_SIGNATURES)
+    build.check(lib.dq_floor(
+        {"empty": 0, "copy": 1}[kind], build.ptr(x),
+        int(x.dtype == torch.bfloat16), m, d, 0, build.ptr(q),
+        build.ptr(scale), build.ptr(zp), build.stream_of(x)), "dq_floor")
+    return q, scale, zp
+
+
+DQ_EDGE_ROWS = (1, 7, 8, 128, 300)
+DQ_EDGE_WIDTHS = (24, 63, 512, 1536, 12289)
+
+
+def check_dq_edges(gen, dev):
+    """Dynamic quant (row 9) bitwise against its plain version (codes,
+    scales and zero points) at M 1, 7, 8, 128, 300, D 24, 63, 512, 1536
+    and 12,289 (the register path's widths and the general path's: odd D
+    and a D past the register path, which the old kernel refused), bits
+    2, 4 and 8, symmetric and asymmetric, f32 and bf16 inputs, each block
+    with constant rows (the 1e-12 clamp: an all-zero row and a row of one
+    value), every forced number of rows per CTA at one shape, rows whose
+    scale passes 2^100 (their codes take the IEEE division instead of the
+    reciprocal's), a row start off a 16-byte boundary (the general path
+    at D 512), and one kernel node per call at each width and type."""
+    import torch
+
+    from repro_torch.kernels import dynamic_quant as DQ
+    recs, bad = [], []
+
+    def held(x, bits, sym, label, rows=0):
+        got = DQ.dynamic_quant(x, bits, sym, rows=rows)
+        want = DQ.dynamic_quant_plain(x, bits, sym)
+        diffs = [int((g != w).sum().item()) for g, w in zip(got, want)]
+        if any(diffs):
+            bad.append({"case": label, "bits": bits, "symmetric": sym,
+                        "rows": rows, "differing": diffs})
+        return (got[0].int() - want[0].int()).abs().max().item()
+
+    for d in DQ_EDGE_WIDTHS:
+        for dtype in (torch.float32, torch.bfloat16):
+            err = 0
+            for m in DQ_EDGE_ROWS:
+                x = (torch.randn((m, d), generator=gen)
+                     * torch.rand((m, 1), generator=gen) * 30).to(dtype)
+                x[0] = 0.0
+                if m > 2:
+                    x[m // 2] = 2.5
+                x = x.to(dev)
+                for bits in (2, 4, 8):
+                    for sym in (False, True):
+                        err = max(err, held(x, bits, sym, f"m{m}"))
+            one = one_launch(lambda: DQ.dynamic_quant(x, 4),
+                             "dynamic_quant")
+            if not one["ok"]:
+                bad.append({"case": "one kernel per call", "d": d,
+                            "one_call": one})
+            recs.append({"kernel": "dynamic_quant", "edge": "widths",
+                         "d": d, "dtype": str(dtype), "m": DQ_EDGE_ROWS,
+                         "plan": DQ.plan(max(DQ_EDGE_ROWS), d,
+                                         x.element_size())._asdict(),
+                         "max_err": err, "one_call": one["ok"]})
+    x = torch.randn((128, 512), generator=gen).to(torch.bfloat16).to(dev)
+    recs.append({"kernel": "dynamic_quant", "edge": "forced rows 1..8",
+                 "max_err": max(held(x, 4, False, "forced rows", rows)
+                                for rows in range(1, 9))})
+    # rows whose scale passes 2^100: their codes take the IEEE division
+    x = (torch.randn((8, 512), generator=gen) * 1e35).to(dev)
+    recs.append({"kernel": "dynamic_quant", "edge": "scale past 2^100",
+                 "max_err": max(held(x.to(dt), bits, sym, "scale past 2^100")
+                                for dt in (torch.float32, torch.bfloat16)
+                                for bits in (4, 8) for sym in (False, True))})
+    flat = torch.randn((128 * 512 + 1,), generator=gen).to(dev)
+    x = flat[1:].view(128, 512)              # 4 bytes off a 16-byte line
+    recs.append({"kernel": "dynamic_quant", "edge": "misaligned",
+                 "max_err": held(x, 4, False, "misaligned"),
+                 "plan": DQ.plan(128, 512, 4, aligned=False)._asdict()})
+    print("dynamic_quant edges " + json.dumps(recs))
+    if bad:
+        fail(f"dynamic_quant edges not bitwise: {json.dumps(bad)}")
+    return recs
 
 
 def contraction_operands(m, k, n, gen, dev, packed, act_bits=4):
@@ -2044,6 +2174,105 @@ def serve(counters, card):
     return out, model, params
 
 
+LEGACY_CONFIGS = {
+    # (c) the reference's default engine: legacy schedule, slot cache,
+    # power-of-two prefill buckets
+    "c": dict(paged=False, bucket=True),
+    # (c') the same on the paged pool through the gather path
+    "c_paged": dict(paged=True, paged_kernel=False, page_size=16),
+    # (d) the paged pool with the paged kernels: the decode attention and,
+    # on the card, the two-launch decode
+    "d": dict(paged=True, paged_kernel=True, page_size=16),
+}
+
+
+def legacy_phase(model, params, counters, card):
+    """The legacy schedule (prefill on admit, bucketed; one batched decode
+    per step) at full width on the serving phase's model and 8 requests,
+    8 slots, ``max_len`` a multiple of 16, in the three configurations of
+    ``LEGACY_CONFIGS``. Each: a warm-up pass, the counted pass (every
+    kernel counter set to 0 just before it, read just after), two more
+    warm passes; tok/s, TTFT, ITL p50/p95, host ms and dispatches per
+    step of each. Held: (c) and (c') token-identical (the gathered paged
+    view has the slot cache's content and shape); (d)'s counted pass
+    launches the decode linear, the tiled linear (prefill buckets 16 and
+    32), the decode attention and the prologue; the reference routes,
+    teacher-forced over (c)'s and (d)'s served sequences, predict >= 0.9
+    of their tokens."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import request_workload
+    from repro_torch.launch.engine import ServeEngine
+    os.environ.pop("REPRO_DECODE_FUSED", None)     # on for CUDA: the default
+    reqs = request_workload(model.cfg, 8, gen=32, seed=0)
+    max_len = -(-(max(len(r["tokens"]) for r in reqs) + 32 + 8) // 16) * 16
+    keys = ("tok_per_s", "ttft_s_mean", "itl_p50_s", "itl_p95_s",
+            "host_ms_mean", "device_ms_mean", "d2h_ms_mean",
+            "dispatch_per_step", "n_dispatch", "steps", "decode_steps",
+            "generated_tokens", "wall_s")
+    out, served = {}, {}
+    for name, cfg_kw in LEGACY_CONFIGS.items():
+        engine = ServeEngine(model, params, n_slots=8, max_len=max_len,
+                             schedule="legacy", device="cuda", **cfg_kw)
+        engine.run(reqs)
+        engine.reset()
+        for fn in counters:
+            fn.launches = 0
+        res = engine.run(reqs)
+        torch.cuda.synchronize()
+        launches = {fn.__name__: fn.launches for fn in counters}
+        passes = [{k: engine.summary()[k] for k in keys}]
+        for _ in range(2):
+            engine.reset()
+            engine.run(reqs)
+            passes.append({k: engine.summary()[k] for k in keys})
+        s = engine.summary()
+        if s["schedule"] != "legacy" or s["paged"] != cfg_kw["paged"]:
+            fail(f"legacy ({name}): the engine ran {s['schedule']}, paged "
+                 f"{s['paged']}")
+        for r in reqs:
+            toks = np.asarray(res[r["rid"]].tokens)
+            if not (len(toks) == len(r["tokens"]) + 32
+                    and (0 <= toks).all() and (toks < model.cfg.vocab).all()):
+                fail(f"legacy ({name}) request {r['rid']}: malformed output "
+                     f"{toks}")
+        served[name] = res
+        out[name] = {"engine": cfg_kw, "max_len": max_len,
+                     "launches": launches, "passes": passes, "card": card}
+        print(f"legacy ({name}) {card}: " + json.dumps(out[name]))
+    equal = [float(np.mean(np.asarray(served["c"][r["rid"]].tokens)
+                           == np.asarray(served["c_paged"][r["rid"]].tokens)))
+             for r in reqs]
+    first = {r["rid"]: int(np.argmax(
+        np.asarray(served["c"][r["rid"]].tokens)
+        != np.asarray(served["c_paged"][r["rid"]].tokens)))
+        - len(r["tokens"]) for r, e in zip(reqs, equal) if e < 1.0}
+    out["c_equals_c_paged"] = {"share": float(np.mean(equal)),
+                               "first_differing_step": first}
+    print("legacy: (c) vs (c') tokens " + json.dumps(
+        out["c_equals_c_paged"]))
+    if first:
+        fail(f"legacy (c) and (c') tokens differ: share equal "
+             f"{np.mean(equal)}, first differing generated step per "
+             f"request {first}")
+    for fn_name, n in out["d"]["launches"].items():
+        if fn_name != "paged_attention_ragged" and n <= 0:
+            fail(f"legacy (d): kernel {fn_name} never launched in its "
+                 f"counted pass")
+    for name in ("c", "d"):
+        agree = teacher_forced_reference(model, params, reqs, served[name])
+        out[name]["reference_agreement_teacher_forced"] = agree
+        print(f"legacy ({name}): teacher-forced agreement with the "
+              f"reference routes {agree}")
+        if agree < 0.9:
+            fail(f"legacy ({name}) teacher-forced agreement with the "
+                 f"reference routes {agree} < 0.9")
+    return out
+
+
 def composed_plain(x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
     """The composed linear through the six plain versions -> (y in x's
     dtype, codes, scales, zero points)."""
@@ -2183,7 +2412,7 @@ def composed_phase(model, params_w4, counters, card, gen):
 
 
 def compare_rows(src: Path, card: str, out_dir: Path) -> None:
-    """Time rows 1-5, 7 and 8 of the port package under ``src`` (another
+    """Time rows 1-5, 7, 8 and 9 of the port package under ``src`` (another
     checkout's ``src``, such as the parent commit's, or this one's) at
     this script's timed shapes, on inputs drawn from one seed in one order
     (the same for every package), through entry points both packages
@@ -2195,21 +2424,25 @@ def compare_rows(src: Path, card: str, out_dir: Path) -> None:
     outputs differing from the plain version); the decode prologue (row
     5) at 8 rows; the code GEMV of rows 7 and 8 (``quant_gemv_w4``,
     ``quant_matmul``) at 8 rows of every main-path (D, N) (outputs
-    differing from the plain version). Run it for two packages in one
+    differing from the plain version); the dynamic quant (row 9) at the
+    composed phase's shapes (M 8 and 128, D 512 and 1536, bf16; codes,
+    scales and zero points differing). Run it for two packages in one
     call, in turns, for a before/after; writes
-    ``chiprun_out/compare_<tag>.json``."""
+    ``chiprun_out/compare_<tag>.json`` and, for the libraries it built,
+    the compiler's output ``chiprun_out/nvcc_<tag>.log``."""
     import hashlib
 
     import torch
 
     from repro_torch.kernels import build
     from repro_torch.kernels import decode_layer as L
+    from repro_torch.kernels import dynamic_quant as DQ
     from repro_torch.kernels import fused_cat_matmul as F
     from repro_torch.kernels import paged_attention as P
     from repro_torch.kernels import quant_matmul as QM
     from repro_torch.kernels import quant_matmul_w4 as QW
     t0 = time.perf_counter()
-    build.build_all()
+    report = build.build_all()
     recs = []
     gen = torch.Generator().manual_seed(0)
     dev = torch.device("cuda")
@@ -2259,6 +2492,16 @@ def compare_rows(src: Path, card: str, out_dir: Path) -> None:
                          "differing": int((run(*args) != plain(*args))
                                           .sum().item()),
                          "kernel_ms": device_ms(lambda: run(*args))})
+    for d in (512, 1536):
+        for m in COMPOSED_ROWS:
+            y = torch.randn((m, d), generator=gen).to(torch.bfloat16).to(dev)
+            got = DQ.dynamic_quant(y, 4)
+            want = DQ.dynamic_quant_plain(y, 4)
+            recs.append({"kernel": "dynamic_quant", "m": m, "d": d,
+                         "differing": sum(int((g != w).sum().item())
+                                          for g, w in zip(got, want)),
+                         "kernel_ms": device_ms(
+                             lambda: DQ.dynamic_quant(y, 4))})
     targets = [(1 + i, (5 * i) % 16, 16 * i + (5 * i) % 16)
                for i in range(6)] + [(0, 0, 0), (0, 0, 0)]
     args, pools, ids = prologue_operands(8, gen, dev, targets)
@@ -2274,6 +2517,13 @@ def compare_rows(src: Path, card: str, out_dir: Path) -> None:
         print("compare " + json.dumps(rec))
     out_dir.mkdir(exist_ok=True)
     (out_dir / f"compare_{tag}.json").write_text(json.dumps(res, indent=1))
+    # the compiler's statistics of the libraries built in this run (the
+    # first run of a package), to set two packages' registers and spills
+    # side by side
+    if report:
+        (out_dir / f"nvcc_{tag}.log").write_text("".join(
+            f"== {name} ({r['s']:.1f} s)\n{r['log']}\n"
+            for name, r in sorted(report.items())))
 
 
 def main() -> None:
@@ -2304,7 +2554,7 @@ def main() -> None:
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    report = build.build_all()
+    report = build.build_all((*build.SOURCES, "dq_floor"))
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{sorted(report)} (parallel nvcc)")
     out_dir = ROOT / "chiprun_out"
@@ -2361,6 +2611,7 @@ def main() -> None:
                 P.paged_attention_ragged, P.paged_attention_decode,
                 L.decode_qkv_prologue]
     serving, model, params = serve(counters, card)
+    serving["legacy"] = legacy_phase(model, params, counters, card)
     composed_counters = [QW.quant_matmul_w4, QW.quant_gemv_w4,
                          QM.quant_matmul, DQ.dynamic_quant,
                          H.hadamard_transform, B.block_diag_matmul]

@@ -432,7 +432,7 @@ __device__ void transform_quant_rows(int m, int d, int c, int rank,
   cluster.sync();   // every CTA holds every CTA's row ranges
   // every CTA: each row's range over the cluster, then its scale and zero
   // point, and the codes of this CTA's values (tq::asym_params/asym_code,
-  // the arithmetic of tq::quant_rows)
+  // the arithmetic of the stand-alone quant)
   if (tid < m) {
     float ymin = INFINITY, ymax = -INFINITY;
     for (int q = 0; q < c; ++q) {

@@ -1,5 +1,13 @@
-"""Device side of the unified serve loop — counterpart of
-``repro.launch.executor.RaggedExecutor`` (single device).
+"""Device side of the serve loop — counterpart of
+``repro.launch.executor`` (single device): ``LegacyExecutor`` and
+``RaggedExecutor``.
+
+``LegacyExecutor`` is the prefill-on-admit + batched-decode pair of the
+legacy schedule: a bucketed prefill written in place into one slot of the
+shared slot cache (``prefill_slot``), paged prefill spans
+(``prefill_paged_span``) and one batched decode over every slot
+(``decode``), whose greedy tokens it waits for. ``RaggedExecutor`` is the
+unified step.
 
 ``RaggedExecutor`` owns the params and the paged KV pools on its device
 and runs one engine step per call: the flat packed (T, 1) batch of decode
@@ -8,8 +16,8 @@ plans that are pure decode — the compact (n_slots, 1) batch through
 ``model.decode`` (``decode_step``). Both return a ``TokenFetch`` of the
 greedy token ids without synchronising; the pools update in place.
 
-Nothing in a dispatch waits for the card. The packed host inputs reach it
-from a 2-deep ring of pinned staging buffers, copied with
+Nothing in a unified dispatch waits for the card. The packed host inputs
+reach it from a 2-deep ring of pinned staging buffers, copied with
 ``non_blocking=True``; a buffer is written again two dispatches later,
 after the engine has observed the step that read it (at pipeline depth 1
 that holds by construction, and the synchronous loop observes every step
@@ -18,6 +26,8 @@ same ring, behind a recorded CUDA event that ``TokenFetch.result`` waits
 on. On the CPU both are plain copies.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -46,6 +56,79 @@ class TokenFetch:
         if self._event is not None:
             self._event.synchronize()
         return self._host.numpy().copy()
+
+
+class LegacyExecutor:
+    """Prefill-on-admit + batched decode (reference ``executor.py:290``),
+    on one device: the legacy schedule's device path, which the reference
+    keeps as the oracle its unified step is tested against. ``cache`` is
+    the slot cache ((L, n_slots, max_len, ...) tensors) or, with
+    ``paged``, the paged pools; both update in place."""
+
+    def __init__(self, model, params, cache, *, n_slots: int,
+                 paged: bool = False, paged_kernel: bool = False,
+                 device="cpu"):
+        self.model, self.params, self.cache = model, params, cache
+        self.n_slots, self.paged = n_slots, paged
+        self.paged_kernel = paged_kernel
+        self.device = torch.device(device)
+        self.n_dispatch = 0     # device calls issued (hot-loop accounting)
+        self.d2h_s = 0.0        # token D2H seconds (attributed separately)
+
+    def _dev(self, a) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    @torch.no_grad()
+    def prefill_slot(self, toks: np.ndarray, slot: int, last: int):
+        """Slot-cache prefill of ``toks`` (P,) into slot ``slot``, in place:
+        the model writes the slot's rows straight into the shared cache
+        through a view of slot ``slot`` along axis 1. (The reference
+        slices the slot out, prefills it and writes it back in one jitted
+        program, ``_prefill_slot_fused`` over ``_take_slot`` /
+        ``_put_slot``; in-place writes need neither copy.) Returns the
+        logits (1, 1, V) at row ``last``."""
+        self.n_dispatch += 1
+        part = {k: v[:, slot:slot + 1] for k, v in self.cache.items()}
+        logits, _ = self.model.prefill(self.params, self._dev(toks[None]),
+                                       dict(part, pos=0), logits_at=last)
+        return logits
+
+    @torch.no_grad()
+    def prefill_paged_span(self, toks: np.ndarray, row, off: int,
+                           last: int):
+        """One paged prefill span: ``toks`` (C,) at cache offset ``off``
+        against the page-table row ``row`` (1, n_ptab), in place. Returns
+        (logits (1, 1, V) at row ``last``, row)."""
+        self.n_dispatch += 1
+        cache = dict(self.cache, page_table=self._dev(row), pos=off)
+        logits, _ = self.model.prefill(self.params, self._dev(toks[None]),
+                                       cache, logits_at=last)
+        return logits, row
+
+    @torch.no_grad()
+    def decode(self, toks: np.ndarray, pos: np.ndarray,
+               table=None) -> np.ndarray:
+        """One batched decode step over all slots (``toks`` (n_slots, 1)
+        at per-slot positions ``pos``; with the paged pools, ``table``
+        (n_slots, n_ptab)); returns the greedy next token per slot as
+        (n_slots,) int32 numpy. The argmax runs on the device (the lowest
+        index wins ties, as the reference's ``_greedy_rows``), so only
+        n_slots ints cross to the host; the wait for the step is the
+        engine's device span, the copy itself is timed into ``d2h_s``."""
+        self.n_dispatch += 1
+        cache = dict(self.cache, pos=self._dev(pos))
+        if table is not None:
+            cache["page_table"] = self._dev(table)
+        kw = {"paged_kernel": True} if self.paged_kernel else {}
+        logits, _ = self.model.decode(self.params, self._dev(toks), cache,
+                                      **kw)
+        tokens = greedy_tokens(logits)
+        if tokens.is_cuda:
+            torch.cuda.current_stream(tokens.device).synchronize()
+        td = time.perf_counter()
+        out = tokens.cpu().numpy()
+        self.d2h_s += time.perf_counter() - td
+        return out
 
 
 class RaggedExecutor:

@@ -1,15 +1,21 @@
 """Quantized serving CLI — counterpart of ``repro.launch.serve``: the
 paper's deployed pipeline (CAT-transformed int4-packed weights, dynamic
-act quant, int8 paged KV pool) served by the unified engine.
+act quant, int8 KV cache) served by the engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch catlm_60m \
         --requests 8 --n-slots 4 --gen 32 --mixed --kv-bits 8
 
-Runs on the CUDA device unless ``--device cpu`` is given, through the
+The defaults are the reference's: the legacy schedule (prefill-on-admit,
+bucketed, one batched decode per step) on the slot cache; ``--paged``
+serves it from the paged pool, ``--paged-kernel`` adds the paged
+attention kernels and the two-launch decode there. ``--schedule
+unified`` runs the token-budget engine on the paged pool, through the
 depth-1 pipelined loop unless ``--no-pipeline`` (or ``REPRO_SYNC_STEP``)
-selects the synchronous one. The reference CLI's flags are accepted;
-those of later slices (legacy schedule, mesh, prefix cache, speculative
-decoding) make the engine raise ``NotImplementedError``.
+selects the synchronous one; ``--schedule unified --paged-kernel`` is
+the card's fast path. Runs on the CUDA device unless ``--device cpu`` is
+given. The reference CLI's flags are accepted; those of later slices
+(mesh, prefix cache, speculative decoding) make the engine raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -109,13 +115,16 @@ def serve_benchmark(arch: str = "catlm_60m", batch: int = 4,
                     a_bits: int = 4, smoke: bool = True, seed: int = 0,
                     kv_bits: int = 8, n_slots: int = 0,
                     n_requests: int = 0, mixed: bool = False,
-                    page_size: int = 16, prefill_chunk: int = 0,
-                    max_len: int = 0, schedule: str = "unified",
-                    max_batch_tokens: int = 0, warmup: int = 0,
-                    shared_prefix: int = 0, device="cuda",
+                    paged: bool = False, page_size: int = 16,
+                    prefill_chunk: int = 0, max_len: int = 0,
+                    schedule: str = "legacy", max_batch_tokens: int = 0,
+                    warmup: int = 0, shared_prefix: int = 0,
+                    paged_kernel: bool = False, device="cuda",
                     pipeline: Optional[bool] = None, **later):
     """Quantize then serve a workload through the engine (see the
-    reference's ``serve_benchmark``). ``pipeline`` selects the loop as
+    reference's ``serve_benchmark``): by default the legacy schedule on
+    the slot cache; ``paged`` serves from the paged pool (implied by
+    ``schedule="unified"``). ``pipeline`` selects the unified loop as
     ``ServeEngine``'s does (None: pipelined unless REPRO_SYNC_STEP is
     set). ``later`` carries options of later slices (mesh, prefix_cache,
     speculative_k) to the engine, which raises on them."""
@@ -133,9 +142,10 @@ def serve_benchmark(arch: str = "catlm_60m", batch: int = 4,
     max_prompt = max(len(r["tokens"]) for r in requests)
     engine = ServeEngine(model, params, n_slots=n_slots or batch,
                          max_len=max_len or max_prompt + gen + 8,
-                         page_size=page_size, prefill_chunk=prefill_chunk,
-                         schedule=schedule,
-                         max_batch_tokens=max_batch_tokens, device=device,
+                         paged=paged, page_size=page_size,
+                         prefill_chunk=prefill_chunk, schedule=schedule,
+                         max_batch_tokens=max_batch_tokens,
+                         paged_kernel=paged_kernel, device=device,
                          pipeline=pipeline, **later)
     if warmup:
         results, summary = run_steady(engine, requests, passes=int(warmup))
@@ -152,7 +162,14 @@ def serve_benchmark(arch: str = "catlm_60m", batch: int = 4,
 
 
 def validate_flags(ap: argparse.ArgumentParser, args) -> None:
-    """Flag admissibility checks surfaced as argparse errors."""
+    """Flag admissibility checks surfaced as argparse errors (the
+    reference's, for the flags the port serves)."""
+    unified = args.schedule == "unified"
+    if (args.page_size != 16 or args.prefill_chunk or args.paged_kernel) \
+            and not (args.paged or unified):
+        ap.error("--page-size/--prefill-chunk/--paged-kernel need --paged "
+                 "(or --schedule unified, which serves from the paged "
+                 "pool)")
     if args.page_size < 1:
         ap.error(f"--page-size must be >= 1 (got {args.page_size})")
     if args.kv_bits and args.page_size % KV_QUANT_GROUP:
@@ -160,14 +177,27 @@ def validate_flags(ap: argparse.ArgumentParser, args) -> None:
                  f"group (got {args.page_size}, group {KV_QUANT_GROUP})")
     if args.prefill_chunk < 0:
         ap.error(f"--prefill-chunk must be >= 0 (got {args.prefill_chunk})")
+    if args.prefill_chunk and args.prefill_chunk % args.page_size \
+            and not unified:
+        ap.error(f"--prefill-chunk must be a multiple of --page-size "
+                 f"(got {args.prefill_chunk}, page {args.page_size}); "
+                 f"legacy chunks write whole pages — only --schedule "
+                 f"unified slices chunks freely")
     if args.shared_prefix < 0:
         ap.error(f"--shared-prefix must be >= 0 (got {args.shared_prefix})")
+    if args.max_batch_tokens and not unified:
+        ap.error(f"--max-batch-tokens needs --schedule unified "
+                 f"(got {args.max_batch_tokens} with --schedule "
+                 f"{args.schedule})")
     if args.max_batch_tokens and args.max_batch_tokens < args.batch:
         ap.error(f"--max-batch-tokens must be >= --n-slots (got "
                  f"{args.max_batch_tokens}, slots {args.batch}; every "
                  f"running slot decodes one token per step)")
     if args.speculative < 0:
         ap.error(f"--speculative must be >= 0 (got {args.speculative})")
+    if args.pipeline and not unified:
+        ap.error("--pipeline needs --schedule unified (legacy "
+                 "prefill-on-admit is inherently synchronous)")
 
 
 def main(argv=None) -> None:
@@ -192,18 +222,30 @@ def main(argv=None) -> None:
     ap.add_argument("--mesh", default="",
                     help="dp,tp device mesh (a later slice of the port)")
     ap.add_argument("--paged", action="store_true",
-                    help="accepted for the reference's CLI; the port always "
-                         "serves from the paged pool")
+                    help="serve from the paged KV pool (lazy per-page "
+                         "allocation) instead of the slot cache")
     ap.add_argument("--page-size", type=int, default=16,
-                    help="tokens per KV page")
+                    help="tokens per KV page (a multiple of the KV quant "
+                         "scale group; needs --paged)")
     ap.add_argument("--prefill-chunk", type=int, default=0,
-                    help="cap on per-step prefill chunks")
-    ap.add_argument("--schedule", default="unified",
+                    help="feed prompts through prefill in fixed chunks of "
+                         "this many tokens (a multiple of --page-size; "
+                         "needs --paged); in unified mode, a cap on "
+                         "per-step prefill chunks")
+    ap.add_argument("--paged-kernel", action="store_true",
+                    help="paged attention kernels and, on the card, the "
+                         "two-launch decode (needs --paged or --schedule "
+                         "unified)")
+    ap.add_argument("--schedule", default="legacy",
                     choices=["legacy", "unified"],
-                    help="unified token-budget steps (legacy is a later "
-                         "slice of the port)")
+                    help="legacy (default, the reference's): prefill on "
+                         "admit + one batched decode per step; unified: "
+                         "pack decode tokens + prefill chunks into one "
+                         "token-budgeted ragged step per cycle (implies "
+                         "the paged KV pool)")
     ap.add_argument("--max-batch-tokens", type=int, default=0,
-                    help="token budget per step (>= --n-slots)")
+                    help="unified-schedule token budget per step (>= "
+                         "--n-slots)")
     ap.add_argument("--prefix-cache", action="store_true",
                     help="a later slice of the port")
     ap.add_argument("--shared-prefix", type=int, default=0,
@@ -239,24 +281,37 @@ def main(argv=None) -> None:
                           transform=args.transform, w_bits=args.w_bits,
                           a_bits=args.a_bits, smoke=not args.full_config,
                           kv_bits=args.kv_bits, n_requests=args.requests,
-                          mixed=args.mixed, page_size=args.page_size,
+                          mixed=args.mixed, paged=args.paged,
+                          page_size=args.page_size,
                           prefill_chunk=args.prefill_chunk,
                           schedule=args.schedule,
                           max_batch_tokens=args.max_batch_tokens,
                           shared_prefix=args.shared_prefix,
+                          paged_kernel=args.paged_kernel,
                           device=args.device, pipeline=args.pipeline,
                           **later)
     eng = out["engine"]
-    pipe = (f", pipelined {eng['overlap_frac']:.0%} overlap"
-            if eng["pipeline"] else ", sync")
+    if eng["schedule"] == "unified":
+        pipe = (f", pipelined {eng['overlap_frac']:.0%} overlap"
+                if eng["pipeline"] else ", sync")
+        sched_note = (f", unified[{eng['max_batch_tokens']}t budget, "
+                      f"itl p95 {eng['itl_p95_s'] * 1e3:.0f}ms{pipe}]")
+    else:
+        sched_note = (f", legacy[itl p95 {eng['itl_p95_s'] * 1e3:.0f}ms, "
+                      f"{eng['dispatch_per_step']:.2f} dispatches/step]")
+    kv_note = (f", paged[{eng['page_size']}t/page, "
+               f"{eng['resident_kv_bytes_mean'] / 2**10:.0f}KiB "
+               f"resident vs {eng['kv_capacity_bytes'] / 2**10:.0f}"
+               f"KiB slot-equivalent]") if eng["paged"] else (
+               f", slot[{eng['resident_kv_bytes_mean'] / 2**10:.0f}KiB "
+               f"resident = capacity]")
     print(f"{out['arch']} [{out['transform']}] on {eng['device']}: "
           f"{out['tok_per_s']:.1f} tok/s ({out['wall_s']:.2f}s wall) | "
           f"{eng['n_requests']} reqs on {eng['n_slots']} slots, "
           f"ttft {eng['ttft_s_mean'] * 1e3:.0f}ms, "
           f"occupancy {eng['occupancy_mean']:.2f}, "
-          f"kv={'int8' if eng['quantized_kv'] else 'fp'}, "
-          f"unified[{eng['max_batch_tokens']}t budget, "
-          f"itl p95 {eng['itl_p95_s'] * 1e3:.0f}ms{pipe}]")
+          f"kv={'int8' if eng['quantized_kv'] else 'fp'}"
+          f"{kv_note}{sched_note}")
     if out.get("qlinear_layers"):
         kind = "int4-packed" if out["packed_int4"] else "int8"
         print(f"  weights: {out['weight_bytes'] / 2**20:.2f} MiB across "

@@ -5,7 +5,9 @@ Params are a dict ``{"embed" (V, D), "final_norm" (D,), "layers": [one
 dict per layer]}``; layers run as a Python loop. This slice covers the
 catlm family: no sliding window, softcaps, qk-norm, sandwich norms or vlm
 prefix. A cache with a ``page_table`` is a paged KV pool ((L, n_pages,
-page_size, KV, hd) tensors, updated in place). ``paged_kernel`` routes
+page_size, KV, hd) tensors, updated in place); one without is a slot
+cache ((L, B, max_len, KV, hd), updated in place: ``init_cache``), whose
+batch row b is slot b. ``paged_kernel`` routes
 single-row attention on int8 pools through the paged-attention kernels:
 the ragged one when a ``ragged_desc`` is given, the decode one otherwise
 — and, where ``ops.use_fused_decode`` allows it, a pure-decode layer's
@@ -20,9 +22,10 @@ import torch
 
 from repro_torch.core import qlinear
 from repro_torch.models.layers import (_paged_indices, activation,
-                                       add_rms_norm, chunked_attention,
-                                       fake_quant_kv, gather_pages,
-                                       paged_cache_update,
+                                       add_rms_norm, cache_update,
+                                       cache_update_quantized,
+                                       chunked_attention, fake_quant_kv,
+                                       gather_pages, paged_cache_update,
                                        paged_cache_update_quantized,
                                        rms_norm, rope)
 
@@ -137,13 +140,21 @@ def _attention(cfg, lp, h, cache_sl, pos, positions, page_table,
         v = fake_quant_kv(v, cfg.kv_quant_bits)
 
     o = None
-    if cache_sl is not None:
-        if page_table is None:
-            raise NotImplementedError("slot (non-paged) caches are not "
-                                      "ported; the port serves paged pools")
+    if cache_sl is not None and page_table is not None:
         o, k_att, v_att = _paged_attention(cfg, q, k, v, cache_sl,
                                            page_table, pos, s, paged_kernel,
                                            ragged_desc)
+    elif cache_sl is not None and quant_cache:
+        # the slot cache (reference dense.py:308): write the rows at pos,
+        # attend over the slot's whole max_len rows (stale rows past each
+        # slot's position are masked by the causal test)
+        ck, cks, cv, cvs = cache_update_quantized(
+            cache_sl["k"], cache_sl["k_scale"], cache_sl["v"],
+            cache_sl["v_scale"], k, v, pos, cfg.kv_quant_bits)
+        k_att, v_att = (ck, cks), (cv, cvs)
+    elif cache_sl is not None:
+        ck, cv = cache_update(cache_sl["k"], cache_sl["v"], k, v, pos)
+        k_att, v_att = ck.to(q.dtype), cv.to(q.dtype)
     else:
         k_att, v_att = k, v
     if o is None:
@@ -335,6 +346,23 @@ def make_serving_params(cfg, params, keep_packed=None) -> dict:
     return dict(params, layers=out_layers)
 
 
+def init_cache(cfg, batch_size: int, max_len: int, device="cpu") -> dict:
+    """Slot cache: (L, batch_size, max_len, KV, hd) k/v in the compute
+    dtype, or int8 codes with congruent f32 per-token scales when
+    ``kv_quant_bits`` is set, and ``pos`` 0."""
+    shape = (cfg.n_layers, batch_size, max_len, cfg.n_kv_heads,
+             cfg.head_dim)
+    if cfg.kv_quant_bits:
+        sshape = shape[:-1] + (1,)
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(sshape, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_scale": torch.zeros(sshape, device=device), "pos": 0}
+    cd = compute_dtype(cfg)
+    return {"k": torch.zeros(shape, dtype=cd, device=device),
+            "v": torch.zeros(shape, dtype=cd, device=device), "pos": 0}
+
+
 def init_paged_cache(cfg, n_pages: int, page_size: int,
                      device="cpu") -> dict:
     """Global paged KV pool: (L, n_pages, page_size, KV, hd) codes (+
@@ -352,10 +380,26 @@ def init_paged_cache(cfg, n_pages: int, page_size: int,
             "v": torch.zeros(shape, dtype=cd, device=device)}
 
 
-def prefill(cfg, params, tokens, cache, **fwd_kw):
-    """-> (logits at the last row (B, 1, V), cache)."""
+def prefill(cfg, params, tokens, cache, logits_at=None, **fwd_kw):
+    """-> (logits (B, 1, V), cache). Logits come from the last row, or
+    from row ``logits_at`` (an int or a 0-dim tensor, clamped into the
+    rows as the reference's ``dynamic_slice_in_dim``): bucketed and
+    chunked prefill pad tokens on the right and read the true last prompt
+    row. A (R,) tensor ``logits_at`` gathers R rows -> (B, R, V)."""
     hidden, _, cache = forward(cfg, params, tokens, cache=cache, **fwd_kw)
-    return logits_fn(cfg, params, hidden[:, -1:]), cache
+    s = hidden.shape[1]
+    if logits_at is None:
+        hidden = hidden[:, -1:]
+    elif torch.is_tensor(logits_at):
+        rows = logits_at.reshape(-1).to(device=hidden.device,
+                                        dtype=torch.int64)
+        if logits_at.ndim == 0:
+            rows = rows.clamp(0, s - 1)
+        hidden = hidden.index_select(1, rows)
+    else:
+        at = min(max(int(logits_at), 0), s - 1)
+        hidden = hidden[:, at:at + 1]
+    return logits_fn(cfg, params, hidden), cache
 
 
 def decode(cfg, params, token, cache, **fwd_kw):

@@ -1,11 +1,13 @@
 """Shared model layers — counterpart of ``repro.models.layers`` for the
 dense catlm path: norms, RoPE, chunked online-softmax attention (also over
-``(codes, scale)`` int8 KV tuples), the gated MLP, KV quantization and the
-paged KV pool's scatter and gather.
+``(codes, scale)`` int8 KV tuples), the gated MLP, KV quantization, the
+slot cache's writes and the paged KV pool's scatter and gather.
 
-The paged writes update the pool tensors in place (the reference returns
-new arrays); distinct sequences own distinct pages, so real writes never
-collide, and padding rows land on the reserved null page 0.
+The cache writes update the cache and pool tensors in place (the
+reference returns new arrays): a slot cache row block, or a view of one
+slot of it, takes its rows where they land; in a paged pool distinct
+sequences own distinct pages, so real writes never collide, and padding
+rows land on the reserved null page 0.
 """
 from __future__ import annotations
 
@@ -150,6 +152,42 @@ def quantize_kv(x: torch.Tensor, bits: int):
     scale = torch.clamp_min(amax, 1e-12) * _f32_reciprocal(qmax)
     codes = torch.clamp(torch.round(xf / scale), -qmax - 1, qmax)
     return codes.to(torch.int8), scale
+
+
+def _write_kv(cache, x, pos):
+    """Write x (B, S, ...) in place into cache (B, Smax, ...) at rows
+    [pos, pos+S). ``pos`` is an int (the whole batch at one offset) or a
+    (B,) tensor of per-slot offsets (continuous batching: every slot at
+    its own position). As the reference's ``dynamic_update_slice``, a
+    start is clamped to [0, Smax - S]."""
+    b, s = x.shape[:2]
+    top = cache.shape[1] - s
+    x = x.to(cache.dtype)
+    if not torch.is_tensor(pos) or pos.ndim == 0:
+        start = min(max(int(pos), 0), top)
+        cache[:, start:start + s] = x
+        return cache
+    dev = cache.device
+    rows = (pos.to(device=dev, dtype=torch.int64).clamp(0, top)[:, None]
+            + torch.arange(s, device=dev))
+    cache[torch.arange(b, device=dev)[:, None], rows] = x
+    return cache
+
+
+def cache_update(cache_k, cache_v, k, v, pos):
+    """Write k, v (B, S, KV, hd) into the slot caches at [pos, pos+S);
+    ``pos`` an int or (B,) per-slot offsets (see ``_write_kv``)."""
+    return _write_kv(cache_k, k, pos), _write_kv(cache_v, v, pos)
+
+
+def cache_update_quantized(ck, cks, cv, cvs, k, v, pos, bits: int):
+    """int8 slot-cache write: ``quantize_kv`` codes and per-token scales
+    (the paged pool's rule, so both caches hold the same values) at
+    [pos, pos+S); ``pos`` an int or (B,) per-slot offsets."""
+    kq, ks = quantize_kv(k, bits)
+    vq, vs = quantize_kv(v, bits)
+    return (_write_kv(ck, kq, pos), _write_kv(cks, ks, pos),
+            _write_kv(cv, vq, pos), _write_kv(cvs, vs, pos))
 
 
 def _f32_reciprocal(v: float) -> float:

@@ -15,6 +15,7 @@ class Model:
     init: Callable              # (generator, device) -> params
     forward: Callable           # (params, tokens, **kw) -> (hidden, aux, cache)
     logits: Callable            # (params, hidden) -> logits
+    init_cache: Callable        # (batch_size, max_len, device) -> slots
     init_paged_cache: Callable  # (n_pages, page_size, device) -> pools
     prefill: Callable           # (params, tokens, cache, **kw) -> (logits, cache)
     decode: Callable            # (params, token, cache, **kw) -> (logits, cache)
@@ -30,6 +31,8 @@ def build(cfg) -> Model:
         forward=lambda params, tokens, **kw: dense.forward(cfg, params,
                                                            tokens, **kw),
         logits=lambda params, hidden: dense.logits_fn(cfg, params, hidden),
+        init_cache=lambda batch_size, max_len, device="cpu": (
+            dense.init_cache(cfg, batch_size, max_len, device)),
         init_paged_cache=lambda n_pages, page_size, device="cpu": (
             dense.init_paged_cache(cfg, n_pages, page_size, device)),
         prefill=lambda params, tokens, cache, **kw: dense.prefill(

@@ -31,9 +31,12 @@ bindings' argument lists are held against the ``extern "C"`` prototypes
 of ``csrc/*.cu`` and the headers they include.
 """
 import ctypes
+import importlib.util
 import re
 import shutil
 import subprocess
+import types
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -511,6 +514,110 @@ def test_prologue_wrapper_refuses_other_devices():
             head_dim=64, rope_theta=1e4)
 
 
+@pytest.fixture(scope="module")
+def dq_lib(tmp_path_factory):
+    """csrc/dq_plan.h built for the host, its plan export bound."""
+    cxx = shutil.which("c++") or shutil.which("g++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler to build csrc/dq_plan.h")
+    out = tmp_path_factory.mktemp("dq") / "dq_plan.so"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-shared", "-fPIC", "-x", "c++",
+                    str(build.CSRC / "dq_plan.h"), "-o", str(out)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    lib.dq_plan.argtypes = dynamic_quant._SIGNATURES["dq_plan"]
+    lib.dq_plan.restype = ctypes.c_int
+    return lib
+
+
+# (D, vectors per lane in f32, in bf16; 0: the general path)
+DQ_WIDTHS = [(24, 1, 1), (63, 0, 0), (512, 4, 2), (768, 8, 4),
+             (1536, 16, 8), (2048, 16, 8), (4096, 0, 16), (12289, 0, 0),
+             (16384, 0, 0)]
+
+
+@pytest.mark.parametrize("d,vecs_f32,vecs_bf16", DQ_WIDTHS)
+def test_dq_plan_vectors_rows_and_general_path(dq_lib, d, vecs_f32,
+                                               vecs_bf16):
+    """One warp per row: each lane holds ceil(D / 32 / E) 16-byte vectors
+    (E = 4 f32 or 8 bf16 values) rounded up to a power of two, up to 16
+    (the kernel masks the vectors past the row's end); a width that is not
+    a whole number of vectors, more vectors per lane, or a row start off a
+    16-byte boundary takes the general path (vecs 0), so every width runs.
+    Four rows per CTA at every M: M 128 is 32 CTAs, M 8 two."""
+    for elt, vecs in ((4, vecs_f32), (2, vecs_bf16)):
+        per = 16 // elt
+        for m, rows, ctas in ((1, 4, 1), (7, 4, 2), (8, 4, 2),
+                              (128, 4, 32), (300, 4, 75),
+                              (5000, 4, 1250)):
+            p = dynamic_quant.plan(m, d, elt, lib=dq_lib)
+            assert p == (rows, vecs, ctas)
+            # the register path covers the row, at the fewest vectors per
+            # lane that a power of two allows
+            if p.vecs:
+                assert p.vecs in (1, 2, 4, 8, 16)
+                assert (d % per == 0
+                        and 32 * (p.vecs // 2) < d // per <= 32 * p.vecs)
+        assert dynamic_quant.plan(8, d, elt, aligned=False,
+                                  lib=dq_lib).vecs == 0
+
+
+def test_dq_plan_forced_rows_and_refusals(dq_lib):
+    """Forced rows per CTA 1..8 give ceil(M / rows) CTAs; the plan
+    refuses M or D of 0, element sizes other than 2 and 4, and more than
+    8 rows per CTA."""
+    for rows in range(1, 9):
+        assert dynamic_quant.plan(128, 512, 2, rows=rows, lib=dq_lib) == (
+            rows, 2, -(-128 // rows))
+    for bad in (dict(m=0), dict(d=0), dict(elt=3), dict(elt=1),
+                dict(rows=9), dict(rows=-1)):
+        args = dict(m=8, d=512, elt=4, rows=0) | bad
+        with pytest.raises(ValueError, match="does not take"):
+            dynamic_quant.plan(args["m"], args["d"], args["elt"],
+                               rows=args["rows"], lib=dq_lib)
+
+
+def test_dynamic_quant_wrapper_passes_the_plan_arguments(monkeypatch):
+    """The wrapper runs the plain version for CPU tensors and raises for a
+    device that is neither CUDA nor the CPU (no width refusal is left:
+    the old 48 KiB shared-memory check is gone); its launch passes the
+    shape, the bits, the symmetric flag and the forced rows per CTA (0:
+    the plan's) in the order of the C prototype, and allocates the three
+    outputs and nothing else."""
+    r = np.random.default_rng(9)
+    x = torch.from_numpy(r.standard_normal((3, 16384)).astype(np.float32))
+    got = dynamic_quant.dynamic_quant(x, 4)
+    want = dynamic_quant.dynamic_quant_plain(x, 4)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    with pytest.raises(TypeError, match="CUDA tensors"):
+        dynamic_quant.dynamic_quant(x.to("meta"), 4)
+    lib = _FakeLib()
+    monkeypatch.setattr(build, "load", lambda name, sigs: lib)
+    monkeypatch.setattr(build, "stream_of", lambda t: ctypes.c_void_p(0))
+    allocs = []
+    for name in ("empty", "zeros", "empty_like", "zeros_like", "full"):
+        real = getattr(torch, name)
+
+        def spy(*args, _real=real, _name=name, **kw):
+            allocs.append(_name)
+            return _real(*args, **kw)
+        monkeypatch.setattr(torch, name, spy)
+    # a counter of its own for this test, restored after it: the fake
+    # launches must not show in another test's count
+    monkeypatch.setattr(dynamic_quant.dynamic_quant, "launches", 0)
+    q, scale, zp = dynamic_quant._launch(x.to(torch.bfloat16), 3, True, 0)
+    dynamic_quant._launch(x[:1, :12289], 8, False, 2)
+    assert allocs == ["empty"] * 6
+    assert (q.shape, scale.shape, zp.shape) == ((3, 16384), (3, 1), (3, 1))
+    assert dynamic_quant.dynamic_quant.launches == 2
+    (n0, a0), (n1, a1) = lib.calls
+    assert n0 == n1 == "dynamic_quant"
+    assert len(a0) == len(dynamic_quant._SIGNATURES["dynamic_quant"])
+    # x, x_is_bf16, m, d, bits, symmetric, rows, q, scale, zp, stream
+    assert a0[1:7] == (1, 3, 16384, 3, 1, 0)
+    assert a1[1:7] == (0, 1, 12289, 8, 0, 2)
+
+
 _CTYPES = {"int": ctypes.c_int, "float": ctypes.c_float,
            "int*": ctypes.POINTER(ctypes.c_int),
            "longlong*": ctypes.POINTER(ctypes.c_longlong)}
@@ -535,11 +642,21 @@ def _prototypes(name: str) -> dict:
     return out
 
 
+def _chip_smoke_floor():
+    """chip_smoke.py's binding of the quant's floor library (the script
+    imports only the standard library at its top)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return types.SimpleNamespace(_SIGNATURES=mod.DQ_FLOOR_SIGNATURES)
+
+
 @pytest.mark.parametrize("module,source", [
     (F, "fused_cat_matmul"), (decode_layer, "decode_layer"),
     (paged_attention, "paged_attention"), (block_matmul, "block_matmul"),
     (hadamard, "hadamard"), (dynamic_quant, "dynamic_quant"),
-    (quant_matmul, "quant_matmul")])
+    (quant_matmul, "quant_matmul"), (_chip_smoke_floor(), "dq_floor")])
 def test_bindings_match_the_sources(module, source):
     """Each wrapper's ctypes argument list equals its C prototype, type by
     type (a pointer as c_void_p, an int as c_int): a mismatch would pass

@@ -258,6 +258,65 @@ def test_dynamic_quant_bitwise_to_pallas(bits, symmetric, dtype):
         assert np.any(t - np.floor(t) == 0.5)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("symmetric", [False, True])
+def test_dynamic_quant_wide_rows_bitwise_to_pallas(symmetric, dtype):
+    """D 12,289: a width the CUDA wrapper used to refuse (its 48 KiB
+    shared-memory row) and that the kernel now runs on its general path
+    (odd, past the register path). The plain version, which the card
+    holds the kernel to bitwise, equals the Pallas kernel in interpret
+    mode bitwise at that width, a constant row (the 1e-12 floor) among
+    the rows."""
+    r = np.random.default_rng(12289 + symmetric)
+    x = (r.standard_normal((3, 12289)) * r.uniform(0.01, 30, (3, 1))
+         ).astype(np.float32)
+    x[1] = 0.75
+    jx, tx = _pair(x, dtype)
+    got = [v.numpy() for v in DQ.dynamic_quant(tx, 4, symmetric)]
+    kern = [np.asarray(v) for v in j_dyn_quant(jx, bits=4,
+                                               symmetric=symmetric,
+                                               interpret=True)]
+    assert got[0].shape == (3, 12289)
+    for g, k in zip(got, kern):
+        np.testing.assert_array_equal(g, k)
+
+
+def test_reciprocal_quotient_is_the_ieee_division():
+    """The CUDA quant divides each value by its row's scale without the
+    IEEE division's per-element range check (``tq::quot`` of
+    ``csrc/transform_quant.cuh``): rcp = RN(1 / scale), q = RN(y·rcp),
+    then q + fma(-scale, q, y)·rcp by fma (Markstein). Emulated exactly
+    here (numpy f32 division and product, each fma as the f64 product
+    rounded once to f32, ``fma_chain._round_sum``), over 2e6 values whose
+    quotients sit on and near integers and half-integers (the ties a code
+    rounds at) and random ones, at scales from the quant's floor 1e-12/255
+    to 1e6: the quotient equals IEEE y / scale bitwise wherever it is at
+    least 1/4, and every code, with and without a zero point, is equal."""
+    from repro_torch.kernels.fma_chain import _round_sum
+    r = np.random.default_rng(23)
+    n = 2_000_000
+    scale = (10.0 ** r.uniform(-14.5, 6, n)).astype(np.float32)
+    k = r.integers(-300, 300, n) + r.choice([0.0, 0.5], n)
+    near = k * scale.astype(np.float64) * (1 + r.uniform(-3e-7, 3e-7, n))
+    rand = r.standard_normal(n) * 100 * scale.astype(np.float64)
+    y = np.where(r.random(n) < 0.7, near, rand).astype(np.float32)
+    rcp = np.float32(1) / scale
+    q = y * rcp
+    rem = _round_sum(torch.from_numpy(-scale.astype(np.float64)
+                                      * q.astype(np.float64)),
+                     torch.from_numpy(y)).numpy()
+    got = _round_sum(torch.from_numpy(rem.astype(np.float64)
+                                      * rcp.astype(np.float64)),
+                     torch.from_numpy(q)).numpy()
+    want = y / scale
+    big = np.abs(want) >= 0.25
+    assert big.mean() > 0.9
+    np.testing.assert_array_equal(got[big], want[big])
+    zp = r.integers(-8, 8, n).astype(np.float32)
+    for z in (np.float32(0), zp):
+        np.testing.assert_array_equal(np.rint(got + z), np.rint(want + z))
+
+
 def _dequant_shift(q_a, zp_a, q_b, zp_b):
     """|(q_a − zp_a) − (q_b − zp_b)| per element: how far two quantizations
     of the same row move a dequantized value, in code steps. A zero point

@@ -279,23 +279,37 @@ def test_ptq_matches_reference(cases):
 
 
 def test_engine_scope_and_device_rules():
+    """What the port still refuses (prefix cache, speculative decoding,
+    meshes), the device rule, and both schedules built and drained: the
+    legacy one, now the default as in the reference, on the slot cache;
+    the unified one when asked for."""
     cfg = tconfigs.get_config("catlm_60m").smoke().scaled(kv_quant_bits=8)
     model = t_build(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    for kw in (dict(schedule="legacy"),
-               dict(prefix_cache=True), dict(speculative_k=2),
+    for kw in (dict(prefix_cache=True), dict(speculative_k=2),
                dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="later slice"):
-            ServeEngine(model, params, device="cpu", **kw)
+        for schedule in ("legacy", "unified"):
+            with pytest.raises(NotImplementedError, match="later slice"):
+                ServeEngine(model, params, device="cpu", schedule=schedule,
+                            **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine(model, params)
     with pytest.raises(ValueError, match="max_batch_tokens"):
         ServeEngine(model, params, n_slots=4, max_batch_tokens=2,
-                    device="cpu")
-    eng = ServeEngine(model, params, n_slots=2, max_len=32, device="cpu",
-                      max_batch_tokens=8, page_size=8)
+                    schedule="unified", device="cpu")
     reqs = request_workload(cfg, 3, gen=2, lengths=(6,), seed=0)
+    leg = ServeEngine(model, params, n_slots=2, max_len=32, device="cpu")
+    leg.run(reqs)
+    s = leg.summary()
+    assert s["schedule"] == "legacy" and not s["paged"]
+    assert s["device"] == "cpu" and "pipeline" not in s
+    assert s["generated_tokens"] == 6 and s["n_requests"] == 3
+    assert s["resident_kv_bytes_peak"] == s["kv_capacity_bytes"]
+    leg.reset()
+    assert leg.summary()["n_requests"] == 0 and leg._free == [0, 1]
+    eng = ServeEngine(model, params, n_slots=2, max_len=32, device="cpu",
+                      schedule="unified", max_batch_tokens=8, page_size=8)
     eng.run(reqs)
     s = eng.summary()
     assert s["schedule"] == "unified" and s["device"] == "cpu"
@@ -319,7 +333,7 @@ def test_serve_cli_and_static_oracle_on_cpu(capsys):
         cfg, 2, gen=4, lengths=(8,), seed=2)]))
     want = tserve.greedy_generate(model, params, prompts, gen=4, max_len=16)
     eng = ServeEngine(model, params, n_slots=2, max_len=16, device="cpu",
-                      max_batch_tokens=8)
+                      schedule="unified", max_batch_tokens=8)
     res = eng.run([{"rid": i, "tokens": prompts[i].numpy(),
                     "max_new_tokens": 4} for i in range(2)])
     for i in range(2):
