@@ -109,6 +109,21 @@ Phases (any failure exits non-zero before the final line):
              pass must launch rows 1, 2, 4 and 5, and the reference
              routes, teacher-forced, must predict >= 90 % of (c)'s and
              (d)'s tokens.
+   Then the prefix cache and speculative decoding (``prefix_spec_phase``),
+             same model, 8 slots, 32 new tokens: (e) (b)'s engine with
+             the prefix cache on 8 requests sharing 40 tokens, (e') (d)'s
+             with it, each beside the same engine with the cache off;
+             (f) (b)'s with ``speculative_k=4`` and a full-width draft
+             (``build_draft_model``: the same checkpoint, CAT W4A8) on
+             (b)'s requests, beside (b); (f') (f) with ``adaptive_spec``.
+             Each: a counted pass and two warm passes, with the feature's
+             counters. Held: well-formed tokens; teacher-forced agreement
+             >= 0.9; (e) and (e') hit and copy a page in their counted
+             pass and drain to the trie's pages; (f) launches rows 2 and
+             3 (40 verify rows a step) and both pools drain. Reported: the
+             share of tokens equal to the yardstick's, and the same rows
+             through rows 1 and 2, and rows 4 and 3 (the kernels the two
+             step shapes pick), compared bit for bit.
 5. composed — ``ops.cat_transform_matmul`` (block-CAT -> Hadamard ->
              dynamic quant -> W4A8 GEMV / tiled or W8A8 contraction, four
              launches) on all 32 serving linears of the served CAT-W4A4
@@ -2186,6 +2201,58 @@ LEGACY_CONFIGS = {
 }
 
 
+SERVED_KEYS = ("tok_per_s", "ttft_s_mean", "itl_p50_s", "itl_p95_s",
+               "host_ms_mean", "device_ms_mean", "dispatch_per_step",
+               "n_dispatch", "steps", "decode_steps", "generated_tokens",
+               "wall_s")
+
+
+def served_passes(engine, reqs, counters, keys=SERVED_KEYS):
+    """A warm-up pass, the counted pass (every kernel counter set to 0 just
+    before it, read just after) and two warm passes of ``engine`` over
+    ``reqs``. -> (the counted pass's results, its launches, its whole
+    ``summary()``, the three passes' ``keys`` of ``summary()``)."""
+    import torch
+    engine.run(reqs)
+    engine.reset()
+    for fn in counters:
+        fn.launches = 0
+    res = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    counted = engine.summary()
+    passes = [{k: counted[k] for k in keys}]
+    for _ in range(2):
+        engine.reset()
+        engine.run(reqs)
+        passes.append({k: engine.summary()[k] for k in keys})
+    return res, launches, counted, passes
+
+
+def check_well_formed(label, reqs, res, vocab, gen=32):
+    """Every request served ``gen`` new tokens, all in the vocabulary."""
+    import numpy as np
+    for r in reqs:
+        toks = np.asarray(res[r["rid"]].tokens)
+        if not (len(toks) == len(r["tokens"]) + gen
+                and (0 <= toks).all() and (toks < vocab).all()):
+            fail(f"{label} request {r['rid']}: malformed output {toks}")
+
+
+def token_share(reqs, got, want) -> dict:
+    """The share of equal tokens (prompt and generated, as ``agreement``)
+    and, per request that differs, its first differing generated step."""
+    import numpy as np
+    equal, first = [], {}
+    for r in reqs:
+        a = np.asarray(got[r["rid"]].tokens)
+        b = np.asarray(want[r["rid"]].tokens)
+        equal.append(float(np.mean(a == b)))
+        if equal[-1] < 1.0:
+            first[r["rid"]] = int(np.argmax(a != b)) - len(r["tokens"])
+    return {"share": float(np.mean(equal)), "first_differing_step": first}
+
+
 def legacy_phase(model, params, counters, card):
     """The legacy schedule (prefill on admit, bucketed; one batched decode
     per step) at full width on the serving phase's model and 8 requests,
@@ -2201,63 +2268,32 @@ def legacy_phase(model, params, counters, card):
     of their tokens."""
     import os
 
-    import numpy as np
-    import torch
-
     from repro_torch.data import request_workload
     from repro_torch.launch.engine import ServeEngine
     os.environ.pop("REPRO_DECODE_FUSED", None)     # on for CUDA: the default
     reqs = request_workload(model.cfg, 8, gen=32, seed=0)
     max_len = -(-(max(len(r["tokens"]) for r in reqs) + 32 + 8) // 16) * 16
-    keys = ("tok_per_s", "ttft_s_mean", "itl_p50_s", "itl_p95_s",
-            "host_ms_mean", "device_ms_mean", "d2h_ms_mean",
-            "dispatch_per_step", "n_dispatch", "steps", "decode_steps",
-            "generated_tokens", "wall_s")
     out, served = {}, {}
     for name, cfg_kw in LEGACY_CONFIGS.items():
         engine = ServeEngine(model, params, n_slots=8, max_len=max_len,
                              schedule="legacy", device="cuda", **cfg_kw)
-        engine.run(reqs)
-        engine.reset()
-        for fn in counters:
-            fn.launches = 0
-        res = engine.run(reqs)
-        torch.cuda.synchronize()
-        launches = {fn.__name__: fn.launches for fn in counters}
-        passes = [{k: engine.summary()[k] for k in keys}]
-        for _ in range(2):
-            engine.reset()
-            engine.run(reqs)
-            passes.append({k: engine.summary()[k] for k in keys})
-        s = engine.summary()
+        res, launches, s, passes = served_passes(
+            engine, reqs, counters, SERVED_KEYS + ("d2h_ms_mean",))
         if s["schedule"] != "legacy" or s["paged"] != cfg_kw["paged"]:
             fail(f"legacy ({name}): the engine ran {s['schedule']}, paged "
                  f"{s['paged']}")
-        for r in reqs:
-            toks = np.asarray(res[r["rid"]].tokens)
-            if not (len(toks) == len(r["tokens"]) + 32
-                    and (0 <= toks).all() and (toks < model.cfg.vocab).all()):
-                fail(f"legacy ({name}) request {r['rid']}: malformed output "
-                     f"{toks}")
+        check_well_formed(f"legacy ({name})", reqs, res, model.cfg.vocab)
         served[name] = res
         out[name] = {"engine": cfg_kw, "max_len": max_len,
                      "launches": launches, "passes": passes, "card": card}
         print(f"legacy ({name}) {card}: " + json.dumps(out[name]))
-    equal = [float(np.mean(np.asarray(served["c"][r["rid"]].tokens)
-                           == np.asarray(served["c_paged"][r["rid"]].tokens)))
-             for r in reqs]
-    first = {r["rid"]: int(np.argmax(
-        np.asarray(served["c"][r["rid"]].tokens)
-        != np.asarray(served["c_paged"][r["rid"]].tokens)))
-        - len(r["tokens"]) for r, e in zip(reqs, equal) if e < 1.0}
-    out["c_equals_c_paged"] = {"share": float(np.mean(equal)),
-                               "first_differing_step": first}
-    print("legacy: (c) vs (c') tokens " + json.dumps(
-        out["c_equals_c_paged"]))
-    if first:
+    out["c_equals_c_paged"] = same = token_share(reqs, served["c_paged"],
+                                                 served["c"])
+    print("legacy: (c) vs (c') tokens " + json.dumps(same))
+    if same["first_differing_step"]:
         fail(f"legacy (c) and (c') tokens differ: share equal "
-             f"{np.mean(equal)}, first differing generated step per "
-             f"request {first}")
+             f"{same['share']}, first differing generated step per request "
+             f"{same['first_differing_step']}")
     for fn_name, n in out["d"]["launches"].items():
         if fn_name != "paged_attention_ragged" and n <= 0:
             fail(f"legacy (d): kernel {fn_name} never launched in its "
@@ -2269,6 +2305,152 @@ def legacy_phase(model, params, counters, card):
               f"reference routes {agree}")
         if agree < 0.9:
             fail(f"legacy ({name}) teacher-forced agreement with the "
+                 f"reference routes {agree} < 0.9")
+    return out
+
+
+def batch_shape_probe(gen, dev) -> dict:
+    """The same rows through the kernels a step's shape picks: the decode
+    linear (row 1, M 8) against the tiled one (row 2, the same 8 rows in
+    a 40-row batch, a k 4 verify step's), and the decode attention (row
+    4) against the ragged one (row 3) at one query row per item (8 items,
+    served lengths <= 56), on bf16 inputs. -> per pair the share of
+    bitwise-equal outputs and the largest difference."""
+    import torch
+
+    from repro_torch.kernels import fused_cat_matmul as F
+    from repro_torch.kernels import paged_attention as P
+
+    def compare(a, b):
+        a, b = a.float(), b.float()
+        return {"bitwise_share": (a == b).float().mean().item(),
+                "max_abs": (a - b).abs().max().item(),
+                "scale": b.abs().max().item()}
+    x, *w = fused_linear_operands(40, 512, 3072, gen, dev)
+    linear = compare(F.fused_cat_gemv_w4(x[:8], *w, act_bits=4),
+                     F.fused_cat_matmul_w4(x, *w, act_bits=4)[:8])
+    items = [(1, ln) for ln in (9, 17, 24, 31, 40, 47, 53, 56)]
+    args, _ = attention_operands(items, 1, gen, dev, decode=False)
+    ragged = P.paged_attention_ragged(*args)[:, 0]
+    decode = P.paged_attention_decode(args[0][:, 0], *args[1:7])
+    return {"rows_1_vs_2": linear, "rows_4_vs_3": compare(decode, ragged)}
+
+
+PREFIX_KEYS = ("prefix_lookups", "prefix_hits", "prefix_hit_tokens",
+               "prefix_hit_rate", "cow_copies", "cached_pages",
+               "cached_kv_bytes", "resident_kv_bytes_peak", "pages_peak")
+SPEC_KEYS = ("spec_acceptance_rate", "spec_drafted_tokens",
+             "spec_accepted_tokens", "spec_cycles", "draft_pages_peak")
+
+
+def prefix_spec_phase(model, params, counters, card):
+    """The prefix cache and speculative decoding at full width, on the
+    serving phase's model (CAT W4A4 RTN, bf16), 8 slots, 32 new tokens per
+    request, the paged kernels:
+    (e) (b)'s engine (unified, pipelined, page 16, budget 128) with
+        ``prefix_cache=True`` on 8 requests sharing a 40-token prefix (2.5
+        pages), beside the same engine with the cache off;
+    (e') (d)'s engine (legacy, paged, ``max_len`` a multiple of 16) with
+        the cache, beside it without;
+    (f) (b)'s engine with ``speculative_k=4`` and ``build_draft_model``'s
+        draft (the same checkpoint, CAT W4A8, int8 KV), built at full
+        width on the card, on (b)'s requests, beside (b) itself;
+    (f') (f) with ``adaptive_spec=True``.
+    Each configuration: ``served_passes`` (tok/s, TTFT mean, ITL p50/p95,
+    steps, dispatches) and its feature counters. Held: tokens well-formed;
+    the reference routes, teacher-forced over the served sequences,
+    predict >= 0.9 of them; (e) and (e') hit and split a page copy-on-write
+    in their counted pass and, drained, hold only the trie's pages; (f)'s
+    counted pass launches the tiled linear and the ragged attention (40
+    verify rows a step) and both pools drain. Reported, not held: the
+    share of tokens equal to the yardstick's and the first differing step
+    (the verify rows and the suffix prefill take other kernel shapes than
+    the yardstick's decode, so the card's results may differ by an ulp
+    where the reference's identity is exact)."""
+    import os
+
+    import torch
+
+    from repro_torch.data import request_workload
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.serve import build_draft_model
+    os.environ.pop("REPRO_DECODE_FUSED", None)
+    cfg = model.cfg
+    shared = request_workload(cfg, 8, gen=32, seed=0, shared_prefix=40)
+    plain = request_workload(cfg, 8, gen=32, seed=0)
+
+    def max_len(reqs):
+        return -(-(max(len(r["tokens"]) for r in reqs) + 32 + 8) // 16) * 16
+    unified = dict(n_slots=8, schedule="unified", max_batch_tokens=128,
+                   page_size=16, paged_kernel=True, device="cuda")
+    legacy = dict(n_slots=8, schedule="legacy", paged=True, page_size=16,
+                  paged_kernel=True, device="cuda")
+    t0 = time.perf_counter()
+    draft = build_draft_model("catlm_60m", smoke=False, seed=0,
+                              device="cuda")
+    draft_s = time.perf_counter() - t0
+    configs = {      # name: (engine kwargs, requests, yardstick or None)
+        "e_off": (dict(unified, max_len=max_len(shared)), shared, None),
+        "e": (dict(unified, max_len=max_len(shared), prefix_cache=True),
+              shared, "e_off"),
+        "e_legacy_off": (dict(legacy, max_len=max_len(shared)), shared,
+                         None),
+        "e_legacy": (dict(legacy, max_len=max_len(shared),
+                          prefix_cache=True), shared, "e_legacy_off"),
+        "b": (dict(unified, max_len=max_len(plain)), plain, None),
+        "f": (dict(unified, max_len=max_len(plain), speculative_k=4,
+                   draft=draft), plain, "b"),
+        "f_adaptive": (dict(unified, max_len=max_len(plain),
+                            speculative_k=4, draft=draft,
+                            adaptive_spec=True), plain, "b"),
+    }
+    out, served = {"draft_ptq_s": draft_s}, {}
+    for name, (kw, reqs, yard) in configs.items():
+        engine = ServeEngine(model, params, **kw)
+        res, launches, s, passes = served_passes(engine, reqs, counters)
+        check_well_formed(f"prefix/spec ({name})", reqs, res, cfg.vocab)
+        served[name] = res
+        rec = {"engine": {k: v for k, v in kw.items() if k != "draft"},
+               "launches": launches, "passes": passes, "card": card,
+               **{k: s[k] for k in PREFIX_KEYS + SPEC_KEYS if k in s}}
+        if engine.prefix is not None:
+            rec["pool_in_use"] = engine.pool.in_use
+            rec["trie_resident"] = engine.prefix.resident
+            if not (s["prefix_hit_tokens"] and s["cow_copies"]):
+                fail(f"prefix/spec ({name}): no hit or no copy-on-write "
+                     f"split ({s['prefix_hit_tokens']} hit tokens, "
+                     f"{s['cow_copies']} copies)")
+            if engine.pool.in_use != engine.prefix.resident:
+                fail(f"prefix/spec ({name}): {engine.pool.in_use} pages "
+                     f"live after the drain, the trie holds "
+                     f"{engine.prefix.resident}")
+        if engine.spec_k:
+            rec["pools_in_use"] = [engine.pool.in_use,
+                                   engine.draft_pool.in_use]
+            if rec["pools_in_use"] != [0, 0]:
+                fail(f"prefix/spec ({name}): pools not drained "
+                     f"{rec['pools_in_use']}")
+        if yard is not None:
+            rec["tokens_equal_" + yard] = token_share(reqs, res,
+                                                      served[yard])
+        out[name] = rec
+        print(f"prefix/spec ({name}) {card}: " + json.dumps(rec))
+    out["batch_shape_probe"] = batch_shape_probe(
+        torch.Generator().manual_seed(1), torch.device("cuda"))
+    print(f"prefix/spec {card}: the same rows through the kernels of two "
+          f"step shapes " + json.dumps(out["batch_shape_probe"]))
+    for fn_name in ("fused_cat_matmul_w4", "paged_attention_ragged"):
+        if out["f"]["launches"][fn_name] <= 0:
+            fail(f"prefix/spec (f): kernel {fn_name} never launched in its "
+                 f"counted pass")
+    for name in ("e", "e_legacy", "f", "f_adaptive"):
+        reqs = configs[name][1]
+        agree = teacher_forced_reference(model, params, reqs, served[name])
+        out[name]["reference_agreement_teacher_forced"] = agree
+        print(f"prefix/spec ({name}): teacher-forced agreement with the "
+              f"reference routes {agree}")
+        if agree < 0.9:
+            fail(f"prefix/spec ({name}) teacher-forced agreement with the "
                  f"reference routes {agree} < 0.9")
     return out
 
@@ -2612,6 +2794,8 @@ def main() -> None:
                 L.decode_qkv_prologue]
     serving, model, params = serve(counters, card)
     serving["legacy"] = legacy_phase(model, params, counters, card)
+    serving["prefix_spec"] = prefix_spec_phase(model, params, counters,
+                                               card)
     composed_counters = [QW.quant_matmul_w4, QW.quant_gemv_w4,
                          QM.quant_matmul, DQ.dynamic_quant,
                          H.hadamard_transform, B.block_diag_matmul]

@@ -1,7 +1,8 @@
 """Calibration — counterpart of ``repro.core.calibration``: run the model
 (layers are a Python loop, so every tap is observable) on a small
 calibration set and collect, per tap point (layer-group input), Σ_x =
-E[xxᵀ] and a bounded reservoir of rows."""
+E[xxᵀ] (CAT, GPTQ), E[x²] and the per-channel absmax (SmoothQuant) and a
+bounded reservoir of rows (the SQNR analysis)."""
 from __future__ import annotations
 
 import dataclasses
@@ -30,6 +31,17 @@ class TapStats:
     @property
     def sigma(self) -> np.ndarray:
         return self.cov.cov()
+
+    @property
+    def absmax(self) -> np.ndarray:
+        return self.cov.amax
+
+    @property
+    def mean_sq(self) -> np.ndarray:
+        return self.cov.mean_sq()
+
+    def sample_matrix(self) -> np.ndarray:
+        return np.concatenate(self.samples, axis=0)
 
 
 class Taps:

@@ -225,6 +225,16 @@ def int_matmul(q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (q.to(torch.float64) @ w.to(torch.float64)).to(torch.float32)
 
 
+def quant_range(x: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """r(x) from the paper, the full quantized interval: max - min
+    (asymmetric) or 2·max|x| (symmetric), per row for per-token/channel
+    specs, with the reduced dims squeezed out."""
+    dims = _reduce_dims(x, spec)
+    if spec.symmetric:
+        return 2.0 * torch.amax(torch.abs(x), dim=dims)
+    return torch.amax(x, dim=dims) - torch.amin(x, dim=dims)
+
+
 # ---------------------------------------------------------------------------
 # Paper defaults (Section 6 experimental setup)
 # ---------------------------------------------------------------------------

@@ -87,6 +87,31 @@ def make_hadamard(d: int, rng: np.random.Generator | None = None,
                     torch.tensor(sign, **f32))
 
 
+def make_rotation(d: int, rng: np.random.Generator, device="cpu") -> Dense:
+    """Random orthogonal matrix (SpinQuant-style, untrained): numpy QR of a
+    standard normal draw from ``rng`` with the R diagonal's signs folded
+    in, so the same ``rng`` gives the reference's matrix."""
+    q, r = np.linalg.qr(rng.standard_normal((d, d)))
+    q = q * np.sign(np.diag(r))[None, :]
+    t = torch.tensor(q, dtype=torch.float32, device=device)
+    return Dense(t, t.T)
+
+
+def make_smoothquant(act_absmax: torch.Tensor, weight_absmax: torch.Tensor,
+                     alpha: float = 0.5) -> Scale:
+    """SmoothQuant: s_i = max|x_i|^α / max_j|w_ji|^(1-α), T = Diag(1/s)
+    (activations divided by s, weights multiplied)."""
+    s = (torch.clamp_min(act_absmax, 1e-5) ** alpha
+         / torch.clamp_min(weight_absmax, 1e-5) ** (1 - alpha))
+    return Scale(1.0 / torch.clamp_min(s, 1e-5))
+
+
+def make_cat_full(sigma_w, sigma_x) -> Dense:
+    """The full-rank alignment-optimal transform M̂ and its inverse."""
+    m = cat_lib.cat_optimal(sigma_w, sigma_x)
+    return Dense(m, torch.linalg.inv(m))
+
+
 def make_cat_block(sigma_w, sigma_x, k: int = 128, hadamard: bool = True,
                    rng: np.random.Generator | None = None):
     """The paper's T̂ᵏ_block = H · M̂ᵏ_block (eq. 10)."""
@@ -180,4 +205,28 @@ def fuse_cov(t, sigma: torch.Tensor) -> torch.Tensor:
         for p in t.parts:
             sigma = fuse_cov(p, sigma)
         return sigma
+    raise TypeError(type(t))
+
+
+def as_dense_matrix(t, d: int) -> torch.Tensor:
+    """Materialize T as a (d, d) matrix (tests and small models only)."""
+    return apply(t, torch.eye(d, dtype=torch.float32)).T
+
+
+def online_flops(t, d: int) -> float:
+    """Serving-time FLOPs per token of the online transform."""
+    if isinstance(t, Identity):
+        return 0.0
+    if isinstance(t, Scale):
+        return d
+    if isinstance(t, Dense):
+        return 2.0 * d * d
+    if isinstance(t, Hadamard):
+        a, b = t.ha.shape[0], t.hb.shape[0]
+        return 2.0 * d * (a + b) + d
+    if isinstance(t, BlockDiag):
+        n, k, _ = t.blocks.shape
+        return 2.0 * n * k * k
+    if isinstance(t, Compose):
+        return sum(online_flops(p, d) for p in t.parts)
     raise TypeError(type(t))

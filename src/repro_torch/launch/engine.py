@@ -31,8 +31,18 @@ prediction failed (``TokenBudgetScheduler.observe(ahead=)``).
 runs the synchronous loop: dispatch, block on the step's token ids,
 observe.
 
-Prefix caching, speculative decoding and tensor-parallel meshes are later
-slices of the port and raise ``NotImplementedError``.
+``prefix_cache=True`` (the paged pool, either schedule) shares cached
+prompt-prefix pages across requests copy-on-write (``launch/paged.py``'s
+``PrefixCache``) and skips their prefill; a hit that ends inside a page
+copies that page first (``executor.copy_pages``), before the step that
+writes the divergent rows. ``speculative_k=k`` with ``draft=(model,
+params)`` (unified only) proposes k tokens per decoding slot from the
+draft model, whose KV lives in a parallel paged pool, and verifies all
+k + 1 rows in the target's ragged step; greedy acceptance appends only
+target argmax rows, so the output is the target-only output.
+``adaptive_spec`` lowers each slot's draft depth toward its acceptance
+rate. Tensor-parallel meshes are a later slice of the port and raise
+``NotImplementedError``.
 
 The engine runs on ``device`` (default ``"cuda"``); params are moved
 there. Without a CUDA device it raises unless ``device="cpu"`` was asked
@@ -51,7 +61,7 @@ import torch
 
 from repro_torch.launch.executor import (LegacyExecutor, RaggedExecutor,
                                          TokenFetch)
-from repro_torch.launch.paged import PagePool, SlotPageTables
+from repro_torch.launch.paged import PagePool, PrefixCache, SlotPageTables
 from repro_torch.launch.scheduler import (RequestResult, Request, SeqState,
                                           TokenBudgetScheduler)
 from repro_torch.models.dense import greedy_tokens
@@ -106,16 +116,28 @@ class ServeEngine:
                  fused: bool = True, device="cuda",
                  pipeline: Optional[bool] = None,
                  prefix_cache: bool = False, speculative_k: int = 0,
-                 draft=None, mesh=None):
+                 draft=None, adaptive_spec: bool = False, mesh=None):
         if schedule not in ("legacy", "unified"):
             raise ValueError(f"schedule must be 'legacy' or 'unified', "
                              f"got {schedule!r}")
-        if prefix_cache:
-            raise _later_slice("prefix_cache")
-        if speculative_k or draft is not None:
-            raise _later_slice("speculative decoding")
+        if speculative_k < 0:
+            raise ValueError(
+                f"speculative_k must be >= 0, got {speculative_k}")
+        if speculative_k and schedule != "unified":
+            raise ValueError(
+                "speculative_k needs schedule='unified' (the draft/verify "
+                "cycle runs inside the token-budgeted ragged step)")
+        if speculative_k and draft is None:
+            raise ValueError(
+                "speculative_k needs draft=(draft_model, draft_params) — "
+                "e.g. the int4-packed quantization of the target "
+                "checkpoint (launch.serve.build_draft_model)")
+        if adaptive_spec and not speculative_k:
+            raise ValueError("adaptive_spec needs speculative_k > 0 "
+                             "(it tunes the per-slot draft depth)")
         if mesh is not None:
             raise _later_slice("mesh (tensor-parallel) serving")
+        self.spec_k = int(speculative_k)
         # depth-1 pipelined loop by default for unified serving, as the
         # reference's; REPRO_SYNC_STEP selects the synchronous loop when
         # pipeline=None
@@ -158,14 +180,56 @@ class ServeEngine:
                 raise ValueError(
                     f"prefill_chunk={prefill_chunk} must be a multiple of "
                     f"page_size={page_size} (chunks write whole pages)")
-            self._kv_len = -(-max_len // page_size) * page_size
+            # logical rows per slot in whole pages; a speculative verify
+            # writes up to spec_k rows past the last decode position
+            self._kv_len = (-(-(max_len + self.spec_k) // page_size)
+                            * page_size)
             n_ptab = self._kv_len // page_size
             n_pages = n_pages or 1 + n_slots * n_ptab    # worst case + null
             self.pool = PagePool(n_pages, page_size)
             self.tables = SlotPageTables(self.pool, n_slots, n_ptab)
+            self.prefix = None
+            if prefix_cache:
+                # the config digest keys the trie, so pages never cross
+                # quantization configs
+                cfg = model.cfg
+                self.prefix = PrefixCache(
+                    self.pool, page_size,
+                    config_key=(cfg.family, cfg.n_layers, cfg.n_kv_heads,
+                                cfg.head_dim, cfg.kv_quant_bits,
+                                str(getattr(cfg, "dtype", "?"))))
             cache = dict(model.init_paged_cache(n_pages, page_size,
                                                 self.device))
+            # speculative decoding: the draft's KV lives in a parallel
+            # pool of the same geometry behind its own tables (never
+            # shared), which the scheduler moves in lockstep with the
+            # target's
+            self.draft_pool = self.draft_tables = None
+            draft_exec = None
+            if self.spec_k:
+                draft_model, draft_params = draft
+                if draft_model.cfg.vocab != model.cfg.vocab:
+                    raise ValueError(
+                        f"draft vocab {draft_model.cfg.vocab} != target "
+                        f"vocab {model.cfg.vocab} — drafted token ids "
+                        f"must be target token ids")
+                self.draft_pool = PagePool(n_pages, page_size)
+                self.draft_tables = SlotPageTables(self.draft_pool,
+                                                   n_slots, n_ptab)
+                draft_params = to_device(draft_params, self.device)
+                if fused:
+                    draft_params = draft_model.make_serving_params(
+                        draft_params)
+                draft_exec = (draft_model, draft_params, dict(
+                    draft_model.init_paged_cache(n_pages, page_size,
+                                                 self.device)))
         else:
+            if prefix_cache:
+                raise ValueError("prefix_cache needs paged=True (cached "
+                                 "prefixes are shared pool pages)")
+            self.prefix = None
+            self.draft_pool = self.draft_tables = None
+            draft_exec = None
             if prefill_chunk:
                 raise ValueError("prefill_chunk needs paged=True (the slot "
                                  "cache keeps whole-prompt prefill; use "
@@ -184,20 +248,28 @@ class ServeEngine:
         if self.fused:
             params = model.make_serving_params(params)
         if schedule == "unified":
-            self.max_batch_tokens = max_batch_tokens or max(16, 2 * n_slots)
-            if self.max_batch_tokens < n_slots:
+            # a speculative step packs k+1 verify rows per decoding slot,
+            # so the default budget scales with k and an explicit one must
+            # hold every slot's verify item
+            self.max_batch_tokens = max_batch_tokens or max(
+                16, 2 * n_slots, n_slots * (self.spec_k + 2))
+            if self.max_batch_tokens < n_slots * (self.spec_k + 1):
                 raise ValueError(
                     f"max_batch_tokens={self.max_batch_tokens} must be >= "
-                    f"n_slots={n_slots} (every decoding slot packs one row "
-                    f"per step)")
+                    f"n_slots*(speculative_k+1)="
+                    f"{n_slots * (self.spec_k + 1)} (every decoding slot "
+                    f"packs speculative_k+1 verify rows per step)")
             self.sched = TokenBudgetScheduler(
                 n_slots, self.max_batch_tokens, pool=self.pool,
                 tables=self.tables, prefill_chunk=prefill_chunk,
-                eos_id=eos_id)
+                eos_id=eos_id, prefix=self.prefix, spec_k=self.spec_k,
+                draft_tables=self.draft_tables,
+                adaptive_spec=adaptive_spec)
             self.exec = RaggedExecutor(model, params, cache,
                                        n_slots=n_slots,
                                        paged_kernel=paged_kernel,
-                                       device=self.device)
+                                       device=self.device, draft=draft_exec,
+                                       spec_k=self.spec_k)
             self._queue = self.sched.queue
             self._free = self.sched.free
             self._active = self.sched.active
@@ -252,6 +324,11 @@ class ServeEngine:
             self._free = list(range(self.n_slots))
         if self.paged:
             self.pool.peak_in_use = self.pool.in_use
+        if self.draft_pool is not None:
+            self.draft_pool.peak_in_use = self.draft_pool.in_use
+        if self.prefix is not None:
+            # a warm cache is server state: keep the trie, zero its counters
+            self.prefix.reset_stats()
 
     @property
     def _cache(self):
@@ -272,7 +349,9 @@ class ServeEngine:
                 f"prompt({len(prompt)}) + max_new_tokens({max_new_tokens}) "
                 f"exceeds max_len={self.max_len}")
         if self.paged:
-            need = self.tables.pages_for(len(prompt) + max_new_tokens)
+            # +spec_k: speculative verify rows past the decode budget
+            need = self.tables.pages_for(len(prompt) + max_new_tokens
+                                         + self.spec_k)
             if need > self.pool.n_pages - 1:
                 raise ValueError(
                     f"request needs {need} pages but the pool only has "
@@ -306,21 +385,22 @@ class ServeEngine:
             return prompt, p - 1
         return np.pad(prompt, (0, width - p)), p - 1
 
-    def _prefill_paged(self, req: Request, slot: int):
-        """Prefill the prompt into the slot's pages: one bucketed span, or
-        fixed-size chunks at successive offsets with ``prefill_chunk``.
-        (The reference's ``start`` offset is the prefix cache's first
-        miss; without a prefix cache it is 0.) -> the last span's
-        logits."""
+    def _prefill_paged(self, req: Request, slot: int, start: int = 0):
+        """Prefill prompt rows [start, P) into the slot's pages: one
+        bucketed span, or fixed-size chunks at successive offsets with
+        ``prefill_chunk``. ``start`` is the prefix cache's first miss: rows
+        [0, start) are served by shared (or copied) pages, and a chunked
+        span starting mid-page writes only the rows past the copy-on-write
+        boundary. -> the last span's logits."""
         p = len(req.prompt)
         row = self.tables.table[slot:slot + 1]
         chunk = self.prefill_chunk
         if not chunk:
-            toks, last = self._bucketed(req.prompt)
-            spans = [(toks, 0, last)]
+            toks, last = self._bucketed(req.prompt[start:])
+            spans = [(toks, start, last)]
         else:
             spans = []
-            for off in range(0, p, chunk):
+            for off in range(start, p, chunk):
                 toks = np.zeros((chunk,), np.int32)
                 n = min(chunk, p - off)
                 toks[:n] = req.prompt[off:off + n]
@@ -336,20 +416,35 @@ class ServeEngine:
         alone and take its first token from the prefill logits."""
         while self._free and self._queue:
             head = self._queue[0]
-            if self.paged and not self.tables.can_admit(
-                    len(head.prompt) + head.max_new_tokens):
-                break                       # head-of-line wait (stays FIFO)
+            hit, pages = 0, []
+            if self.paged:
+                budget_tokens = len(head.prompt) + head.max_new_tokens
+                if self.prefix is not None:
+                    hit, pages = self.prefix.lookup(head.prompt)
+                    ok = self.prefix.make_room(self.tables, budget_tokens,
+                                               hit_tokens=hit,
+                                               protect=pages)
+                else:
+                    ok = self.tables.can_admit(budget_tokens)
+                if not ok:
+                    break                   # head-of-line wait (stays FIFO)
             slot = min(self._free)          # deterministic: lowest free slot
             self._free.remove(slot)
             req = self._queue.popleft()
             p = len(req.prompt)
             td = time.perf_counter()
             if self.paged:
-                self.tables.admit_prefix(slot, [], 0, p,
+                self.tables.admit_prefix(slot, pages, hit, p,
                                          budget_tokens=p
                                          + req.max_new_tokens)
-                self.tables.assert_writable(slot, 0, p - 1)
-                logits = self._prefill_paged(req, slot)
+                if self.prefix is not None:
+                    self.prefix.note(hit, p)
+                    cow = self.tables.ensure_writable(slot, hit)
+                    if cow:
+                        self.prefix.cow_copies += len(cow)
+                        self.exec.copy_pages(cow)
+                self.tables.assert_writable(slot, hit, p - 1)
+                logits = self._prefill_paged(req, slot, start=hit)
             else:
                 toks, last = self._bucketed(req.prompt)
                 logits = self.exec.prefill_slot(toks, slot, last)
@@ -357,6 +452,10 @@ class ServeEngine:
             # reference's host argmax); reading it waits for the prefill
             tok = int(greedy_tokens(logits)[0])
             self._dev_acc += time.perf_counter() - td
+            if self.prefix is not None:
+                # the prefill landed: adopt the full prompt pages
+                self.prefix.register(req.prompt,
+                                     self.tables.owned_pages(slot))
             self._pos[slot] = p
             rec = _Active(req, slot, [tok], self.step_count,
                           time.perf_counter() - req.submit_time)
@@ -398,9 +497,13 @@ class ServeEngine:
     def resident_kv_bytes(self) -> int:
         """KV bytes reserved for live sequences: the allocated pages
         (paged), or the whole slot cache (every slot reserves max_len
-        rows up front)."""
+        rows up front). With a prefix cache, a page shared by several
+        slots counts once and a page held only by the cache not at all
+        (``cached_kv_bytes`` in ``summary()``)."""
         if self.paged:
-            return self.pool.in_use * self._page_bytes
+            n = (self.tables.slot_mapped_pages if self.prefix is not None
+                 else self.pool.in_use)
+            return n * self._page_bytes
         return sum(v.numel() * v.element_size()
                    for v in self._cache.values())
 
@@ -453,9 +556,9 @@ class ServeEngine:
                 "occupancy": occ, "active": len(self._active)}
 
     def _plan_and_dispatch(self):
-        """Front half of a cycle: plan, account metrics and dispatch the
-        packed step without blocking. -> (plan, in_flight or None for an
-        empty plan)."""
+        """Front half of a cycle: plan, account metrics, run the draft
+        cycle (speculative decoding) and dispatch the packed step without
+        blocking. -> (plan, in_flight or None for an empty plan)."""
         plan = self.sched.plan(self.step_count)
         for rid, slot in plan.admitted:
             self.events.append(("admit", rid, slot, self.step_count))
@@ -464,16 +567,35 @@ class ServeEngine:
         self.metrics["resident_kv_bytes"].append(self.resident_kv_bytes())
         if not plan.n_tokens:
             return plan, None
-        if (plan.decode and not plan.prefill
-                and self.exec.supports_decode_step):
+        if self.spec_k:
+            # the draft/verify cycle: mirror the prefill chunks into the
+            # draft pool, propose k+1 tokens per slot in one host call,
+            # then verify every slot's k+1 rows in the ragged step below
+            # (greedy acceptance in observe()). The draft fetch blocks, so
+            # a pipelined speculative cycle overlaps only its pack and
+            # observe with the in-flight target step.
+            for dp in self.sched.pack_draft(plan):
+                self.exec.draft_prefill(dp)
+            if plan.spec:
+                tok0, pos0, dtable, dsrc = self.sched.draft_inputs(plan)
+                drafts = self.exec.draft_k(tok0, pos0, dtable,
+                                           dsrc if self.pipeline else None)
+                plan.spec_drafts = {slot: drafts[:self.spec_k, slot]
+                                    for slot, _, _ in plan.spec}
+        if (plan.decode and not plan.prefill and not plan.spec
+                and not plan.cow and self.exec.supports_decode_step):
             # pure-decode fast path: one batched model.decode
             tok, dpos, table, src = self.sched.pack_decode(plan)
             inf = _InFlight(plan, self.exec.decode_step(tok, dpos, table,
                                                         src), True)
         else:
             packed = self.sched.pack(plan, kernel_desc=self.paged_kernel)
+            if plan.cow:
+                # the copy-on-write page copies go first on the stream, so
+                # shared content is duplicated before a divergent row lands
+                self.exec.copy_pages(plan.cow)
             inf = _InFlight(plan, self.exec.step(packed), False)
-        if plan.decode:
+        if plan.decode or plan.spec:
             self.metrics["decode_steps"] += 1
         return plan, inf
 
@@ -487,6 +609,8 @@ class ServeEngine:
         gen_before = self.sched.gen_tokens
         retired = self.sched.observe(plan, toks, time.perf_counter(),
                                      ahead=ahead)
+        # the tokens actually appended: a speculative step emits 1..k+1
+        # per slot, as its drafts were accepted
         self.metrics["generated_tokens"] += (self.sched.gen_tokens
                                              - gen_before)
         for seq in retired:
@@ -636,8 +760,11 @@ class ServeEngine:
                 "n_pages": self.pool.n_pages,
                 "pages_peak": self.pool.peak_in_use,
                 "prefill_chunk": self.prefill_chunk,
-                "prefix_cache": False}
+                "prefix_cache": self.prefix is not None}
                if self.paged else {}),
+            **({**self.prefix.stats(),
+                "cached_kv_bytes": self.prefix.resident * self._page_bytes}
+               if self.prefix is not None else {}),
             **({"max_batch_tokens": self.max_batch_tokens,
                 "packed_tokens_max": self.sched.packed_tokens_max,
                 "pipeline": self.pipeline,
@@ -654,5 +781,15 @@ class ServeEngine:
                # apart from the device span
                {"d2h_ms_mean": (1e3 * self.exec.d2h_s
                                 / max(1, m["decode_steps"]))}),
+            **({"speculative_k": self.spec_k,
+                "adaptive_spec": self.sched.adaptive_spec,
+                "spec_cycles": self.sched.spec_cycles,
+                "spec_drafted_tokens": self.sched.spec_drafted,
+                "spec_accepted_tokens": self.sched.spec_accepted,
+                "spec_acceptance_rate": (
+                    self.sched.spec_accepted / self.sched.spec_drafted
+                    if self.sched.spec_drafted else 0.0),
+                "draft_pages_peak": self.draft_pool.peak_in_use}
+               if self.spec_k else {}),
             "mesh": None,
         }

@@ -14,7 +14,11 @@ and runs one engine step per call: the flat packed (T, 1) batch of decode
 and prefill-chunk rows through ``model.ragged_step`` (``step``), or — for
 plans that are pure decode — the compact (n_slots, 1) batch through
 ``model.decode`` (``decode_step``). Both return a ``TokenFetch`` of the
-greedy token ids without synchronising; the pools update in place.
+greedy token ids without synchronising; the pools update in place. With a
+draft model (speculative decoding) it also writes packed draft-prefill
+steps into the draft pool (``draft_prefill``) and proposes ``spec_k + 1``
+greedy tokens per slot (``draft_k``). Both executors copy prefix-cache
+pages copy-on-write (``copy_pages``).
 
 Nothing in a unified dispatch waits for the card. The packed host inputs
 reach it from a 2-deep ring of pinned staging buffers, copied with
@@ -58,7 +62,29 @@ class TokenFetch:
         return self._host.numpy().copy()
 
 
-class LegacyExecutor:
+class _CopyPagesMixin:
+    """The copy-on-write page copy both executors share (reference
+    ``executor._CopyPagesMixin``)."""
+
+    def copy_pages(self, pairs) -> None:
+        """Copy each (src, dst) page pair on every pool leaf in one
+        dispatch, issued on the current stream before the step or prefill
+        that writes past the shared boundary (stream order is device
+        order, so a source freed and reused within the same plan is read
+        before its new owner writes it). The pairs are padded with (0, 0)
+        to the power-of-two width the reference uses, ceil2(max(pairs,
+        n_slots))."""
+        if not pairs:
+            return
+        self.n_dispatch += 1
+        width = 1 << (max(len(pairs), self.n_slots) - 1).bit_length()
+        idx = np.zeros((2, width), np.int32)
+        idx[:, :len(pairs)] = np.asarray(pairs, np.int32).T
+        src, dst = self._page_pairs(idx)
+        self.cache = self.model.copy_paged_pages(self.cache, src, dst)
+
+
+class LegacyExecutor(_CopyPagesMixin):
     """Prefill-on-admit + batched decode (reference ``executor.py:290``),
     on one device: the legacy schedule's device path, which the reference
     keeps as the oracle its unified step is tested against. ``cache`` is
@@ -77,6 +103,10 @@ class LegacyExecutor:
 
     def _dev(self, a) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _page_pairs(self, idx: np.ndarray):
+        pairs = self._dev(idx)
+        return pairs[0], pairs[1]
 
     @torch.no_grad()
     def prefill_slot(self, toks: np.ndarray, slot: int, last: int):
@@ -131,25 +161,35 @@ class LegacyExecutor:
         return out
 
 
-class RaggedExecutor:
+class RaggedExecutor(_CopyPagesMixin):
     """The unified token-budget step over the paged pools (see module
-    docstring and ``scheduler.TokenBudgetScheduler.pack``)."""
+    docstring and ``scheduler.TokenBudgetScheduler.pack``). ``draft`` is
+    the speculative draft's (model, params, paged pools) on the same
+    device, ``spec_k`` its draft depth."""
 
     def __init__(self, model, params, cache, *, n_slots: int = 1,
-                 paged_kernel: bool = False, device="cpu"):
+                 paged_kernel: bool = False, device="cpu", draft=None,
+                 spec_k: int = 0):
         self.model, self.params, self.cache = model, params, cache
         self.n_slots = n_slots
         self.paged_kernel = paged_kernel
         self.device = torch.device(device)
         self.n_dispatch = 0     # device calls issued (hot-loop accounting)
-        self._prev = None       # previous step's device token vector
+        # the previous step's device token vector: n_slots * (spec_k + 1)
+        # wide after a ragged step, n_slots after a pure-decode step (the
+        # fast path, which speculative plans never take)
+        self._prev = None
         self._pinned = {}       # (ring slot, name) -> pinned host buffer
         self._ring = 0          # ring slot of the current dispatch
+        self.spec_k = spec_k
+        self.draft_model = self.draft_params = self.draft_cache = None
+        if draft is not None:
+            self.draft_model, self.draft_params, self.draft_cache = draft
 
-    def _stage(self, name: str, a: np.ndarray) -> torch.Tensor:
-        """The pinned host buffer ``name`` of the current ring slot, shaped
-        and typed like ``a``."""
-        key = (self._ring, name)
+    def _stage(self, name: str, a: np.ndarray, ring=None) -> torch.Tensor:
+        """The pinned host buffer ``name`` of ring slot ``ring`` (default:
+        the current dispatch's), shaped and typed like ``a``."""
+        key = (self._ring if ring is None else ring, name)
         buf = self._pinned.get(key)
         if (buf is None or tuple(buf.shape) != a.shape
                 or buf.numpy().dtype != a.dtype):
@@ -157,16 +197,28 @@ class RaggedExecutor:
             self._pinned[key] = buf
         return buf
 
-    def _dev(self, name: str, a) -> torch.Tensor:
+    def _dev(self, name: str, a, ring=None) -> torch.Tensor:
         """Host array -> a device tensor of its own (the scheduler reuses
         its packing buffers): through the pinned ring with a non-blocking
         copy on the card, a plain copy on the CPU."""
         a = np.ascontiguousarray(a)
         if self.device.type != "cuda":
             return torch.tensor(a, device=self.device)
-        buf = self._stage(name, a)
+        buf = self._stage(name, a, ring)
         buf.numpy()[...] = a
         return buf.to(self.device, non_blocking=True)
+
+    def _page_pairs(self, idx: np.ndarray):
+        # staged in the ring slot of the step that follows the copy: its
+        # buffer is written again only after that step was observed
+        pairs = self._dev("cow", idx, ring=self._ring ^ 1)
+        return pairs[0], pairs[1]
+
+    def _draft_dev(self, a) -> torch.Tensor:
+        """A draft-side host array as a device tensor of its own, by a
+        plain copy: a speculative cycle blocks on its drafts anyway, and
+        the pinned ring belongs to the target steps."""
+        return torch.tensor(np.ascontiguousarray(a), device=self.device)
 
     def _fetch(self, toks: torch.Tensor) -> TokenFetch:
         """Start the step's token copy to the host without blocking."""
@@ -244,3 +296,57 @@ class RaggedExecutor:
         self.cache = {k: v for k, v in cache.items()
                       if k not in ("pos", "page_table")}
         return self._fetch(greedy_tokens(logits))
+
+    # ---------------------------------------------------- speculative draft
+
+    @torch.no_grad()
+    def draft_prefill(self, packed: dict) -> None:
+        """Write one packed draft-prefill step (``scheduler.pack_draft``:
+        the target step's ragged shape, against the draft tables) into the
+        draft pool; the logits are discarded. It carries no kernel
+        descriptor, so its attention takes the gather path, as the
+        reference's does."""
+        self.n_dispatch += 1
+        cache = dict(self.draft_cache,
+                     pos=self._draft_dev(packed["pos"]),
+                     page_table=self._draft_dev(packed["page_table"]))
+        _, cache = self.draft_model.ragged_step(
+            self.draft_params, self._draft_dev(packed["tokens"]), cache,
+            self._draft_dev(packed["logit_rows"]), greedy=True)
+        self.draft_cache = {k: v for k, v in cache.items()
+                            if k not in ("pos", "page_table")}
+
+    @torch.no_grad()
+    def draft_k(self, tok0: np.ndarray, pos0: np.ndarray, table: np.ndarray,
+                tok_src=None) -> np.ndarray:
+        """Propose ``spec_k + 1`` greedy tokens per slot in one host call
+        (the reference's ``_draft_scan``): ``spec_k + 1`` batched
+        ``decode`` calls of the draft model on its pool, each fed the
+        previous one's argmax at the next position, then one blocking
+        fetch. -> (spec_k + 1, n_slots) int32 numpy. The extra step leaves
+        no draft-KV hole at pos0 + k when a block is wholly accepted.
+        ``tok_src`` (pipelined loop) injects the in-flight base tokens from
+        the previous target step's device vector, n_slots * (spec_k + 1)
+        wide; the fetch therefore also waits out that step. The draft
+        decodes with the engine's ``paged_kernel`` (the decode attention
+        and, where ``ops.use_fused_decode`` allows it, the two-launch
+        decode); drafts set only the acceptance rate, never the output."""
+        self.n_dispatch += 1
+        tok = self._draft_dev(tok0)
+        if tok_src is not None:
+            tok = _inject_prev(tok, self._prev_arr(
+                self.n_slots * (self.spec_k + 1)), self._draft_dev(tok_src))
+        pos = self._draft_dev(pos0)
+        table = self._draft_dev(table)
+        kw = {"paged_kernel": True} if self.paged_kernel else {}
+        drafts = []
+        for _ in range(self.spec_k + 1):
+            cache = dict(self.draft_cache, pos=pos, page_table=table)
+            logits, cache = self.draft_model.decode(self.draft_params, tok,
+                                                    cache, **kw)
+            self.draft_cache = {k: v for k, v in cache.items()
+                                if k not in ("pos", "page_table")}
+            nxt = greedy_tokens(logits)
+            drafts.append(nxt)
+            tok, pos = nxt[:, None], pos + 1
+        return torch.stack(drafts).cpu().numpy()

@@ -12,10 +12,14 @@ attention kernels and the two-launch decode there. ``--schedule
 unified`` runs the token-budget engine on the paged pool, through the
 depth-1 pipelined loop unless ``--no-pipeline`` (or ``REPRO_SYNC_STEP``)
 selects the synchronous one; ``--schedule unified --paged-kernel`` is
-the card's fast path. Runs on the CUDA device unless ``--device cpu`` is
-given. The reference CLI's flags are accepted; those of later slices
-(mesh, prefix cache, speculative decoding) make the engine raise
-``NotImplementedError``.
+the card's fast path. ``--prefix-cache`` shares cached prompt-prefix
+pages across requests (paged pool, either schedule; ``--shared-prefix S``
+gives the workload an S-token common prefix to hit), ``--speculative K``
+drafts K tokens per slot per cycle with ``build_draft_model``'s int4 draft
+and verifies them in the unified step (``--adaptive-spec`` adapts K per
+slot). Runs on the CUDA device unless ``--device cpu`` is given. The
+reference CLI's flags are accepted; ``--mesh`` (a later slice) makes the
+engine raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -109,6 +113,20 @@ def build_served_model(arch: str, transform: str, w_bits: int, a_bits: int,
     return cfg, model, params, mem
 
 
+def build_draft_model(arch: str, smoke: bool, seed: int,
+                      cfg_overrides: Optional[dict] = None,
+                      a_bits: int = 8, device="cuda"):
+    """The speculative-decoding draft (reference ``build_draft_model``):
+    the same checkpoint as the target (same arch and seed), CAT-quantized
+    to int4-packed weights at ``a_bits``, served from its own int8 KV pool
+    whatever the target's cache. -> (draft_model, draft_params) for
+    ``ServeEngine(draft=...)``."""
+    _, model, params, _ = build_served_model(
+        arch, "cat", 4, a_bits, 8, smoke, seed, cfg_overrides=cfg_overrides,
+        device=device)
+    return model, params
+
+
 def serve_benchmark(arch: str = "catlm_60m", batch: int = 4,
                     prompt_len: int = 32, gen: int = 32,
                     transform: str = "cat", w_bits: int = 4,
@@ -118,18 +136,27 @@ def serve_benchmark(arch: str = "catlm_60m", batch: int = 4,
                     paged: bool = False, page_size: int = 16,
                     prefill_chunk: int = 0, max_len: int = 0,
                     schedule: str = "legacy", max_batch_tokens: int = 0,
-                    warmup: int = 0, shared_prefix: int = 0,
+                    warmup: int = 0, prefix_cache: bool = False,
+                    shared_prefix: int = 0, speculative: int = 0,
+                    adaptive_spec: bool = False,
                     paged_kernel: bool = False, device="cuda",
-                    pipeline: Optional[bool] = None, **later):
+                    pipeline: Optional[bool] = None, mesh=None):
     """Quantize then serve a workload through the engine (see the
     reference's ``serve_benchmark``): by default the legacy schedule on
     the slot cache; ``paged`` serves from the paged pool (implied by
-    ``schedule="unified"``). ``pipeline`` selects the unified loop as
-    ``ServeEngine``'s does (None: pipelined unless REPRO_SYNC_STEP is
-    set). ``later`` carries options of later slices (mesh, prefix_cache,
-    speculative_k) to the engine, which raises on them."""
+    ``schedule="unified"``). ``prefix_cache`` shares cached prefix pages
+    (pair it with ``shared_prefix=S``, an S-token common system prompt);
+    ``speculative=k`` drafts k tokens per slot per cycle with
+    ``build_draft_model``'s draft (unified only), ``adaptive_spec`` adapts
+    k per slot; the output stays the target-only output. ``pipeline``
+    selects the unified loop as ``ServeEngine``'s does (None: pipelined
+    unless REPRO_SYNC_STEP is set). ``mesh`` (a later slice) makes the
+    engine raise."""
     cfg, model, params, mem = build_served_model(
         arch, transform, w_bits, a_bits, kv_bits, smoke, seed, device=device)
+    draft = None
+    if speculative:
+        draft = build_draft_model(arch, smoke, seed, device=device)
     n_requests = n_requests or batch
     if mixed or shared_prefix:
         requests = request_workload(cfg, n_requests, gen=gen, seed=seed,
@@ -145,8 +172,11 @@ def serve_benchmark(arch: str = "catlm_60m", batch: int = 4,
                          paged=paged, page_size=page_size,
                          prefill_chunk=prefill_chunk, schedule=schedule,
                          max_batch_tokens=max_batch_tokens,
+                         prefix_cache=prefix_cache,
+                         speculative_k=speculative, draft=draft,
+                         adaptive_spec=adaptive_spec,
                          paged_kernel=paged_kernel, device=device,
-                         pipeline=pipeline, **later)
+                         pipeline=pipeline, mesh=mesh)
     if warmup:
         results, summary = run_steady(engine, requests, passes=int(warmup))
     else:
@@ -183,6 +213,9 @@ def validate_flags(ap: argparse.ArgumentParser, args) -> None:
                  f"(got {args.prefill_chunk}, page {args.page_size}); "
                  f"legacy chunks write whole pages — only --schedule "
                  f"unified slices chunks freely")
+    if args.prefix_cache and not (args.paged or unified):
+        ap.error("--prefix-cache needs --paged (or --schedule unified): "
+                 "cached prefixes are shared pages of the paged KV pool")
     if args.shared_prefix < 0:
         ap.error(f"--shared-prefix must be >= 0 (got {args.shared_prefix})")
     if args.max_batch_tokens and not unified:
@@ -195,6 +228,20 @@ def validate_flags(ap: argparse.ArgumentParser, args) -> None:
                  f"running slot decodes one token per step)")
     if args.speculative < 0:
         ap.error(f"--speculative must be >= 0 (got {args.speculative})")
+    if args.speculative and not unified:
+        ap.error(f"--speculative needs --schedule unified (got "
+                 f"--schedule {args.schedule}; the draft/verify cycle "
+                 f"runs inside the token-budgeted ragged step)")
+    if (args.speculative and args.max_batch_tokens
+            and args.max_batch_tokens < args.batch *
+            (args.speculative + 1)):
+        ap.error(f"--max-batch-tokens must be >= --n-slots × "
+                 f"(--speculative + 1) (got {args.max_batch_tokens}, "
+                 f"need {args.batch * (args.speculative + 1)}; every "
+                 f"decoding slot packs k+1 verify rows per step)")
+    if args.adaptive_spec and not args.speculative:
+        ap.error("--adaptive-spec needs --speculative K (it tunes the "
+                 "per-slot draft depth below K)")
     if args.pipeline and not unified:
         ap.error("--pipeline needs --schedule unified (legacy "
                  "prefill-on-admit is inherently synchronous)")
@@ -247,14 +294,23 @@ def main(argv=None) -> None:
                     help="unified-schedule token budget per step (>= "
                          "--n-slots)")
     ap.add_argument("--prefix-cache", action="store_true",
-                    help="a later slice of the port")
+                    help="share cached prompt-prefix pages across "
+                         "requests (refcounted, copy-on-write) and skip "
+                         "their prefill — needs --paged or --schedule "
+                         "unified")
     ap.add_argument("--shared-prefix", type=int, default=0,
                     help="prepend this many common system-prompt tokens "
                          "to every request (implies the mixed workload)")
     ap.add_argument("--speculative", type=int, default=0, metavar="K",
-                    help="a later slice of the port")
+                    help="draft K tokens per slot per cycle with the "
+                         "int4-packed quantization of the same checkpoint "
+                         "and verify all K+1 positions in one ragged "
+                         "target step (greedy acceptance — output stays "
+                         "token-identical; needs --schedule unified)")
     ap.add_argument("--adaptive-spec", action="store_true",
-                    help="a later slice of the port")
+                    help="lower each slot's per-cycle draft depth toward "
+                         "its running acceptance rate (K stays the hard "
+                         "cap; needs --speculative)")
     ap.add_argument("--pipeline", default=None,
                     action=argparse.BooleanOptionalAction,
                     help="depth-1 asynchronous unified loop: pack + "
@@ -269,13 +325,6 @@ def main(argv=None) -> None:
                          "when asked)")
     args = ap.parse_args(argv)
     validate_flags(ap, args)
-    later = {}
-    if args.mesh:
-        later["mesh"] = args.mesh
-    if args.prefix_cache:
-        later["prefix_cache"] = True
-    if args.speculative or args.adaptive_spec:
-        later["speculative_k"] = args.speculative or 1
     out = serve_benchmark(arch=args.arch, batch=args.batch,
                           prompt_len=args.prompt_len, gen=args.gen,
                           transform=args.transform, w_bits=args.w_bits,
@@ -286,10 +335,13 @@ def main(argv=None) -> None:
                           prefill_chunk=args.prefill_chunk,
                           schedule=args.schedule,
                           max_batch_tokens=args.max_batch_tokens,
+                          prefix_cache=args.prefix_cache,
                           shared_prefix=args.shared_prefix,
+                          speculative=args.speculative,
+                          adaptive_spec=args.adaptive_spec,
                           paged_kernel=args.paged_kernel,
                           device=args.device, pipeline=args.pipeline,
-                          **later)
+                          mesh=args.mesh or None)
     eng = out["engine"]
     if eng["schedule"] == "unified":
         pipe = (f", pipelined {eng['overlap_frac']:.0%} overlap"
@@ -299,6 +351,17 @@ def main(argv=None) -> None:
     else:
         sched_note = (f", legacy[itl p95 {eng['itl_p95_s'] * 1e3:.0f}ms, "
                       f"{eng['dispatch_per_step']:.2f} dispatches/step]")
+    spec_note = ""
+    if eng.get("speculative_k"):
+        adapt = ", adaptive" if eng["adaptive_spec"] else ""
+        spec_note = (f", spec[k={eng['speculative_k']}{adapt}, "
+                     f"{eng['spec_acceptance_rate']:.0%} accepted, "
+                     f"{eng['spec_drafted_tokens']}t drafted]")
+    prefix_note = ""
+    if eng.get("prefix_cache"):
+        prefix_note = (f", prefix[{eng['prefix_hit_rate']:.0%} hit, "
+                       f"{eng['prefix_hit_tokens']}t prefill skipped, "
+                       f"{eng['cow_copies']} cow]")
     kv_note = (f", paged[{eng['page_size']}t/page, "
                f"{eng['resident_kv_bytes_mean'] / 2**10:.0f}KiB "
                f"resident vs {eng['kv_capacity_bytes'] / 2**10:.0f}"
@@ -311,7 +374,7 @@ def main(argv=None) -> None:
           f"ttft {eng['ttft_s_mean'] * 1e3:.0f}ms, "
           f"occupancy {eng['occupancy_mean']:.2f}, "
           f"kv={'int8' if eng['quantized_kv'] else 'fp'}"
-          f"{kv_note}{sched_note}")
+          f"{kv_note}{spec_note}{prefix_note}{sched_note}")
     if out.get("qlinear_layers"):
         kind = "int4-packed" if out["packed_int4"] else "int8"
         print(f"  weights: {out['weight_bytes'] / 2**20:.2f} MiB across "

@@ -24,8 +24,9 @@ from repro_torch.core import qlinear
 from repro_torch.models.layers import (_paged_indices, activation,
                                        add_rms_norm, cache_update,
                                        cache_update_quantized,
-                                       chunked_attention, fake_quant_kv,
-                                       gather_pages, paged_cache_update,
+                                       chunked_attention, copy_pool_pages,
+                                       fake_quant_kv, gather_pages,
+                                       paged_cache_update,
                                        paged_cache_update_quantized,
                                        rms_norm, rope)
 
@@ -312,6 +313,20 @@ def logits_fn(cfg, params, hidden):
     return hidden @ params["embed"].T.to(hidden.dtype)
 
 
+@torch.no_grad()
+def loss(cfg, params, batch, *, loss_chunk: int = 512):
+    """Chunked CE over the sequence (reference ``dense.loss``), forward
+    only: ``batch`` holds ``tokens`` and ``labels`` (B, S) tensors or
+    arrays. -> (total loss, {"ce", "aux"})."""
+    from repro_torch.models.losses import chunked_ce
+    device = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=device)
+    labels = torch.as_tensor(batch["labels"], device=device)
+    hidden, aux, _ = forward(cfg, params, tokens)
+    return chunked_ce(lambda h: logits_fn(cfg, params, h), hidden, labels,
+                      aux, loss_chunk=loss_chunk)
+
+
 # ----------------------------------------------------------------- serving
 
 def make_serving_params(cfg, params, keep_packed=None) -> dict:
@@ -378,6 +393,14 @@ def init_paged_cache(cfg, n_pages: int, page_size: int,
     cd = compute_dtype(cfg)
     return {"k": torch.zeros(shape, dtype=cd, device=device),
             "v": torch.zeros(shape, dtype=cd, device=device)}
+
+
+def copy_paged_pages(cfg, cache, src, dst) -> dict:
+    """Copy-on-write page copy: pool pages ``src`` into ``dst`` on every
+    paged-cache leaf, codes and scales in lockstep (a cached int8 page is
+    reusable only with its per-token scales), in place. ``src``/``dst``
+    (C,) int, padded with (0, 0) null-page self-copies."""
+    return {k: copy_pool_pages(v, src, dst) for k, v in cache.items()}
 
 
 def prefill(cfg, params, tokens, cache, logits_at=None, **fwd_kw):

@@ -240,6 +240,16 @@ def paged_cache_update_quantized(ck, cks, cv, cvs, k, v, page_table, pos,
             _write_kv_paged(cvs, vs, page_table, pos))
 
 
+def copy_pool_pages(pool, src, dst):
+    """Copy whole pages ``src`` -> ``dst`` along a pool leaf's page axis
+    (axis 1: leaves are (L, n_pages, page_size, ...)), in place: the prefix
+    cache's copy-on-write split. ``src``/``dst`` are (C,) int tensors;
+    padding pairs are (0, 0), a null-page self-copy (the gather reads every
+    source before any write lands)."""
+    pool[:, dst.long()] = pool[:, src.long()]
+    return pool
+
+
 def gather_pages(pool, page_table):
     """(n_pages, G, KV, d) pool + (B, n_ptab) table -> the logical
     (B, n_ptab*G, KV, d) view."""

@@ -15,10 +15,12 @@ class Model:
     init: Callable              # (generator, device) -> params
     forward: Callable           # (params, tokens, **kw) -> (hidden, aux, cache)
     logits: Callable            # (params, hidden) -> logits
+    loss: Callable              # (params, batch) -> (loss, metrics)
     init_cache: Callable        # (batch_size, max_len, device) -> slots
     init_paged_cache: Callable  # (n_pages, page_size, device) -> pools
     prefill: Callable           # (params, tokens, cache, **kw) -> (logits, cache)
     decode: Callable            # (params, token, cache, **kw) -> (logits, cache)
+    copy_paged_pages: Callable  # (cache, src, dst) -> cache, in place
     ragged_step: Callable       # (params, tokens, cache, logit_rows, **kw)
     make_serving_params: Callable   # (params, keep_packed=None) -> params
 
@@ -31,6 +33,7 @@ def build(cfg) -> Model:
         forward=lambda params, tokens, **kw: dense.forward(cfg, params,
                                                            tokens, **kw),
         logits=lambda params, hidden: dense.logits_fn(cfg, params, hidden),
+        loss=lambda params, batch: dense.loss(cfg, params, batch),
         init_cache=lambda batch_size, max_len, device="cpu": (
             dense.init_cache(cfg, batch_size, max_len, device)),
         init_paged_cache=lambda n_pages, page_size, device="cpu": (
@@ -39,6 +42,8 @@ def build(cfg) -> Model:
             cfg, params, tokens, cache, **kw),
         decode=lambda params, token, cache, **kw: dense.decode(
             cfg, params, token, cache, **kw),
+        copy_paged_pages=lambda cache, src, dst: dense.copy_paged_pages(
+            cfg, cache, src, dst),
         ragged_step=lambda params, tokens, cache, logit_rows, **kw: (
             dense.ragged_step(cfg, params, tokens, cache, logit_rows, **kw)),
         make_serving_params=lambda params, **kw: dense.make_serving_params(

@@ -279,19 +279,25 @@ def test_ptq_matches_reference(cases):
 
 
 def test_engine_scope_and_device_rules():
-    """What the port still refuses (prefix cache, speculative decoding,
-    meshes), the device rule, and both schedules built and drained: the
-    legacy one, now the default as in the reference, on the slot cache;
-    the unified one when asked for."""
+    """What the port still refuses (meshes), the reference's ValueErrors
+    for the prefix cache on the slot cache and for speculative decoding
+    without a draft or on the legacy schedule, the device rule, and both
+    schedules built and drained: the legacy one, now the default as in the
+    reference, on the slot cache; the unified one when asked for."""
     cfg = tconfigs.get_config("catlm_60m").smoke().scaled(kv_quant_bits=8)
     model = t_build(cfg)
     params = model.init(torch.Generator().manual_seed(0))
-    for kw in (dict(prefix_cache=True), dict(speculative_k=2),
-               dict(mesh=object())):
-        for schedule in ("legacy", "unified"):
-            with pytest.raises(NotImplementedError, match="later slice"):
-                ServeEngine(model, params, device="cpu", schedule=schedule,
-                            **kw)
+    for schedule in ("legacy", "unified"):
+        with pytest.raises(NotImplementedError, match="later slice"):
+            ServeEngine(model, params, device="cpu", schedule=schedule,
+                        mesh=object())
+    for kw, match in (
+            (dict(prefix_cache=True), r"prefix_cache needs paged=True"),
+            (dict(speculative_k=2), r"speculative_k needs schedule="),
+            (dict(speculative_k=2, schedule="unified"),
+             r"speculative_k needs draft=")):
+        with pytest.raises(ValueError, match=match):
+            ServeEngine(model, params, device="cpu", **kw)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             ServeEngine(model, params)
