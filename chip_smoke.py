@@ -2309,31 +2309,287 @@ def legacy_phase(model, params, counters, card):
     return out
 
 
-def batch_shape_probe(gen, dev) -> dict:
-    """The same rows through the kernels a step's shape picks: the decode
-    linear (row 1, M 8) against the tiled one (row 2, the same 8 rows in
-    a 40-row batch, a k 4 verify step's), and the decode attention (row
-    4) against the ragged one (row 3) at one query row per item (8 items,
-    served lengths <= 56), on bf16 inputs. -> per pair the share of
-    bitwise-equal outputs and the largest difference."""
+def _compare(a, b) -> dict:
+    a, b = a.float(), b.float()
+    return {"bitwise": bool(torch_equal(a, b)),
+            "bitwise_share": (a == b).float().mean().item(),
+            "max_abs": (a - b).abs().max().item()}
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def step_arrays(items, q_width):
+    """A unified step's host arrays as ``TokenBudgetScheduler.pack`` and
+    ``_kernel_desc`` lay them out, for ``items`` of (table row, first
+    position, tokens, logits: "all" | "last" | "none"): (packed, desc) as
+    numpy, for ``launch.executor.route_rows``."""
+    import numpy as np
+    t = sum(len(toks) for _, _, toks, _ in items)
+    n_ptab = len(items[0][0])
+    tokens = np.zeros((t, 1), np.int32)
+    pos = np.zeros((t,), np.int32)
+    ptab = np.zeros((t, n_ptab), np.int32)
+    qidx = np.zeros((len(items), q_width), np.int32)
+    qpos = np.full((len(items), q_width), -1, np.int32)
+    lengths = np.zeros((len(items),), np.int32)
+    table = np.zeros((len(items), n_ptab), np.int32)
+    inv_seq = np.zeros((t,), np.int32)
+    inv_qi = np.zeros((t,), np.int32)
+    logit_rows = []
+    i = 0
+    for j, (row, first, toks, logits) in enumerate(items):
+        n = len(toks)
+        tokens[i:i + n, 0] = toks
+        pos[i:i + n] = first + np.arange(n)
+        ptab[i:i + n] = row
+        qidx[j, :n] = i + np.arange(n)
+        qpos[j, :n] = first + np.arange(n)
+        lengths[j] = first + n
+        table[j] = row
+        inv_seq[i:i + n] = j
+        inv_qi[i:i + n] = np.arange(n)
+        logit_rows += {"all": list(range(i, i + n)), "last": [i + n - 1],
+                       "none": []}[logits]
+        i += n
+    packed = {"tokens": tokens, "pos": pos, "page_table": ptab,
+              "logit_rows": np.asarray(logit_rows, np.int32),
+              "n_logits": len(logit_rows)}
+    desc = {"qidx": qidx, "qpos": qpos, "lengths": lengths, "table": table,
+            "inv_seq": inv_seq, "inv_qi": inv_qi}
+    return packed, desc
+
+
+def routed_desc(packed, desc, dev):
+    """``route_rows`` of a step, its arrays on the card."""
+    import numpy as np
     import torch
 
-    from repro_torch.kernels import fused_cat_matmul as F
-    from repro_torch.kernels import paged_attention as P
+    from repro_torch.launch.executor import route_rows
+    return {k: torch.as_tensor(v).to(dev) if isinstance(v, np.ndarray)
+            else v for k, v in route_rows(packed, desc).items()}
 
-    def compare(a, b):
-        a, b = a.float(), b.float()
-        return {"bitwise_share": (a == b).float().mean().item(),
-                "max_abs": (a - b).abs().max().item(),
-                "scale": b.abs().max().item()}
+
+def attention_identity(gen, dev) -> dict:
+    """Rows 4 and 3 on the same query rows: 8 sequences at the served
+    lengths (<= 56) and at long prefixes (130..2048, the table 128 pages
+    wide, so row 4 splits 8 ways), 5 query rows each (a k 4 verify item's
+    positions), bf16 q. The yardstick is row 4 at 8 rows, one launch per
+    query position. Held bitwise: row 4 at 1 and at 40 rows a launch; a
+    unified step's attention (``ops.step_paged_attention`` on
+    ``route_rows``) for one-row items, for 5-row verify items and for
+    one-row items beside a 64-row prefill chunk. Reported: row 3 alone
+    (unrouted) on one-row items against row 4, and on rows of 5-row items
+    against the same rows as one-row items."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as P
+    out, held = {}, []
+    for label, lens in (("served", (9, 17, 24, 31, 40, 47, 53, 56)),
+                        ("long", (130, 257, 513, 700, 1025, 1500, 2047,
+                                  2048))):
+        items = [(5, ln) for ln in lens] + [(64, 64)]
+        args, _ = attention_operands(items, 64, gen, dev, decode=False)
+        q, kp, ks, vp, vs, table, lengths, qpos = args
+        pools = (kp, ks, vp, vs)
+        want = torch.stack([P.paged_attention_decode(
+            q[:8, j], *pools, table[:8], (qpos[:8, j] + 1).to(torch.int32))
+            for j in range(5)], 1)                       # (8, 5, ...)
+        rec = {}
+        one = torch.cat([P.paged_attention_decode(
+            q[i:i + 1, j], *pools, table[i:i + 1],
+            (qpos[i:i + 1, j] + 1).to(torch.int32))
+            for i in range(8) for j in range(5)]).reshape(want.shape)
+        rec["row4_1_row_launches"] = _compare(one, want)
+        forty = P.paged_attention_decode(
+            q[:8, :5].reshape(40, 4, 2, 64), *pools,
+            table[:8].repeat_interleave(5, 0),
+            (qpos[:8, :5].reshape(-1) + 1).to(torch.int32))
+        rec["row4_40_rows"] = _compare(forty.reshape(want.shape), want)
+        host_table = table.cpu().numpy()
+        host_qpos = qpos.cpu().numpy()
+
+        def step(shape, rows_of):
+            """-> the step attention's output for the 8 sequences' rows."""
+            packed, desc = step_arrays(shape, 64)
+            flat = q[rows_of[0], rows_of[1]]
+            qf = torch.cat([flat, q[8, :64]]) if len(shape) > 8 else flat
+            got = ops.step_paged_attention(qf, *pools,
+                                           routed_desc(packed, desc, dev))
+            return got[:flat.shape[0]]
+        prefill = (host_table[8], 0, [0] * 64, "last")
+        ones = [(host_table[i], int(host_qpos[i, 4]), [0], "all")
+                for i in range(8)]
+        idx = (torch.arange(8, device=dev), torch.full((8,), 4, device=dev))
+        rec["step_one_row_items"] = _compare(step(ones, idx), want[:, 4])
+        rec["step_one_row_items_beside_prefill"] = _compare(
+            step(ones + [prefill], idx), want[:, 4])
+        verify = [(host_table[i], int(host_qpos[i, 0]), [0] * 5, "all")
+                  for i in range(8)]
+        vidx = (torch.arange(8, device=dev).repeat_interleave(5),
+                torch.arange(5, device=dev).repeat(8))
+        rec["step_verify_items"] = _compare(
+            step(verify, vidx).reshape(want.shape), want)
+        held += [rec[k]["bitwise"] for k in rec]
+        # reported: row 3 itself
+        r3_one = P.paged_attention_ragged(
+            q[:8, 4:5], *pools, table[:8], lengths[:8], qpos[:8, 4:5])
+        rec["row3_one_row_items_vs_row4"] = _compare(r3_one[:, 0],
+                                                     want[:, 4])
+        r3_five = P.paged_attention_ragged(
+            q[:8, :5], *pools, table[:8], lengths[:8], qpos[:8, :5])
+        rec["row3_verify_rows_vs_row3_one_row_items"] = _compare(
+            r3_five[:, 4], r3_one[:, 0])
+        out[label] = rec
+    out["ok"] = all(held)
+    return out
+
+
+def layer_identity(gen, dev) -> dict:
+    """The linear and the K/V write of the same rows in the two step
+    shapes, bf16, at the serving widths: row 1 (8 rows) against row 2
+    (the same rows in a 40-row batch); and row 5 (the two-launch decode's
+    prologue) against the unified step's composed path on those rows (row
+    1's output in bf16, RoPE, ``quantize_kv``): q, the KV codes and their
+    scales. All held bitwise."""
+    import torch
+
+    from repro_torch.kernels import decode_layer as L
+    from repro_torch.kernels import fused_cat_matmul as F
+    from repro_torch.models.layers import quantize_kv, rope
     x, *w = fused_linear_operands(40, 512, 3072, gen, dev)
-    linear = compare(F.fused_cat_gemv_w4(x[:8], *w, act_bits=4),
-                     F.fused_cat_matmul_w4(x, *w, act_bits=4)[:8])
-    items = [(1, ln) for ln in (9, 17, 24, 31, 40, 47, 53, 56)]
-    args, _ = attention_operands(items, 1, gen, dev, decode=False)
-    ragged = P.paged_attention_ragged(*args)[:, 0]
-    decode = P.paged_attention_decode(args[0][:, 0], *args[1:7])
-    return {"rows_1_vs_2": linear, "rows_4_vs_3": compare(decode, ragged)}
+    rec = {"rows_1_vs_2": _compare(
+        F.fused_cat_gemv_w4(x[:8], *w, act_bits=4),
+        F.fused_cat_matmul_w4(x, *w, act_bits=4)[:8])}
+    targets = [(1 + i, (5 * i) % 16, 16 * i + (5 * i) % 16)
+               for i in range(8)]
+    args, pools, ids = prologue_operands(8, gen, dev, targets)
+    kw = dict(n_q=512, head_dim=64, rope_theta=10000.0, kv_bits=8,
+              act_bits=4, packed=True)
+    got = [t.clone() for t in pools]
+    q5 = L.decode_qkv_prologue(*args, *got, *ids, **kw)[0]
+    y = F.fused_cat_gemv_w4(*args, act_bits=4).to(torch.bfloat16)
+    y40 = F.fused_cat_matmul_w4(
+        torch.cat([args[0], args[0][:1].expand(32, -1)]), *args[1:],
+        act_bits=4)[:8].to(torch.bfloat16)
+    pos = ids[2][:, None]
+    q = rope(y[:, :512].reshape(8, 1, 8, 64), pos, 10000.0)
+    k = rope(y[:, 512:768].reshape(8, 1, 4, 64), pos, 10000.0)
+    kq, ks = quantize_kv(k, 8)
+    vq, vs = quantize_kv(y[:, 768:].reshape(8, 1, 4, 64), 8)
+    sel = (ids[0].long(), ids[1].long())
+    rec["row5_vs_rows_1_2_output"] = _compare(y, y40)
+    rec["row5_q_vs_composed"] = _compare(q5, q.reshape(8, 512).float())
+    rec["row5_k_codes_vs_composed"] = _compare(got[0][sel], kq[:, 0])
+    rec["row5_k_scales_vs_composed"] = _compare(got[1][sel], ks[:, 0])
+    rec["row5_v_codes_vs_composed"] = _compare(got[2][sel], vq[:, 0])
+    rec["row5_v_scales_vs_composed"] = _compare(got[3][sel], vs[:, 0])
+    rec["ok"] = all(v["bitwise"] for v in rec.values())
+    return rec
+
+
+def model_identity(model, params, gen, dev) -> dict:
+    """The whole served model (full width, CAT W4A4, bf16, int8 pages of
+    16) on the same rows in three step shapes, against the pure-decode
+    step (``model.decode`` with the two-launch decode, 8 rows): a unified
+    step of 8 one-row decode items; the same beside a 40-row prefill
+    chunk; and 8 verify items of 5 rows against five successive decode
+    steps. Every row's logits and the pools after the step, held
+    bitwise. The pools start with random codes and scales, the table 8
+    pages a sequence."""
+    import numpy as np
+    import torch
+
+    sp = model.make_serving_params(params)
+    cfg = model.cfg
+    n_ptab, ps = 8, 16
+    pools = model.init_paged_cache(1 + 9 * n_ptab, ps, dev)
+    for k, v in pools.items():
+        if v.dtype == torch.int8:
+            v.copy_(torch.randint(-127, 128, v.shape, generator=gen,
+                                  dtype=torch.int8))
+        else:
+            v.copy_(torch.rand(v.shape, generator=gen) * 0.02 + 0.001)
+    table = (1 + torch.arange(9 * n_ptab, dtype=torch.int32)
+             ).reshape(9, n_ptab)
+    host_table = table.numpy()
+    table = table.to(dev)
+    first = np.asarray([9, 17, 24, 31, 40, 47, 53, 56], np.int32)
+    toks = torch.randint(0, cfg.vocab, (8, 5), generator=gen,
+                         dtype=torch.int32)
+
+    def fresh():
+        return {k: v.clone() for k, v in pools.items()}
+
+    def decode(cache, j):
+        c = dict(cache, pos=torch.as_tensor(first + j).to(dev),
+                 page_table=table[:8])
+        logits, c = model.decode(sp, toks[:, j:j + 1].to(dev), c,
+                                 paged_kernel=True)
+        return logits[:, 0], {k: v for k, v in c.items()
+                              if k not in ("pos", "page_table")}
+
+    def ragged(cache, items):
+        packed, desc = step_arrays(items, 40)
+        c = dict(cache, pos=torch.as_tensor(packed["pos"]).to(dev),
+                 page_table=torch.as_tensor(packed["page_table"]).to(dev))
+        logits, c = model.ragged_step(
+            sp, torch.as_tensor(packed["tokens"]).to(dev), c,
+            torch.as_tensor(packed["logit_rows"]).to(dev),
+            paged_kernel=True, ragged_desc=routed_desc(packed, desc, dev))
+        return logits[:, 0], {k: v for k, v in c.items()
+                              if k not in ("pos", "page_table")}
+
+    def same(a, b):
+        diff = [k for k in a if not torch.equal(a[k], b[k])]
+        return diff
+
+    out = {"layers": cfg.n_layers}
+    with torch.no_grad():
+        want, want_pools = decode(fresh(), 0)
+        ones = [(host_table[i], int(first[i]), [int(toks[i, 0])], "all")
+                for i in range(8)]
+        got, got_pools = ragged(fresh(), ones)
+        out["one_row_items"] = {"bitwise": torch_equal(got, want),
+                                "pools_differ": same(got_pools,
+                                                     want_pools)}
+        prefill = (host_table[8], 0, [int(t) for t in torch.randint(
+            0, cfg.vocab, (40,), generator=gen)], "last")
+        got, got_pools = ragged(fresh(), ones + [prefill])
+        # the prefill writes its own pages: compare the 8 rows' pages
+        keep = table[:8].reshape(-1).long()
+        out["beside_prefill"] = {
+            "bitwise": torch_equal(got[:8], want),
+            "pools_differ": [k for k in want_pools if not torch.equal(
+                got_pools[k][:, keep], want_pools[k][:, keep])]}
+        cache = fresh()
+        steps = []
+        for j in range(5):
+            logits, cache = decode(cache, j)
+            steps.append(logits)
+        want5 = torch.stack(steps, 1).reshape(40, -1)
+        verify = [(host_table[i], int(first[i]),
+                   [int(t) for t in toks[i]], "all") for i in range(8)]
+        got, got_pools = ragged(fresh(), verify)
+        out["verify_items"] = {"bitwise": torch_equal(got, want5),
+                               "pools_differ": same(got_pools, cache)}
+    out["ok"] = all(v["bitwise"] and not v["pools_differ"]
+                    for k, v in out.items() if isinstance(v, dict))
+    return out
+
+
+def batch_shape_probe(model, params, gen, dev) -> dict:
+    """A query row's bits may not depend on the step shape that carried
+    it: ``attention_identity``, ``layer_identity`` and
+    ``model_identity``, each held (its ``ok``)."""
+    out = {"attention": attention_identity(gen, dev),
+           "layers": layer_identity(gen, dev),
+           "model": model_identity(model, params, gen, dev)}
+    out["ok"] = all(v["ok"] for v in out.values())
+    return out
 
 
 PREFIX_KEYS = ("prefix_lookups", "prefix_hits", "prefix_hit_tokens",
@@ -2362,11 +2618,10 @@ def prefix_spec_phase(model, params, counters, card):
     predict >= 0.9 of them; (e) and (e') hit and split a page copy-on-write
     in their counted pass and, drained, hold only the trie's pages; (f)'s
     counted pass launches the tiled linear and the ragged attention (40
-    verify rows a step) and both pools drain. Reported, not held: the
-    share of tokens equal to the yardstick's and the first differing step
-    (the verify rows and the suffix prefill take other kernel shapes than
-    the yardstick's decode, so the card's results may differ by an ulp
-    where the reference's identity is exact)."""
+    verify rows a step) and both pools drain; every served token equals
+    its yardstick's ((e) and (e') the cache-off run's, (f) and (f') (b)'s:
+    share 1.000, the reference's identities), and ``batch_shape_probe``
+    holds a row's bits across step shapes."""
     import os
 
     import torch
@@ -2435,10 +2690,22 @@ def prefix_spec_phase(model, params, counters, card):
                                                       served[yard])
         out[name] = rec
         print(f"prefix/spec ({name}) {card}: " + json.dumps(rec))
-    out["batch_shape_probe"] = batch_shape_probe(
-        torch.Generator().manual_seed(1), torch.device("cuda"))
-    print(f"prefix/spec {card}: the same rows through the kernels of two "
-          f"step shapes " + json.dumps(out["batch_shape_probe"]))
+    probe = batch_shape_probe(model, params,
+                              torch.Generator().manual_seed(1),
+                              torch.device("cuda"))
+    out["batch_shape_probe"] = probe
+    for part in ("attention", "layers", "model"):
+        print(f"batch-shape probe ({part}): " + json.dumps(probe[part]))
+    if not probe["ok"]:
+        fail("batch-shape probe: a row's bits depend on the step shape "
+             "that carried it")
+    for name, yard in (("e", "e_off"), ("e_legacy", "e_legacy_off"),
+                       ("f", "b"), ("f_adaptive", "b")):
+        share = out[name]["tokens_equal_" + yard]
+        if share["share"] != 1.0:
+            fail(f"prefix/spec ({name}): tokens equal to ({yard})'s on "
+                 f"{share['share']} of positions, not 1.000: "
+                 f"{json.dumps(share)}")
     for fn_name in ("fused_cat_matmul_w4", "paged_attention_ragged"):
         if out["f"]["launches"][fn_name] <= 0:
             fail(f"prefix/spec (f): kernel {fn_name} never launched in its "
@@ -2452,6 +2719,128 @@ def prefix_spec_phase(model, params, counters, card):
         if agree < 0.9:
             fail(f"prefix/spec ({name}) teacher-forced agreement with the "
                  f"reference routes {agree} < 0.9")
+    return out
+
+
+def train_phase(counters, card) -> dict:
+    """Training on the card: full-width catlm-60m (``configs/catlm_60m.py``,
+    f32 params, bf16 compute), batch 8 x 128 tokens of ``make_batch(0,
+    step)``, ``benchmarks/common.py``'s recipe (``AdamW(warmup_cosine(1e-3,
+    10, 120))``, 120 steps; it is ``launch.train``'s default at
+    ``lr=1e-3``). Held: every loss finite and the mean of the last 10 below
+    that of the first 10; a save and restore of the trained params and
+    optimizer state bitwise; ``launch.train.train`` with a checkpoint every
+    50 steps and a failure injected at step 60 resumes from step 50 and
+    ends bitwise equal to the uninterrupted run (losses and final
+    checkpoint: the data are a function of (seed, step) and every gradient
+    sum has a fixed order); the trained model, CAT-W4A4 RTN-quantized on
+    the card, served through (b)'s engine on (b)'s requests with the
+    teacher-forced agreement of the reference routes >= 0.9. Reported: ms
+    per train step (CUDA events, the median after 5 steps) and tokens per
+    second, beside the card."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch import checkpoint as ck
+    from repro_torch.configs import get_config
+    from repro_torch.core.pipeline import QuantizeConfig, quantize_model
+    from repro_torch.data import calibration_batches, request_workload
+    from repro_torch.launch import train as T
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.models import build
+    from repro_torch.optim.optimizer import AdamW, tree_leaves, warmup_cosine
+    steps, batch, seq, lr = 120, 8, 128, 1e-3
+    cfg = get_config("catlm_60m")
+    model = build(cfg)
+    work = ROOT / "build" / "train_phase"
+    shutil.rmtree(work, ignore_errors=True)
+    params = model.init(torch.Generator().manual_seed(0), "cuda")
+    opt = AdamW(lr=warmup_cosine(lr, 10, steps))
+    state = opt.init(params)
+    step_fn = T.make_train_step(model, opt)
+    losses, ms = [], []
+    t0 = time.perf_counter()
+    for step in range(steps):
+        b = T.device_batch(cfg, seq, batch, 0, step, "cuda")
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, state, m = step_fn(params, state, b)
+        e1.record()
+        losses.append(float(m["loss"]))
+        ms.append(e0.elapsed_time(e1))
+    wall_s = time.perf_counter() - t0
+    first10, last10 = float(np.mean(losses[:10])), float(np.mean(losses[-10:]))
+    ms_step = float(np.median(ms[5:]))
+    out = {"config": "catlm-60m full width, batch 8 x 128, AdamW "
+           "warmup_cosine(1e-3, 10, 120)", "steps": steps, "wall_s": wall_s,
+           "ms_per_step": ms_step,
+           "train_tok_per_s": batch * seq / (ms_step / 1e3),
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "loss_first10": first10, "loss_last10": last10, "card": card}
+    print(f"train {card}: " + json.dumps(out))
+    if not all(np.isfinite(losses)) or not last10 < first10:
+        fail(f"train: losses not finite or not falling: {losses}")
+    ck.save(str(work / "saved"), steps, params, state)
+    back = ck.restore(str(work / "saved"), None, params, state,
+                      device="cuda")
+    pairs = list(zip(tree_leaves([params, state]),
+                     tree_leaves([back["params"], back["opt_state"]])))
+    out["save_restore_bitwise"] = all(
+        a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+    if not out["save_restore_bitwise"] or back["step"] != steps:
+        fail("train: a save and restore of the trained params and "
+             "optimizer state is not bitwise")
+    kw = dict(steps=steps, batch=batch, seq=seq, lr=lr, ckpt_every=50,
+              smoke=False, device="cuda", log_every=0)
+    _, whole = T.train(ckpt_dir=str(work / "whole"), **kw)
+    _, resumed = T.train(ckpt_dir=str(work / "resumed"), fail_at=(60,), **kw)
+    ends = [ck.restore(str(work / d), None, params, state, device="cuda")
+            for d in ("whole", "resumed")]
+    same_end = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves([ends[0]["params"], ends[0]["opt_state"]]),
+        tree_leaves([ends[1]["params"], ends[1]["opt_state"]])))
+    out["resume"] = {
+        "fail_at": 60, "resumed_from": 50,
+        "losses_bitwise": resumed[:60] == whole[:60]
+        and resumed[60:] == whole[50:],
+        "final_checkpoint_bitwise": same_end,
+        "train_equals_the_timed_loop": whole == losses}
+    print(f"train (resumed) {card}: " + json.dumps(out["resume"]))
+    if not (out["resume"]["losses_bitwise"] and same_end
+            and len(resumed) == 130):
+        fail(f"train: the resumed run differs from the uninterrupted one: "
+             f"{json.dumps(out['resume'])}")
+    scfg = cfg.scaled(kv_quant_bits=8)
+    smodel = build(scfg)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        qparams = quantize_model(
+            smodel, params, QuantizeConfig(w_bits=4, a_bits=4,
+                                           transform="cat", cat_block=32),
+            calibration_batches(scfg, n_seqs=8, seq_len=64, batch=4))
+    torch.cuda.synchronize()
+    reqs = request_workload(scfg, 8, gen=32, seed=0)
+    max_len = max(len(r["tokens"]) for r in reqs) + 32 + 8
+    engine = ServeEngine(smodel, qparams, n_slots=8, max_len=max_len,
+                         schedule="unified", max_batch_tokens=128,
+                         page_size=16, paged_kernel=True, device="cuda")
+    res, launches, summ, passes = served_passes(engine, reqs, counters)
+    check_well_formed("train (served)", reqs, res, scfg.vocab)
+    agree = teacher_forced_reference(smodel, qparams, reqs, res)
+    out["served"] = {"ptq_s": time.perf_counter() - t0,
+                     "launches": launches, "passes": passes,
+                     "reference_agreement_teacher_forced": agree,
+                     "card": card}
+    print(f"train (served b, trained CAT W4A4) {card}: "
+          + json.dumps(out["served"]))
+    if agree < 0.9:
+        fail(f"train: the trained CAT-W4A4 model's teacher-forced "
+             f"agreement with the reference routes {agree} < 0.9")
+    shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -2796,6 +3185,7 @@ def main() -> None:
     serving["legacy"] = legacy_phase(model, params, counters, card)
     serving["prefix_spec"] = prefix_spec_phase(model, params, counters,
                                                card)
+    serving["train"] = train_phase(counters, card)
     composed_counters = [QW.quant_matmul_w4, QW.quant_gemv_w4,
                          QM.quant_matmul, DQ.dynamic_quant,
                          H.hadamard_transform, B.block_diag_matmul]

@@ -7,9 +7,13 @@ classes (Identity, Scale, Dense, Hadamard, BlockDiag, Compose) are
 recognised by class name and attributes — so this module imports neither
 ``jax`` nor the reference package. The reference stacks layers on a
 leading axis (``params["layers"]`` leaves are (L, ...)); the port keeps a
-list of per-layer dicts, so that subtree is split by layer.
+list of per-layer dicts, so that subtree is split by layer
+(``split_layers``); ``stack_layers`` is the inverse, for writing the
+reference's layout (``checkpoint``).
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -74,12 +78,53 @@ def _layer(node, i):
     return node
 
 
-def from_reference(tree, device="cpu"):
-    """The port's params for the reference's params ``tree``."""
-    out = _convert(tree, device)
-    layers = out.get("layers") if isinstance(out, dict) else None
+def split_layers(tree):
+    """Every ``"layers"`` dict of stacked (L, ...) leaves in ``tree`` (a
+    params tree, or an optimizer state of such trees) -> a list of L
+    per-layer dicts (views of the stacked leaves)."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: split_layers(v) for k, v in tree.items()}
+    layers = out.get("layers")
     if isinstance(layers, dict):
         n_layers = next(v.shape[0] for v in layers.values()
                         if isinstance(v, torch.Tensor))
         out["layers"] = [_layer(layers, i) for i in range(n_layers)]
     return out
+
+
+def _stack(nodes, fn):
+    first = nodes[0]
+    if isinstance(first, torch.Tensor):
+        return fn(nodes)
+    if isinstance(first, dict):
+        return {k: _stack([n[k] for n in nodes], fn) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_stack([n[i] for n in nodes], fn)
+                           for i in range(len(first)))
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: _stack([getattr(n, f.name) for n in nodes], fn)
+            for f in dataclasses.fields(first)
+            if isinstance(getattr(first, f.name),
+                          (torch.Tensor, tuple, list))
+            or dataclasses.is_dataclass(getattr(first, f.name))})
+    return first     # None and metadata: the first layer's
+
+
+def stack_layers(tree):
+    """The inverse of ``split_layers``: every ``"layers"`` list of
+    per-layer dicts -> one dict of (L, ...) leaves, the reference's
+    layout."""
+    if not isinstance(tree, dict):
+        return tree
+    out = {k: stack_layers(v) for k, v in tree.items()}
+    layers = out.get("layers")
+    if isinstance(layers, list) and layers:
+        out["layers"] = _stack(layers, torch.stack)
+    return out
+
+
+def from_reference(tree, device="cpu"):
+    """The port's params for the reference's params ``tree``."""
+    return split_layers(_convert(tree, device))

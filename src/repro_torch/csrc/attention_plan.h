@@ -29,7 +29,6 @@ constexpr int kChunk = 128;       // key positions per chunk, one per thread
 constexpr int kMaxG = 8;          // query rows of a KV head per CTA
 constexpr int kMaxSplit = 8;      // portable cluster size
 constexpr int kMinUnits = 1;      // fewest split units per split of a prefix
-constexpr int kCtasPerSm = 2;     // CTAs per SM the plan's split aims at
 constexpr int kStaticSmem = 1024; // bound on the kernel's static shared memory
 constexpr int kRaggedRows = 64;   // ragged: query rows per CTA, 16 per warp
 constexpr int kRaggedChunk = 64;  // ragged: key positions per chunk
@@ -104,9 +103,12 @@ struct DecodePlan {
 // per item (which bound its prefix), on a card of `sms` SMs whose CTAs may
 // opt into `smem_optin` bytes of shared memory. `split` 0 takes the plan's
 // own: the largest power of two up to kMaxSplit that leaves each split at
-// least kMinUnits units of the longest prefix the table holds and at most
-// kCtasPerSm CTAs per SM; so a short prefix takes one split. -> false for
-// a shape the kernel does not take.
+// least kMinUnits units of the longest prefix the table holds; so a short
+// prefix takes one split. The split depends on the table's width only,
+// never on b or the card: it sets the order in which a row's partial
+// softmax states combine, so an engine's rows (every launch of which
+// passes the same table width) get the same bits whatever the batch
+// that carries them. -> false for a shape the kernel does not take.
 PA_HD inline bool decode_plan(int b, int kvh, int g, int hd, int page_size,
                               int n_ptab, int sms, int smem_optin, int split,
                               DecodePlan* p) {
@@ -119,8 +121,7 @@ PA_HD inline bool decode_plan(int b, int kvh, int g, int hd, int page_size,
     const int u = split_unit(page_size);
     const long long units = ((long long)n_ptab * page_size + u - 1) / u;
     split = 1;
-    while (split * 2 <= kMaxSplit && units >= (long long)kMinUnits * split * 2
-           && (long long)base * split * 2 <= (long long)kCtasPerSm * sms)
+    while (split * 2 <= kMaxSplit && units >= (long long)kMinUnits * split * 2)
       split *= 2;
   }
   if (split < 1 || split > kMaxSplit) return false;

@@ -8,7 +8,8 @@
 // sx*sw*(acc - zx*colsum) -> RoPE on the q and k heads at per-row
 // positions -> symmetric int8 quant of k and v per (row, KV head) ->
 // scatter of codes and scales into row row_ids[r] of page page_ids[r] of
-// the layer's pools, in place. q comes back rope'd in f32.
+// the layer's pools, in place. q comes back rope'd in f32 (bf16 values
+// for bf16 rows).
 //
 // Design for this card: one CTA per head (n_q/hd q heads, then the k and v
 // heads: 16 CTAs at catlm-60m's full width), in thread-block clusters of
@@ -33,12 +34,26 @@
 // the plain version's roundings: __fmul_rn/__fsub_rn/__fadd_rn where torch
 // rounds every op (no FMA contraction), rintf (round half to even), IEEE
 // division, and cosf/sinf of angles computed from the wrapper's own torch
-// ``freq`` vector.
+// ``freq`` vector. For bf16 rows it also rounds where the composed path
+// (the fused linear, then RoPE and the KV quant in torch) rounds: the
+// linear's outputs to bf16, and the rope'd q and k to bf16 again, so a
+// decode row's q, codes and scales do not depend on which path served it.
+#include <type_traits>
+
 #include "cluster_tq.cuh"
 
 namespace {
 
 constexpr int kMaxRows = ctq::kMaxRows;   // decode rows per launch
+
+// v rounded to T (round to nearest even, as torch's .to(bfloat16)).
+template <typename T>
+__device__ __forceinline__ float in_dtype(float v) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return __bfloat162float(__float2bfloat16_rn(v));
+  else
+    return v;
+}
 
 // grid (n_heads_total), clusters of c, ctq::kThreads threads; CTA
 // blockIdx.x owns head blockIdx.x. Dynamic shared memory: the plan's
@@ -116,8 +131,8 @@ __global__ void __launch_bounds__(ctq::kThreads) decode_qkv_prologue_kernel(
       lay.pitch, hd, m, s_part, s_pcs);
   for (int t = tid; t < m * hd; t += nt) {
     const int r = t / hd, j = t - r * hd;
-    s_out[t] = contract::epilogue(s_sx[r], s_sw[j], s_part[t], s_zx[r],
-                                  s_pcs[j]);
+    s_out[t] = in_dtype<T>(contract::epilogue(s_sx[r], s_sw[j], s_part[t],
+                                              s_zx[r], s_pcs[j]));
   }
   __syncthreads();
 
@@ -132,8 +147,10 @@ __global__ void __launch_bounds__(ctq::kThreads) decode_qkv_prologue_kernel(
       const float ang = __fmul_rn((float)positions[r], freq[i]);
       const float cv = cosf(ang), sv = sinf(ang);
       const float x1 = s_out[r * hd + i], x2 = s_out[r * hd + i + half];
-      s_out[r * hd + i] = __fsub_rn(__fmul_rn(x1, cv), __fmul_rn(x2, sv));
-      s_out[r * hd + i + half] = __fadd_rn(__fmul_rn(x2, cv), __fmul_rn(x1, sv));
+      s_out[r * hd + i] =
+          in_dtype<T>(__fsub_rn(__fmul_rn(x1, cv), __fmul_rn(x2, sv)));
+      s_out[r * hd + i + half] =
+          in_dtype<T>(__fadd_rn(__fmul_rn(x2, cv), __fmul_rn(x1, sv)));
     }
     __syncthreads();
   }

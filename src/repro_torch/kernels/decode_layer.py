@@ -68,15 +68,17 @@ def decode_qkv_prologue_plain(x, blocks, ha, hb, sign, qw, sw, k_pool,
                               positions, *, n_q: int, head_dim: int,
                               rope_theta: float, kv_bits: int = 8,
                               act_bits: int = 8, packed: bool = True):
-    """Plain PyTorch version (the reference oracle's op order)."""
+    """Plain PyTorch version (the reference oracle's op order). bf16 rows
+    round where the composed path does (the linear's outputs, then the
+    rope'd q and k), so q, codes and scales equal that path's."""
     m = x.shape[0]
     n_kv = (qw.shape[1] - n_q) // 2
     kvh = n_kv // head_dim
     y = fused_cat_linear_plain(x, blocks, ha, hb, sign, qw, sw,
-                               act_bits=act_bits, packed=packed)
+                               act_bits=act_bits, packed=packed).to(x.dtype)
     pos = positions.to(torch.int32)[:, None]
     q = rope(y[:, :n_q].reshape(m, 1, n_q // head_dim, head_dim), pos,
-             rope_theta).reshape(m, n_q)
+             rope_theta).reshape(m, n_q).to(torch.float32)
     k = rope(y[:, n_q:n_q + n_kv].reshape(m, 1, kvh, head_dim), pos,
              rope_theta).reshape(m, kvh, head_dim)
     v = y[:, n_q + n_kv:].reshape(m, kvh, head_dim)

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import os
 
+import torch
+
 from repro_torch.core import transforms as T
 
 from .block_matmul import block_diag_matmul as block_matmul
@@ -135,3 +137,35 @@ def ragged_paged_attention(q, k_pages, k_scale, v_pages, v_scale,
                                                lengths, q_pos)
     return paged_attention_ragged(q, k_pages, k_scale, v_pages, v_scale,
                                   page_table, lengths, q_pos)
+
+
+def step_paged_attention(q, k_pages, k_scale, v_pages, v_scale, desc):
+    """A unified step's attention over its T packed rows on int8 pools:
+    q (T, KVH, g, hd) -> (T, KVH, g, hd) in q's dtype.
+
+    ``desc`` is the scheduler's ragged descriptor (``qidx``, ``qpos``,
+    ``lengths``, ``table``, ``inv_seq``, ``inv_qi``) with the executor's
+    routing (``launch.executor.route_rows``): ``dec_rows``, ``dec_table``
+    and ``dec_len`` (the first ``n_dec`` real) name the rows whose logits
+    the step reads — decode rows, every row of a verify item and a
+    completing prefill chunk's last row — and those attend through the
+    decode kernel, one query row per item at its own length, as a
+    pure-decode step's rows do; so a query row's bits do not depend on the
+    step shape that carried it. The rest (``n_ragged`` valid rows left in
+    ``qpos``) attend through the ragged kernel in per-item blocks."""
+    if desc["n_ragged"]:
+        ob = ragged_paged_attention(
+            q[desc["qidx"].long()], k_pages, k_scale, v_pages, v_scale,
+            desc["table"], desc["lengths"].to(torch.int32),
+            desc["qpos"].to(torch.int32))
+        out = ob[desc["inv_seq"].long(), desc["inv_qi"].long()]
+    else:
+        out = torch.zeros_like(q)
+    n = desc["n_dec"]
+    if n:
+        rows = desc["dec_rows"][:n].long()
+        od = paged_attention(q[rows], k_pages, k_scale, v_pages, v_scale,
+                             desc["dec_table"][:n],
+                             desc["dec_len"][:n].to(torch.int32))
+        out = out.index_copy(0, rows, od)
+    return out

@@ -9,9 +9,11 @@ The CUDA source is ``src/repro_torch/csrc/paged_attention.cu``.
   16-byte ``cp.async`` into a two-stage ring; each thread scores one
   position for every query row, the chunk's max and sum come by warp
   shuffles, and threads owning (row, dd) outputs sum the chunk's P·V.
-  Where the table allows long prefixes and the card would sit idle, a
-  thread-block cluster of CTAs splits the item's positions and rank 0
-  combines their partial softmax states in rank order. The split rule
+  Where the table allows long prefixes, a thread-block cluster of CTAs
+  splits the item's positions and rank 0 combines their partial softmax
+  states in rank order; the number of splits hangs on the table's width
+  alone, never on the batch, so a row's bits do not depend on the rows
+  launched beside it. The split rule
   and the shared-memory layout are the CUDA source's
   (``csrc/attention_plan.h``; ``decode_plan`` and ``split_range`` read
   them). Every sum has a fixed order, so equal inputs give equal bits.
@@ -51,7 +53,9 @@ Each wrapper launches its kernel for CUDA tensors (counted in
 ``<wrapper>.launches``), takes its plain PyTorch version only for CPU
 tensors and raises for any other device. The plain versions walk the
 page table page by page with an online softmax, in the reference
-kernels' op order; the decode kernel rescales per warp's 32 positions of
+kernels' op order, each dot written out as products and a sum (a GEMM's
+summation order would hang on the batch's shape), so a row's result is
+the same at one row per item (decode) as inside any ragged item; the decode kernel rescales per warp's 32 positions of
 a chunk and combines warps and splits at the end, and the ragged kernel
 per 64-position chunk on the tensor cores, combining its two warp
 groups at the end: the same sums in another order. The gather fallbacks (``*_fallback``) are the reference's jnp paths
@@ -259,7 +263,12 @@ def paged_attention_ragged_plain(q, k_pages, k_scale, v_pages, v_scale,
         page = page_table[:, i].long()
         k = k_pages[page].to(torch.float32) * k_scale[page]   # (R, G, KVH, hd)
         v = v_pages[page].to(torch.float32) * v_scale[page]
-        s = torch.einsum("bqkgd,bGkd->bqkgG", qf, k)
+        # products and sums written out, not einsum: a GEMM's summation
+        # order hangs on its shape, and a row's bits may not hang on the
+        # rows beside it (``paged_attention_decode_plain`` is this at one
+        # row per item)
+        kt = k.permute(0, 2, 1, 3)[:, None, :, None]   # (R, 1, KVH, 1, G, hd)
+        s = (qf[..., None, :] * kt).sum(-1)
         kv_pos = i * ps + rows
         mask = ((kv_pos[None, None, :] <= q_pos[:, :, None])
                 & (kv_pos[None, None, :] < lengths[:, None, None])
@@ -271,7 +280,8 @@ def paged_attention_ragged_plain(q, k_pages, k_scale, v_pages, v_scale,
         corr = torch.exp(m - m_new)
         m = m_new
         l = l * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.einsum("bqkgG,bGkd->bqkgd", p, v)
+        vt = v.permute(0, 2, 1, 3)[:, None, :, None]   # (R, 1, KVH, 1, G, hd)
+        acc = acc * corr[..., None] + (p[..., None] * vt).sum(-2)
     return (acc / torch.clamp_min(l, 1e-30)[..., None]).to(q.dtype)
 
 

@@ -424,6 +424,11 @@ class ServeEngine:
                     ok = self.prefix.make_room(self.tables, budget_tokens,
                                                hit_tokens=hit,
                                                protect=pages)
+                    if not ok and not self._active:
+                        # nothing live will free a page: shorten the hit
+                        # rather than wait forever (the reference stalls)
+                        hit, pages, ok = self.prefix.shorter_hit(
+                            self.tables, budget_tokens, hit, pages)
                 else:
                     ok = self.tables.can_admit(budget_tokens)
                 if not ok:

@@ -49,6 +49,31 @@ def _inject_prev(tokens, prev_toks, tok_src):
     return torch.where(tok_src[:, None] >= 0, fetched[:, None], tokens)
 
 
+def route_rows(packed: dict, desc: dict) -> dict:
+    """The routing ``ops.step_paged_attention`` reads, added to a packed
+    step's ragged descriptor (host arrays): the step's logit rows (decode
+    rows, verify rows, a completing chunk's last row) as one-row decode
+    items at their own positions — ``dec_rows``, ``dec_table`` and
+    ``dec_len`` at the logit buffer's fixed width, the first ``n_dec``
+    real — masked out of the ragged blocks (``qpos`` -1), and
+    ``n_ragged``, the rows left to the ragged kernel."""
+    n = int(packed["n_logits"])
+    width = packed["logit_rows"].shape[0]
+    rows = packed["logit_rows"][:n]
+    ptab = packed["page_table"]
+    dec_rows = np.zeros((width,), np.int32)
+    dec_len = np.zeros((width,), np.int32)
+    dec_table = np.zeros((width, ptab.shape[1]), np.int32)
+    dec_rows[:n] = rows
+    dec_len[:n] = packed["pos"][rows] + 1
+    dec_table[:n] = ptab[rows]
+    qpos = desc["qpos"].copy()
+    qpos[desc["inv_seq"][rows], desc["inv_qi"][rows]] = -1
+    return dict(desc, qpos=qpos, dec_rows=dec_rows, dec_len=dec_len,
+                dec_table=dec_table, n_dec=n,
+                n_ragged=int((qpos >= 0).sum()))
+
+
 class TokenFetch:
     """One step's greedy token ids on their way to the host: ``result()``
     waits for the copy and returns them as numpy."""
@@ -260,7 +285,10 @@ class RaggedExecutor(_CopyPagesMixin):
                               self._dev("tok_src", packed["tok_src"]))
         desc = packed.get("ragged_desc")
         if desc is not None:
-            desc = {k: self._dev(f"desc.{k}", v) for k, v in desc.items()}
+            desc = route_rows(packed, desc)
+            desc = {k: (self._dev(f"desc.{k}", v)
+                        if isinstance(v, np.ndarray) else v)
+                    for k, v in desc.items()}
         cache = dict(self.cache, pos=self._dev("pos", packed["pos"]),
                      page_table=self._dev("page_table",
                                           packed["page_table"]))

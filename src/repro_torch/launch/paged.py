@@ -547,6 +547,25 @@ class PrefixCache:
         self.evict(need, protect=frozenset(protect))
         return tables.can_admit(budget_tokens, hit_tokens=hit_tokens)
 
+    def shorter_hit(self, tables: SlotPageTables, budget_tokens: int,
+                    hit_tokens: int, pages) -> Tuple[int, List[int], bool]:
+        """Admission fallback for when ``make_room`` fails while no slot
+        is live: no page will ever be freed, and the pages the hit
+        protects may be the very ones the reservation needs (a full page
+        and a partial one in a pool of four, with three to reserve), so
+        waiting would livelock. Retry with a shorter hit — first without
+        the partial page, then with none — and return the first that
+        fits: (hit_tokens, pages, ok)."""
+        full = hit_tokens // self.page_size
+        tries = [(0, [])]
+        if 0 < full * self.page_size < hit_tokens:
+            tries.insert(0, (full * self.page_size, list(pages[:full])))
+        for hit, run in tries:
+            if self.make_room(tables, budget_tokens, hit_tokens=hit,
+                              protect=run):
+                return hit, run, True
+        return hit_tokens, list(pages), False
+
     def clear(self) -> int:
         """Drop every cached page (engine teardown / tests): each node's
         pool ref is returned, so a drained engine's pool goes back to

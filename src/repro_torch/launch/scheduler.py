@@ -367,6 +367,11 @@ class TokenBudgetScheduler:
                 hit, pages = self.prefix.lookup(head.prompt)
                 ok = self.prefix.make_room(self.tables, budget_tokens,
                                            hit_tokens=hit, protect=pages)
+                if not ok and not self.active:
+                    # nothing live will free a page: shorten the hit
+                    # rather than wait forever (the reference stalls)
+                    hit, pages, ok = self.prefix.shorter_hit(
+                        self.tables, budget_tokens, hit, pages)
             else:
                 ok = self.tables.can_admit(budget_tokens)
             if ok and self.spec_k:

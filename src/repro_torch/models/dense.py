@@ -9,10 +9,11 @@ page_size, KV, hd) tensors, updated in place); one without is a slot
 cache ((L, B, max_len, KV, hd), updated in place: ``init_cache``), whose
 batch row b is slot b. ``paged_kernel`` routes
 single-row attention on int8 pools through the paged-attention kernels:
-the ragged one when a ``ragged_desc`` is given, the decode one otherwise
-— and, where ``ops.use_fused_decode`` allows it, a pure-decode layer's
-attention block through the two-launch path (``decode_qkv_prologue`` +
-decode attention).
+with a ``ragged_desc``, ``ops.step_paged_attention`` (the rows whose
+logits the step reads through the decode kernel, the rest through the
+ragged one), the decode one otherwise — and, where
+``ops.use_fused_decode`` allows it, a pure-decode layer's attention block
+through the two-launch path (``decode_qkv_prologue`` + decode attention).
 """
 from __future__ import annotations
 
@@ -100,13 +101,10 @@ def _paged_attention(cfg, q, k, v, cache_sl, page_table, pos, s,
     kvh = ck.shape[2]
     qf = q.reshape(b, kvh, q.shape[2] // kvh, cfg.head_dim)
     if ragged_desc is not None:
-        # unified step: regroup the flat packed rows into per-work-item
-        # query blocks so each sequence's pages stream once
-        ob = ops.ragged_paged_attention(
-            qf[ragged_desc["qidx"].long()], ck, cks, cv, cvs,
-            ragged_desc["table"], ragged_desc["lengths"].to(torch.int32),
-            ragged_desc["qpos"].to(torch.int32))
-        o = ob[ragged_desc["inv_seq"].long(), ragged_desc["inv_qi"].long()]
+        # unified step: rows whose logits are read attend through the
+        # decode kernel (as a pure-decode step's rows do), the rest in
+        # per-work-item query blocks through the ragged kernel
+        o = ops.step_paged_attention(qf, ck, cks, cv, cvs, ragged_desc)
     else:
         if torch.is_tensor(pos) and pos.ndim:
             lengths = pos + 1
@@ -270,6 +268,35 @@ def _tap(taps, layer_idx, name, x):
         taps.record(f"layers.{layer_idx}.{name}", x)
 
 
+class _EmbedRows(torch.autograd.Function):
+    """``embed[tokens]`` whose gradient is deterministic on the card: the
+    gather's own backward adds rows into the table with atomics, in no
+    fixed order; here the table's gradient is one GEMM,
+    one_hot(tokens)ᵀ · grad, whose sums have a fixed order."""
+
+    @staticmethod
+    def forward(ctx, embed, tokens):
+        ctx.save_for_backward(tokens)
+        ctx.vocab = embed.shape[0]
+        return embed[tokens]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (tokens,) = ctx.saved_tensors
+        onehot = torch.nn.functional.one_hot(tokens.reshape(-1), ctx.vocab)
+        g = grad.reshape(-1, grad.shape[-1])
+        return onehot.to(g.dtype).T @ g, None
+
+
+def embed_rows(embed, tokens):
+    """The embedding rows of ``tokens`` (a deterministic gradient when
+    ``embed`` requires one)."""
+    tokens = tokens.long()
+    if embed.requires_grad and torch.is_grad_enabled():
+        return _EmbedRows.apply(embed, tokens)
+    return embed[tokens]
+
+
 def forward(cfg, params, tokens, *, cache=None, taps=None,
             paged_kernel: bool = False, ragged_desc=None):
     """-> (hidden (B, S, D), aux_loss, cache). ``tokens`` (B, S) int;
@@ -279,7 +306,7 @@ def forward(cfg, params, tokens, *, cache=None, taps=None,
     # a 0-dim host tensor enters a device op as a scalar: no copy, no sync
     scale = torch.tensor(math.sqrt(float(cfg.d_model)),
                          dtype=torch.float32).to(cd)
-    x = params["embed"][tokens.long()].to(cd) * scale
+    x = embed_rows(params["embed"], tokens).to(cd) * scale
     b, s, _ = x.shape
     pos = cache["pos"] if cache is not None else 0
     steps = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -313,11 +340,11 @@ def logits_fn(cfg, params, hidden):
     return hidden @ params["embed"].T.to(hidden.dtype)
 
 
-@torch.no_grad()
 def loss(cfg, params, batch, *, loss_chunk: int = 512):
-    """Chunked CE over the sequence (reference ``dense.loss``), forward
-    only: ``batch`` holds ``tokens`` and ``labels`` (B, S) tensors or
-    arrays. -> (total loss, {"ce", "aux"})."""
+    """Chunked CE over the sequence (reference ``dense.loss``), through
+    autograd: ``batch`` holds ``tokens`` and ``labels`` (B, S) tensors or
+    arrays. -> (total loss, {"ce", "aux"}). Callers that only evaluate
+    wrap it in ``torch.no_grad``."""
     from repro_torch.models.losses import chunked_ce
     device = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=device)

@@ -2,7 +2,7 @@
 
 The (B, S, V) logits tensor is never materialized: a loop over sequence
 chunks computes each chunk's logits and log-sum-exp and accumulates two
-f32 scalars. Forward only (the port has no trainer yet).
+f32 scalars, through autograd (the trainer differentiates it).
 """
 from __future__ import annotations
 

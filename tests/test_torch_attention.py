@@ -9,7 +9,8 @@ host's C++ compiler and read through the same Python functions as on the
 card (``paged_attention.decode_plan`` and ``split_range``): every key
 position, and so every page, of every item is owned by one split; a
 short prefix (what the table holds fits one unit) takes one split; long
-ones split up to 8 ways while the card has room. The wrapper passes the
+ones split up to 8 ways, by the table's width alone (never by the batch,
+so a row's bits do not depend on the rows beside it). The wrapper passes the
 card's SM count and the forced split and allocates only its output.
 
 The plain decode attention (the only path for CPU tensors, and what
@@ -96,17 +97,20 @@ def test_plan_takes_one_split_for_short_prefixes(plan_lib):
     """Serving dims (8 items of 4 KV heads, g 2, hd 64, page 16): the
     table's width sets the split. Up to one 128-position unit (the served
     tables hold 4 pages) one split; then one unit per split at least, up to
-    8, with at most two CTAs per SM; forced splits 1..8 taken, others
-    refused; shared memory within the card's 227 KiB at every hd and g."""
+    8, at any batch (the split orders a row's combine, so it may not hang
+    on the batch); forced splits 1..8 taken, others refused; shared memory
+    within the card's 227 KiB at every hd and g."""
     def plan(n_ptab, split=0, b=8, g=2, hd=64, ps=16):
         return P.decode_plan(b, 4, g, hd, ps, n_ptab, SMS, SMEM_OPTIN,
                              split, lib=plan_lib)
     assert [plan(n).split for n in (1, 4, 8, 10, 16, 32, 64, 128)] == [
         1, 1, 1, 2, 2, 4, 8, 8]
     assert plan(4).ctas == 32 and plan(128).ctas == 256
-    assert plan(128, b=64).split == 1           # 256 CTAs fill the card
-    assert plan(128, g=9) == P.DecodePlan(4, 8 * 4 * 2 * 4,     # two row
-                                          plan(128, 4, g=8).smem)  # groups
+    for b in (1, 5, 40, 64):                    # not by the batch
+        assert plan(10, b=b).split == 2 and plan(128, b=b).split == 8
+    assert plan(128, b=64).ctas == 64 * 4 * 8
+    assert plan(128, g=9) == P.DecodePlan(8, 8 * 4 * 2 * 8,     # two row
+                                          plan(128, 8, g=8).smem)  # groups
     for split in range(1, 9):
         assert plan(10, split).split == split
     for hd in (32, 64, 128):
