@@ -78,7 +78,14 @@ Phases (any failure exits non-zero before the final line):
              must not change a bit) (``check_ragged_edges``). Both
              attentions' library yardstick is
              ``scaled_dot_product_attention`` on K and V gathered and
-             dequantized outside the timed call.
+             dequantized outside the timed call; both also at
+             granite-34b's heads (1 KV head of 128, 48 query heads) and
+             mistral-nemo-12b's (8 of 128, 4 each). Rows 1, 2 and 5 at
+             every serving linear of the dense family's five configs
+             (``check_family_widths``: M 1..8, 37, 128, packed and int8,
+             the QKV heads for row 5; the streamed path where no cluster
+             fits), bitwise on f32 with their plans and one kernel per
+             call, mistral-nemo-12b's four linears timed.
 4. serving — full-width catlm-60m (8 layers, d 512, 8/4 heads, d_ff 1536,
              vocab 8192), seeded random init, CAT W4A4 int4-packed PTQ on
              the card, 8 mixed requests (32 new tokens each) through the
@@ -124,6 +131,28 @@ Phases (any failure exits non-zero before the final line):
              share of tokens equal to the yardstick's, and the same rows
              through rows 1 and 2, and rows 4 and 3 (the kernels the two
              step shapes pick), compared bit for bit.
+   Then training (``train_phase``): full-width catlm-60m, 120 AdamW
+             steps, a bitwise resume, the trained model served.
+   Then the dense family at full width and depth (``families_phase``):
+             seeded weights drawn, calibrated and CAT-W4A4-quantized one
+             layer at a time on the card, served through (b)'s engine:
+             (g) mistral-nemo-12b on (b)'s 8 requests, through all five
+             serving kernels at its widths; (h) gemma2-2b on them and a
+             4,160-token prompt past its 4096-token window (its attention
+             on the gathered path, rows 1 and 2 for its linears). Printed:
+             PTQ seconds, peak device memory, tok/s, TTFT, ITL, launches,
+             and against the reference routes (built one layer at a time)
+             the teacher-forced agreement, the reference's top-2 margins,
+             the served token's rank and gap, the share of served tokens
+             that repeat their input, and the reference's own response to
+             a one-ulp rounding of its input, layer by layer and at the
+             logits. Held: well-formed tokens, the rows launched,
+             pipelined == synchronous tokens, the served path within 1.5x
+             of that one-ulp response at every layer and at the logits
+             (full depth, and the first layer alone served through the
+             engine, whose served tokens are in the reference's top 5 at
+             >= 0.9 of positions); (h) also teacher-forced agreement >=
+             0.9.
 5. composed — ``ops.cat_transform_matmul`` (block-CAT -> Hadamard ->
              dynamic quant -> W4A8 GEMV / tiled or W8A8 contraction, four
              launches) on all 32 serving linears of the served CAT-W4A4
@@ -572,6 +601,15 @@ def time_decode_lengths(P, gen, dev) -> list:
     return recs
 
 
+# (KV heads, head_dim, query heads per KV head, page size) of the
+# attentions' edge grids, and the dense family's heads at page 16:
+# granite-34b (MQA: 1 KV head of 128 for 48 query heads) and
+# mistral-nemo-12b (8 of 128, 4 each)
+ATTENTION_EDGE_HEADS = ([(2, hd, g, ps) for hd in (32, 64, 128)
+                         for g in (1, 2, 4, 8) for ps in (8, 16, 32)]
+                        + [(1, 128, 48, 16), (8, 128, 4, 16)])
+
+
 def check_decode_edges(gen, dev):
     """The decode attention (row 4) at its edges, against the plain
     version on the valid rows (4 bf16 ulps of the scale for bf16 q, 1e-4
@@ -586,56 +624,55 @@ def check_decode_edges(gen, dev):
     from repro_torch.kernels import paged_attention as P
     recs = []
     case = 0
-    for hd in (32, 64, 128):
-        for g in (1, 2, 4, 8):
-            for ps in (8, 16, 32):
-                b = 1 + case % 8
-                case += 1
-                lens = [(0, 1, ps, ps + 1, 3 * ps + 5, 1, 2 * ps, 0)[
-                    (i + case) % 8] for i in range(b)]
-                items = [(1, ln) for ln in lens]
-                args, _ = attention_operands(items, 1, gen, dev, True,
-                                             kvh=2, g=g, hd=hd, ps=ps)
-                call = args[:7]
-                valid = args[6] > 0
-                poisoned = [t.clone() for t in call]
-                kp, ks, vp, vs = poisoned[1:5]
-                past = torch.zeros(kp.shape[:2], dtype=torch.bool)
-                past[0] = True                  # the null page
-                for i, ln in enumerate(lens):
-                    for j, page in enumerate(args[5][i].tolist()):
-                        if page:
-                            past[page, max(0, ln - j * ps):] = True
-                past = past.to(dev)
-                kp[past], vp[past], ks[past], vs[past] = 127, -127, 1e8, 1e8
-                for q in (args[0], args[0].float()):
-                    want = P.paged_attention_decode_plain(q, *call[1:])
-                    scale = want.float()[valid].abs().max().item() \
-                        if bool(valid.any()) else 0.0
-                    tol = (1.6e-2 if q.dtype == torch.bfloat16
-                           else 1e-4) * scale
-                    for split in (0, 4):
-                        got = P._launch_decode(q, *call[1:], split=split)
-                        err = ((got.float() - want.float()).abs()[valid]
-                               .max().item() if bool(valid.any()) else 0.0)
-                        rec = {"kernel": "paged_attention_decode", "b": b,
-                               "hd": hd, "g": g, "ps": ps, "lengths": lens,
-                               "dtype": str(q.dtype), "split": split,
-                               "max_err": err, "tol": tol,
-                               "zeros_at_len_0": bool(
-                                   (got[~valid] == 0).all()),
-                               "repeat_bitwise": bool(torch.equal(
-                                   got, P._launch_decode(q, *call[1:],
-                                                         split=split))),
-                               "poison_bitwise": bool(torch.equal(
-                                   got, P._launch_decode(q, *poisoned[1:],
-                                                         split=split)))}
-                        recs.append(rec)
-                        if not (err <= tol and rec["zeros_at_len_0"]
-                                and rec["repeat_bitwise"]
-                                and rec["poison_bitwise"]):
-                            fail(f"paged_attention_decode edge: "
-                                 f"{json.dumps(rec)}")
+    for kvh, hd, g, ps in ATTENTION_EDGE_HEADS:
+        b = 1 + case % 8
+        case += 1
+        lens = [(0, 1, ps, ps + 1, 3 * ps + 5, 1, 2 * ps, 0)[
+            (i + case) % 8] for i in range(b)]
+        items = [(1, ln) for ln in lens]
+        args, _ = attention_operands(items, 1, gen, dev, True,
+                                     kvh=kvh, g=g, hd=hd, ps=ps)
+        call = args[:7]
+        valid = args[6] > 0
+        poisoned = [t.clone() for t in call]
+        kp, ks, vp, vs = poisoned[1:5]
+        past = torch.zeros(kp.shape[:2], dtype=torch.bool)
+        past[0] = True                  # the null page
+        for i, ln in enumerate(lens):
+            for j, page in enumerate(args[5][i].tolist()):
+                if page:
+                    past[page, max(0, ln - j * ps):] = True
+        past = past.to(dev)
+        kp[past], vp[past], ks[past], vs[past] = 127, -127, 1e8, 1e8
+        for q in (args[0], args[0].float()):
+            want = P.paged_attention_decode_plain(q, *call[1:])
+            scale = want.float()[valid].abs().max().item() \
+                if bool(valid.any()) else 0.0
+            tol = (1.6e-2 if q.dtype == torch.bfloat16
+                   else 1e-4) * scale
+            for split in (0, 4):
+                got = P._launch_decode(q, *call[1:], split=split)
+                err = ((got.float() - want.float()).abs()[valid]
+                       .max().item() if bool(valid.any()) else 0.0)
+                rec = {"kernel": "paged_attention_decode", "b": b,
+                       "kvh": kvh, "hd": hd, "g": g, "ps": ps,
+                       "lengths": lens,
+                       "dtype": str(q.dtype), "split": split,
+                       "max_err": err, "tol": tol,
+                       "zeros_at_len_0": bool(
+                           (got[~valid] == 0).all()),
+                       "repeat_bitwise": bool(torch.equal(
+                           got, P._launch_decode(q, *call[1:],
+                                                 split=split))),
+                       "poison_bitwise": bool(torch.equal(
+                           got, P._launch_decode(q, *poisoned[1:],
+                                                 split=split)))}
+                recs.append(rec)
+                if not (err <= tol and rec["zeros_at_len_0"]
+                        and rec["repeat_bitwise"]
+                        and rec["poison_bitwise"]):
+                    fail(f"paged_attention_decode edge: "
+                         f"{json.dumps(rec)}")
     print("paged_attention_decode edges " + json.dumps(recs))
     return recs
 
@@ -668,54 +705,52 @@ def check_ragged_edges(gen, dev):
     from repro_torch.kernels import paged_attention as P
     recs = []
     case = 0
-    for hd in (32, 64, 128):
-        for g in (1, 2, 4, 8):
-            for ps in (8, 16, 32):
-                case += 1
-                pattern = [(1, ps), (ps + 2, ps + 2), (1, ps + 1), (0, 0),
-                           (5, 3 * ps + 5), (1, ps + 2), (2 * ps, 2 * ps + 3),
-                           (1, 1)]
-                b = 2 + case % 7
-                items = [pattern[(i + case) % 8] for i in range(b)]
-                nq = max(ql for ql, _ in items) + 3 * (case % 3)
-                args, _ = attention_operands(items, nq, gen, dev, False,
-                                             kvh=2, g=g, hd=hd, ps=ps)
-                valid = args[7] >= 0
-                poisoned = [t.clone() for t in args]
-                kp, ks, vp, vs = poisoned[1:5]
-                past = torch.zeros(kp.shape[:2], dtype=torch.bool)
-                past[0] = True                  # the null page
-                for i, (_, ln) in enumerate(items):
-                    for j, page in enumerate(args[5][i].tolist()):
-                        if page:
-                            past[page, max(0, ln - j * ps):] = True
-                past = past.to(dev)
-                kp[past], vp[past], ks[past], vs[past] = 127, -127, 1e8, 1e8
-                for q in (args[0], args[0].float()):
-                    want = P.paged_attention_ragged_plain(q, *args[1:])
-                    scale = want.float()[valid].abs().max().item() \
-                        if bool(valid.any()) else 0.0
-                    tol = (1.6e-2 if q.dtype == torch.bfloat16
-                           else 1e-4) * scale
-                    got = P._launch_ragged(q, *args[1:])
-                    err = ((got.float() - want.float()).abs()[valid]
-                           .max().item() if bool(valid.any()) else 0.0)
-                    rec = {"kernel": "paged_attention_ragged", "items": items,
-                           "q_block": nq, "hd": hd, "g": g, "ps": ps,
-                           "dtype": str(q.dtype), "max_err": err,
-                           "tol": tol,
-                           "zeros_at_padding": bool(
-                               (got[~valid] == 0).all()),
-                           "repeat_bitwise": bool(torch.equal(
-                               got, P._launch_ragged(q, *args[1:]))),
-                           "poison_bitwise": bool(torch.equal(
-                               got, P._launch_ragged(q, *poisoned[1:])))}
-                    recs.append(rec)
-                    if not (err <= tol and rec["zeros_at_padding"]
-                            and rec["repeat_bitwise"]
-                            and rec["poison_bitwise"]):
-                        fail(f"paged_attention_ragged edge: "
-                             f"{json.dumps(rec)}")
+    for kvh, hd, g, ps in ATTENTION_EDGE_HEADS:
+        case += 1
+        pattern = [(1, ps), (ps + 2, ps + 2), (1, ps + 1), (0, 0),
+                   (5, 3 * ps + 5), (1, ps + 2), (2 * ps, 2 * ps + 3),
+                   (1, 1)]
+        b = 2 + case % 7
+        items = [pattern[(i + case) % 8] for i in range(b)]
+        nq = max(ql for ql, _ in items) + 3 * (case % 3)
+        args, _ = attention_operands(items, nq, gen, dev, False,
+                                     kvh=kvh, g=g, hd=hd, ps=ps)
+        valid = args[7] >= 0
+        poisoned = [t.clone() for t in args]
+        kp, ks, vp, vs = poisoned[1:5]
+        past = torch.zeros(kp.shape[:2], dtype=torch.bool)
+        past[0] = True                  # the null page
+        for i, (_, ln) in enumerate(items):
+            for j, page in enumerate(args[5][i].tolist()):
+                if page:
+                    past[page, max(0, ln - j * ps):] = True
+        past = past.to(dev)
+        kp[past], vp[past], ks[past], vs[past] = 127, -127, 1e8, 1e8
+        for q in (args[0], args[0].float()):
+            want = P.paged_attention_ragged_plain(q, *args[1:])
+            scale = want.float()[valid].abs().max().item() \
+                if bool(valid.any()) else 0.0
+            tol = (1.6e-2 if q.dtype == torch.bfloat16
+                   else 1e-4) * scale
+            got = P._launch_ragged(q, *args[1:])
+            err = ((got.float() - want.float()).abs()[valid]
+                   .max().item() if bool(valid.any()) else 0.0)
+            rec = {"kernel": "paged_attention_ragged", "items": items,
+                   "q_block": nq, "kvh": kvh, "hd": hd, "g": g, "ps": ps,
+                   "dtype": str(q.dtype), "max_err": err,
+                   "tol": tol,
+                   "zeros_at_padding": bool(
+                       (got[~valid] == 0).all()),
+                   "repeat_bitwise": bool(torch.equal(
+                       got, P._launch_ragged(q, *args[1:]))),
+                   "poison_bitwise": bool(torch.equal(
+                       got, P._launch_ragged(q, *poisoned[1:])))}
+            recs.append(rec)
+            if not (err <= tol and rec["zeros_at_padding"]
+                    and rec["repeat_bitwise"]
+                    and rec["poison_bitwise"]):
+                fail(f"paged_attention_ragged edge: "
+                     f"{json.dumps(rec)}")
     print("paged_attention_ragged edges " + json.dumps(recs))
     return recs
 
@@ -1074,6 +1109,260 @@ def check_prologue(card, gen, dev):
             fail(f"decode_qkv_prologue m={m}: {json.dumps(rec)}")
         out.append(rec)
     return out
+
+
+# the dense family's configs whose serving linears rows 1, 2 and 5 take
+FAMILY_ARCHS = ("mistral_nemo_12b", "granite_34b", "gemma2_2b",
+                "gemma3_12b", "paligemma_3b")
+FAMILY_TILED_ROWS = (128, 37)   # a unified step's rows, and ragged ones
+
+
+def family_linears(arch) -> list:
+    """(name, D, N) of the serving linears of ``arch`` at full width: the
+    concatenated wqkv, wo, wgu (wu where the MLP is ungated), wd."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    up = (("wgu", cfg.d_model, 2 * cfg.d_ff) if cfg.gated_mlp
+          else ("wu", cfg.d_model, cfg.d_ff))
+    return [("wqkv", cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim),
+            ("wo", cfg.q_dim, cfg.d_model), up,
+            ("wd", cfg.d_ff, cfg.d_model)]
+
+
+def wide_operands(m, d, n, dev, seed, packed):
+    """Fused-linear operands drawn on the card (the widths reach 24576 x
+    32768): f32 rows, CAT blocks of 32, the Hadamard factors of D, a
+    sign, int4-packed or int8 codes and their scales."""
+    import torch
+
+    from repro_torch.core.hadamard import hadamard_factors
+    from repro_torch.core.quantizers import pack_int4
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((m, d), generator=gen, device=dev)
+    blocks = (torch.randn((d // CAT_BLOCK, CAT_BLOCK, CAT_BLOCK),
+                          generator=gen, device=dev) * 0.2
+              + torch.eye(CAT_BLOCK, device=dev))
+    ha, hb = (torch.tensor(h, dtype=torch.float32, device=dev)
+              for h in hadamard_factors(d))
+    sign = torch.randint(0, 2, (d,), generator=gen, device=dev).float() * 2 - 1
+    lo, hi = (-8, 8) if packed else (-128, 128)
+    qw = torch.randint(lo, hi, (d, n), generator=gen, device=dev,
+                       dtype=torch.int8)
+    if packed:
+        qw = pack_int4(qw, axis=0)
+    sw = torch.rand((1, n), generator=gen, device=dev) * 0.02 + 0.001
+    return [x, blocks, ha, hb, sign, qw, sw]
+
+
+def linear_bound(m, d, n, a, b, packed, out_bytes=None):
+    """(bound_ms, bound_by) of one fused-linear call on bf16 rows: x, the
+    CAT blocks, both Hadamard factors, the signs, the weight codes and
+    scales read once, and ``out_bytes`` written (default: the (m, n)
+    output in x's dtype)."""
+    if out_bytes is None:
+        out_bytes = m * n * 2
+    nbytes = (m * d * 2 + d * CAT_BLOCK * 4 + (a * a + b * b) * 4 + d * 4
+              + (((d + 1) // 2) if packed else d) * n + n * 4 + out_bytes)
+    f32_flops = m * (2 * d * CAT_BLOCK + 2 * d * (a + b) + 6 * d)
+    return bound(nbytes, f32_flops / F32_FLOP_S + 2 * m * d * n / INT8_OP_S)
+
+
+def prologue_bound(m, d, cfg, a, b, packed):
+    """(bound_ms, bound_by) of one decode-prologue call on bf16 rows:
+    ``linear_bound``'s reads at the QKV width plus the rows' positions,
+    pages and slots, and its writes: q in f32 and each row's K and V
+    codes (int8) and per-head f32 scales."""
+    n = cfg.q_dim + 2 * cfg.kv_dim
+    out = m * (cfg.q_dim * 4 + 2 * cfg.kv_dim + 2 * cfg.n_kv_heads * 4
+               + 3 * 4)
+    return linear_bound(m, d, n, a, b, packed, out_bytes=out)
+
+
+def check_family_widths(card, dev, archs=FAMILY_ARCHS,
+                        gemv_rows=tuple(range(1, 9)),
+                        tiled_rows=FAMILY_TILED_ROWS, timed=True):
+    """Rows 1, 2 and 5 at every serving linear of the dense family's
+    configs (``family_linears``): the decode linear at every M in
+    ``gemv_rows`` and the tiled one at ``tiled_rows``, int4-packed and
+    int8, and the prologue at the configs' QKV (their heads and
+    head_dim) at every B in 1..8, each bitwise against its plain version
+    on f32 inputs, with its plan (``path`` 1: the streamed path) and,
+    packed, one kernel per call (the tiled linear: its two, and the fill
+    of the contraction's split scratch). The plain versions compute each
+    row alone (in-order fma chains, a per-row quant, an exact integer
+    product), so one plain call over the largest M gives every smaller
+    M's rows. With ``timed``, mistral-nemo-12b's four linears are timed
+    for rows 1 and 2 (M 8 and 128, bf16 rows) and its QKV for row 5 (B
+    8), beside their plain versions and bounds. -> {kernel: records}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import fused_cat_matmul as F
+    from repro_torch.kernels import quant_matmul as QM
+    out = {"fused_cat_gemv_w4": [], "fused_cat_matmul_w4": [],
+           "decode_qkv_prologue": []}
+    sms = build.sm_count(0)
+    seen = set()
+    seed = 0
+    rows_max = max(tiled_rows)
+    for arch in archs:
+        for lin, d, n in family_linears(arch):
+            for packed in (True, False):
+                if (d, n, packed) in seen:
+                    continue
+                seen.add((d, n, packed))
+                seed += 1
+                args = wide_operands(rows_max, d, n, dev, seed, packed)
+                a, b = args[2].shape[0], args[3].shape[0]
+                want_all = F.fused_cat_linear_plain(*args, act_bits=4,
+                                                    packed=packed)
+                base = {"arch": arch, "linear": lin, "d": d, "n": n,
+                        "packed": packed, "card": card}
+                for m in (*gemv_rows, *tiled_rows):
+                    name = ("fused_cat_gemv_w4" if m <= 8
+                            else "fused_cat_matmul_w4")
+                    run = getattr(F, name)
+                    sub = (args[0][:m], *args[1:])
+                    got = run(*sub, act_bits=4, packed=packed)
+                    want = want_all[:m]
+                    plan = (F.gemv_plan(m, d, n, a, b, CAT_BLOCK, packed,
+                                        sms) if m <= 8 else
+                            F.tiled_plan(m, d, a, b, CAT_BLOCK))
+                    rec = dict(base, kernel=name, m=m,
+                               plan=dataclasses.asdict(plan),
+                               max_err=(got - want).abs().max().item(),
+                               differing=int((got != want).sum().item()))
+                    if packed and m in (max(gemv_rows), rows_max):
+                        # the tiled linear: stage 1 and the contraction,
+                        # whose K splits add into a zeroed scratch
+                        stage1 = ("wide_transform_quant_kernel"
+                                  if plan.path else
+                                  "cluster_transform_quant_kernel")
+                        zeroed = ("FillFunctor",) if QM.w8a8_plan(
+                            m, d + d % 2, n, dev)[0] > 1 else ()
+                        rec["one_call"] = one_launch(
+                            lambda: run(*sub, act_bits=4, packed=packed),
+                            ("wide_gemv_kernel" if plan.path else
+                             "fused_cat_gemv_kernel") if m <= 8
+                            else (stage1, "mma_kernel", *zeroed))
+                    if timed and packed and arch == "mistral_nemo_12b" \
+                            and m in (8, 128):
+                        xb = (args[0][:m].to(torch.bfloat16), *args[1:])
+                        call = lambda: run(  # noqa: E731
+                            *xb, act_bits=4, packed=True)
+                        rec["kernel_ms"] = device_ms(call)
+                        rec["call_ms"] = call_ms(call)
+                        rec["plain_ms"] = call_ms(
+                            lambda: F.fused_cat_linear_plain(
+                                *xb, act_bits=4, packed=True), iters=2,
+                            warmup=1)
+                        # bf16 rows, as served: check_fused_linear's hold
+                        got_b, want_b = call(), F.fused_cat_linear_plain(
+                            *xb, act_bits=4, packed=True)
+                        _, sx, _ = F.transform_quant_plain(*xb[:5], 4)
+                        rec["bf16_max_err"] = (got_b - want_b).abs().max(
+                            ).item()
+                        rec["bf16_tol"] = (
+                            2 * sx.max().item() * xb[6].max().item() * 8
+                            + 1e-5 * want_b.abs().max().item())
+                        rec["bf16_bitwise_share"] = (
+                            got_b == want_b).float().mean().item()
+                        if rec["bf16_max_err"] > rec["bf16_tol"]:
+                            fail(f"{name} on bf16 rows at a family width: "
+                                 f"{json.dumps(rec)}")
+                        rec["bound_ms"], rec["bound_by"] = linear_bound(
+                            m, d, n, a, b, True)
+                        rec["library_ms"] = None
+                    print(json.dumps(rec))
+                    out[name].append(rec)
+                    if rec["differing"] or not rec.get(
+                            "one_call", {"ok": True})["ok"]:
+                        fail(f"{name} at a family width: {json.dumps(rec)}")
+                del args, want_all
+        cfg = get_config(arch)
+        for packed in (True, False):
+            out["decode_qkv_prologue"] += family_prologue(
+                cfg, packed, card, dev, seed, timed and packed
+                and arch == "mistral_nemo_12b")
+    print("family widths: " + json.dumps(
+        {k: len(v) for k, v in out.items()}))
+    return out
+
+
+def family_prologue(cfg, packed, card, dev, seed, timed):
+    """Row 5 at ``cfg``'s QKV (its heads and head_dim) at every B in 1..8,
+    each row on its own page of a 16-row pool: q and every pool but page
+    0 bitwise against the plain version on f32 rows (one plain call over
+    8 rows: its first B rows' q and targets are B rows' own), its plan,
+    one kernel per call (packed, B 8); with ``timed`` the B 8 call timed
+    on bf16 rows beside the plain version and the bound."""
+    import torch
+
+    from repro_torch.kernels import decode_layer as L
+    d, hd, kvh = cfg.d_model, cfg.head_dim, cfg.n_kv_heads
+    n = cfg.q_dim + 2 * cfg.kv_dim
+    kw = dict(n_q=cfg.q_dim, head_dim=hd, rope_theta=float(cfg.rope_theta),
+              kv_bits=8, act_bits=4, packed=packed)
+    args = wide_operands(8, d, n, dev, 1000 + seed, packed)
+    a, b = args[2].shape[0], args[3].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (12, 16, kvh, hd)
+    pools = [torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8),
+             torch.rand(shape[:3] + (1,), generator=gen, device=dev),
+             torch.randint(-127, 128, shape, generator=gen, device=dev,
+                           dtype=torch.int8),
+             torch.rand(shape[:3] + (1,), generator=gen, device=dev)]
+    pages = [1 + i for i in range(8)]
+    rows = [(5 * i) % 16 for i in range(8)]
+    ids = [torch.tensor(v, dtype=torch.int32, device=dev)
+           for v in (pages, rows, [1000 * i + 37 for i in range(8)])]
+    want8 = [t.clone() for t in pools]
+    q8 = L.decode_qkv_prologue_plain(*args, *want8, *ids, **kw)[0]
+    recs = []
+    for m in range(1, 9):
+        sub = (args[0][:m], *args[1:])
+        sub_ids = [t[:m] for t in ids]
+        got = [t.clone() for t in pools]
+        want = [t.clone() for t in pools]
+        for w, w8 in zip(want, want8):
+            w[pages[:m], rows[:m]] = w8[pages[:m], rows[:m]]
+        q = L.decode_qkv_prologue(*sub, *got, *sub_ids, **kw)[0]
+        diff = int((q != q8[:m]).sum().item()) + sum(
+            int((g_[1:] != w_[1:]).sum().item()) for g_, w_ in zip(got,
+                                                                 want))
+        plan = L.prologue_plan(m, d, n, hd, a, b, CAT_BLOCK, packed)
+        rec = {"kernel": "decode_qkv_prologue", "arch": cfg.name, "m": m,
+               "d": d, "n": n, "head_dim": hd, "packed": packed,
+               "plan": dataclasses.asdict(plan),
+               "max_err": (q - q8[:m]).abs().max().item(),
+               "differing": diff, "card": card}
+        if m == 8 and packed:
+            call = lambda: L.decode_qkv_prologue(  # noqa: E731
+                *sub, *got, *sub_ids, **kw)
+            rec["one_call"] = one_launch(
+                call, "wide_prologue_kernel" if plan.path
+                else "decode_qkv_prologue_kernel")
+        if m == 8 and timed:
+            xb = (sub[0].to(torch.bfloat16), *sub[1:])
+            bcall = lambda: L.decode_qkv_prologue(  # noqa: E731
+                *xb, *got, *sub_ids, **kw)
+            rec["kernel_ms"] = device_ms(bcall)
+            rec["call_ms"] = call_ms(bcall)
+            rec["plain_ms"] = call_ms(
+                lambda: L.decode_qkv_prologue_plain(*xb, *want, *sub_ids,
+                                                    **kw),
+                iters=2, warmup=1)
+            rec["bound_ms"], rec["bound_by"] = prologue_bound(m, d, cfg, a,
+                                                              b, True)
+            rec["library_ms"] = None
+        print(json.dumps(rec))
+        recs.append(rec)
+        if diff or not rec.get("one_call", {"ok": True})["ok"]:
+            fail(f"decode_qkv_prologue at a family width: "
+                 f"{json.dumps(rec)}")
+    return recs
 
 
 GEMV_EDGES = [(512, 1024), (1536, 512), (512, 520), (1536, 1000), (512, 40),
@@ -1892,6 +2181,30 @@ def reference_routes():
         qlinear._use_fused_kernel = use_kernel
 
 
+class ServingLayers:
+    """The layers of quantized ``params`` as serving params, built one
+    layer at a time as a forward reaches it and dropped after it (a 12B
+    model's route-2 ``w_eff`` is 21.8 GB in bf16): by default as the
+    reference routes take them (``make_serving_params(keep_packed=False)``:
+    the concatenated linears with route 2's dequantized ``w_eff``), with
+    ``keep_packed=None`` as the engine serves them (route 1)."""
+
+    def __init__(self, model, params, keep_packed=False):
+        self.model, self.layers = model, params["layers"]
+        self.keep_packed = keep_packed
+
+    def __len__(self):
+        return len(self.layers)
+
+    def __getitem__(self, i):
+        return self.model.make_serving_params(
+            {"layers": [self.layers[i]]},
+            keep_packed=self.keep_packed)["layers"][0]
+
+    def __iter__(self):
+        return (self[i] for i in range(len(self)))
+
+
 def teacher_forced_reference(model, params, reqs, served) -> float:
     """Per generated position, the reference routes' greedy token given
     the served prefix: each served sequence (prompt + generated) is run
@@ -1907,17 +2220,171 @@ def teacher_forced_reference(model, params, reqs, served) -> float:
         for r in reqs:
             toks = torch.tensor(np.asarray(served[r["rid"]].tokens),
                                 device="cuda")[None]
-            n_tok, n_prompt = toks.shape[1], len(r["tokens"])
-            n_ptab = -(-n_tok // 16)
-            cache = dict(model.init_paged_cache(1 + n_ptab, 16, "cuda"))
-            cache["page_table"] = (1 + torch.arange(
-                n_ptab, dtype=torch.int32, device="cuda"))[None]
-            cache["pos"] = 0
-            hidden, _, _ = model.forward(ref_params, toks, cache=cache)
-            pred = torch.argmax(model.logits(ref_params, hidden)[0], dim=-1)
-            agree.append((pred[n_prompt - 1:n_tok - 1]
-                          == toks[0, n_prompt:]).float().mean().item())
+            n_prompt = len(r["tokens"])
+            logits = prefill_logits(model, ref_params, toks)
+            pred = torch.argmax(logits[n_prompt - 1:], dim=-1)
+            agree.append((pred == toks[0, n_prompt:]).float().mean().item())
     return float(np.mean(agree))
+
+
+def prefill_logits(model, params, toks, start: int = 0):
+    """toks (1, S) as one prefill over a fresh int8 paged pool (page 16,
+    gather attention) -> the logits of positions start..S-2 (those that
+    predict tokens start+1..S-1), (S-1-start, vocab) in f32."""
+    import torch
+
+    n_ptab = -(-toks.shape[1] // 16)
+    cache = dict(model.init_paged_cache(1 + n_ptab, 16, "cuda"))
+    cache["page_table"] = (1 + torch.arange(n_ptab, dtype=torch.int32,
+                                            device="cuda"))[None]
+    cache["pos"] = 0
+    hidden, _, _ = model.forward(params, toks, cache=cache)
+    return model.logits(params, hidden[:, start:])[0, :-1].float()
+
+
+def quantiles(t, qs=(0.1, 0.5, 0.9)) -> dict:
+    """{"p10": ..., "p50": ..., "p90": ...} of a 1-D tensor."""
+    import torch
+
+    t = t.double().flatten()
+    return {f"p{round(q * 100)}": torch.quantile(t, q).item() for q in qs}
+
+
+def teacher_forced_stats(model, params, reqs, served) -> dict:
+    """Each served sequence (prompt + generated) as one prefill (as
+    ``teacher_forced_reference``) through the reference routes (route 2)
+    and through the served linears (route 1, the fused kernels), their
+    layers built one at a time (``ServingLayers``). Per generated
+    position: ``agreement`` (``teacher_forced_reference``'s: route 2's
+    argmax is the served token, mean over requests); the served token's
+    rank in route 2's logits (``served_top5``: the share of rank < 5) and
+    its gap below route 2's max; route 2's top-2 ``margin``; route 1's
+    argmax against route 2's on the same prefix (``route1_agreement``) and
+    their logits' relative L2 distance (``route1_logit_rel``); and the
+    share of served tokens that equal the token before them
+    (``served_repeats_input``: a random model that echoes its input
+    agrees with any numerics). -> dict."""
+    import numpy as np
+    import torch
+
+    ref = dict(params, layers=ServingLayers(model, params))
+    srv = dict(params, layers=ServingLayers(model, params, keep_packed=None))
+    ulp = dict(ref, embed=ulp_flip(params["embed"]))
+    agree, cols = [], {k: [] for k in ("gap", "rank", "margin", "same",
+                                       "rel", "repeat", "ulp", "ulp_rel")}
+    with torch.no_grad():
+        for r in reqs:
+            toks = torch.tensor(np.asarray(served[r["rid"]].tokens),
+                                device="cuda")[None]
+            n_prompt = len(r["tokens"])
+            with reference_routes():
+                z2 = prefill_logits(model, ref, toks, n_prompt - 1)
+                z3 = prefill_logits(model, ulp, toks, n_prompt - 1)
+            z1 = prefill_logits(model, srv, toks, n_prompt - 1)
+            tgt = toks[0, n_prompt:]
+            at = z2.gather(1, tgt[:, None])[:, 0]
+            top2 = z2.topk(2, dim=-1).values
+            agree.append((z2.argmax(-1) == tgt).float().mean().item())
+            cols["gap"].append(top2[:, 0] - at)
+            cols["rank"].append((z2 > at[:, None]).sum(-1))
+            cols["margin"].append(top2[:, 0] - top2[:, 1])
+            cols["same"].append(z1.argmax(-1) == z2.argmax(-1))
+            cols["rel"].append((z1 - z2).norm(dim=-1) / z2.norm(dim=-1))
+            cols["repeat"].append(tgt == toks[0, n_prompt - 1:-1])
+            cols["ulp"].append(z3.argmax(-1) == z2.argmax(-1))
+            cols["ulp_rel"].append((z3 - z2).norm(dim=-1) / z2.norm(dim=-1))
+    c = {k: torch.cat(v) for k, v in cols.items()}
+    return {"agreement": float(np.mean(agree)),
+            "positions": int(c["gap"].numel()),
+            "served_top5": (c["rank"] < 5).float().mean().item(),
+            "served_rank": quantiles(c["rank"]),
+            "served_gap": dict(quantiles(c["gap"]),
+                               max=c["gap"].max().item()),
+            "margin": quantiles(c["margin"]),
+            "route1_agreement": c["same"].float().mean().item(),
+            "route1_logit_rel": dict(quantiles(c["rel"]),
+                                     max=c["rel"].max().item()),
+            "served_repeats_input": c["repeat"].float().mean().item(),
+            "ulp_agreement": c["ulp"].float().mean().item(),
+            "ulp_logit_rel": dict(quantiles(c["ulp_rel"]),
+                                  max=c["ulp_rel"].max().item())}
+
+
+def ulp_flip(t, seed: int = 0):
+    """``t`` with the lowest bit of half its entries flipped (one ulp of
+    its dtype), the entries drawn from ``seed``."""
+    import torch
+
+    ints = {torch.bfloat16: torch.int16, torch.float16: torch.int16,
+            torch.float32: torch.int32}[t.dtype]
+    gen = torch.Generator(device=t.device).manual_seed(seed)
+    flip = torch.randint(0, 2, t.shape, generator=gen, device=t.device,
+                         dtype=ints)
+    return (t.view(ints) ^ flip).view(t.dtype)
+
+
+def depth_divergence(model, params, reqs, served, n_seqs: int = 4) -> dict:
+    """Layer by layer, without a cache (the plain attention over
+    fake-quantized K/V), on the first ``n_seqs`` served sequences cut to
+    the shortest: three hidden streams from one embedding — route 1 (the
+    served linears), route 2 (the reference routes) and route 2 from an
+    input one bf16 ulp off in half its entries (how far this model's own
+    rounding moves it). Per layer, ``step_rel``: route 1 on route 2's
+    input against route 2, relative to route 2's update (the layer's own
+    error), and ``step_ulp``: route 2 on its input one bf16 ulp off in
+    half its entries against route 2 (the same measure for a rounding of
+    the input alone). At depths 1, 2, 4, ... and the last, each stream's argmax
+    through the final norm and the unembedding against route 2's
+    (``lens_route1``, ``lens_ulp``) and its relative distance to route
+    2's hidden state (``rel_route1``, ``rel_ulp``). -> dict."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models import dense
+    cfg = model.cfg
+    n = min(len(served[r["rid"]].tokens) for r in reqs[:n_seqs])
+    toks = torch.tensor(np.stack([np.asarray(served[r["rid"]].tokens)[:n]
+                                  for r in reqs[:n_seqs]]), device="cuda")
+    ref = ServingLayers(model, params)
+    srv = ServingLayers(model, params, keep_packed=None)
+    x2 = dense.embed(cfg, params, toks)
+    x3 = ulp_flip(x2)
+    x1 = x2
+    out = {"seqs": n_seqs, "positions": n, "step_rel": [], "step_ulp": [],
+           "depth": [],
+           "lens_route1": [], "lens_ulp": [], "rel_route1": [],
+           "rel_ulp": []}
+
+    def lens(x):
+        return model.logits(params, dense.rms_norm(
+            x, params["final_norm"])).argmax(-1)
+
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            lp1, lp2 = srv[i], ref[i]
+            with reference_routes():
+                y2 = dense.layer_forward(cfg, x2, lp2, i)
+                y3 = dense.layer_forward(cfg, ulp_flip(x2, i + 1), lp2, i)
+                x3 = dense.layer_forward(cfg, x3, lp2, i)
+            y1 = dense.layer_forward(cfg, x2, lp1, i)
+            for key, y in (("step_rel", y1), ("step_ulp", y3)):
+                out[key].append(((y.float() - y2.float()).norm()
+                                 / (y2.float() - x2.float()).norm()).item())
+            x1 = dense.layer_forward(cfg, x1, lp1, i)
+            x2 = y2
+            del lp1, lp2
+            if ((i + 1) & i) == 0 or i + 1 == cfg.n_layers:
+                want = lens(x2)
+                out["depth"].append(i + 1)
+                for key, x in (("route1", x1), ("ulp", x3)):
+                    out[f"lens_{key}"].append(
+                        (lens(x) == want).float().mean().item())
+                    out[f"rel_{key}"].append(
+                        ((x.float() - x2.float()).norm()
+                         / x2.float().norm()).item())
+    out["step_rel_max"] = max(out["step_rel"])
+    out["step_ulp_max"] = max(out["step_ulp"])
+    return out
 
 
 def reference_run(model, params, reqs, kw):
@@ -1939,7 +2406,9 @@ def profile_serving(engine, reqs) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     groups = {"decode_qkv_prologue": "decode prologue",
+              "wide_prologue": "decode prologue",
               "fused_cat_gemv": "fused linear decode (one launch)",
+              "wide_gemv": "fused linear decode (one launch)",
               "transform_quant": "fused linear tiled stage 1",
               "mma_kernel": "fused linear tiled contraction",
               "paged_attn_decode": "paged attention decode",
@@ -2844,6 +3313,192 @@ def train_phase(counters, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------- the family
+
+FAMILY_LONG_PROMPT = 4160   # (h): 4 pages of 16 past gemma2-2b's window
+
+
+def serve_family(arch, counters, card, rows, long_prompt=0, warm=True,
+                  min_agreement=None):
+    """One dense-family config at full width on the card: seeded random
+    init and CAT-W4A4 int4-packed RTN PTQ drawn and quantized one layer
+    at a time (``build_served_model``, which takes that path for these
+    sizes: cat block 32, calibration 8 x 64 tokens), then (b)'s engine
+    (unified, int8 paged KV, page 16, ``paged_kernel=True``, pipelined,
+    the two-launch decode) on (b)'s 8 requests, and with ``long_prompt``
+    a ninth whose seeded prompt has that many tokens (16 new). With
+    ``warm`` a warm-up pass, then the counted pass (counters at 0 just
+    before, read just after), with ``warm`` a profiled pass, then the
+    synchronous loop's pass, the reference routes teacher-forced one layer
+    at a time (``teacher_forced_stats``), the layer-by-layer divergence
+    (``depth_divergence``) and the model cut to its first layer, served
+    through the same engine and teacher-forced.
+
+    Held: well-formed tokens, the kernel rows ``rows`` launched,
+    pipelined == synchronous tokens, and, against the reference routes,
+    the served path within ``NOISE_FACTOR`` of the reference's own
+    response to a one-ulp rounding of its input: every layer's
+    ``step_rel`` against its ``step_ulp``, and the teacher-forced logits'
+    median relative distance (``route1_logit_rel``) against
+    ``ulp_logit_rel``, at full depth and on the first layer alone, where
+    the served token is also in the reference's top 5 at >=
+    ``WITNESS_TOP5`` of the positions. With ``min_agreement``, the
+    teacher-forced agreement at full depth is held at it too. -> the
+    record."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from repro_torch.data import request_workload, token_stream
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.serve import build_served_model
+    from repro_torch.models import build
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, params, mem = build_served_model(
+        arch, "cat", 4, 4, 8, smoke=False, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    ptq_s = time.perf_counter() - t0
+    ptq_peak = torch.cuda.max_memory_allocated()
+    reqs = request_workload(cfg, 8, gen=32, seed=0)
+    if long_prompt:
+        reqs.append({"rid": 8, "tokens": token_stream(
+            cfg.vocab, long_prompt, 1, seed=0, step=2000)[0],
+            "max_new_tokens": 16})
+    max_len = max(len(r["tokens"]) + r["max_new_tokens"] for r in reqs) + 8
+    kw = dict(n_slots=8, max_len=max_len, schedule="unified",
+              max_batch_tokens=128, page_size=16, device="cuda")
+    label = f"({'g' if arch.startswith('mistral') else 'h'}) {cfg.name}"
+    print(f"families: {label} full width ({cfg.n_layers} layers, d "
+          f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), layerwise "
+          f"PTQ on the card in {ptq_s:.1f} s, {mem['qlinear_layers']} "
+          f"int4-packed linears, {mem['weight_bytes'] / 2**30:.2f} GiB, "
+          f"peak {ptq_peak / 2**30:.2f} GiB", flush=True)
+    os.environ.pop("REPRO_DECODE_FUSED", None)
+    engine = ServeEngine(model, params, paged_kernel=True, pipeline=None,
+                         **kw)
+    if warm:
+        engine.run(reqs)
+        engine.reset()
+    for fn in counters:
+        fn.launches = 0
+    res = engine.run(reqs)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in counters}
+    summ = engine.summary()
+    out = {"config": label, "arch": arch, "layers": cfg.n_layers,
+           "depth_cut": None, "ptq_s": ptq_s,
+           "ptq_peak_gib": ptq_peak / 2**30,
+           "weight_gib": mem["weight_bytes"] / 2**30,
+           "requests": len(reqs), "max_len": max_len,
+           "launches": launches, "card": card,
+           **{k: summ[k] for k in SERVED_KEYS if k in summ},
+           "pipeline": summ["pipeline"]}
+    print(f"families: {label} counted pass " + json.dumps(out), flush=True)
+    if not summ["pipeline"]:
+        fail(f"{label}: the pipelined loop did not run")
+    for r in reqs:
+        toks = np.asarray(res[r["rid"]].tokens)
+        if not (len(toks) == len(r["tokens"]) + r["max_new_tokens"]
+                and (0 <= toks).all() and (toks < cfg.vocab).all()):
+            fail(f"{label} request {r['rid']}: malformed output {toks}")
+    for name in rows:
+        if launches[name] <= 0:
+            fail(f"{label}: kernel {name} never launched")
+    if warm:
+        out["profile"] = profile_serving(engine, reqs)
+        print(f"families: {label} profiled pass "
+              + json.dumps(out["profile"]), flush=True)
+    del engine
+    sync = ServeEngine(model, params, paged_kernel=True, pipeline=False,
+                       **kw)
+    res_sync = sync.run(reqs)
+    s_sync = sync.summary()
+    out["sync"] = {k: s_sync[k] for k in ("tok_per_s", "ttft_s_mean",
+                                          "itl_p50_s", "itl_p95_s")}
+    del sync
+    diff = [r["rid"] for r in reqs
+            if not np.array_equal(res_sync[r["rid"]].tokens,
+                                  res[r["rid"]].tokens)]
+    out["pipelined_equals_sync"] = not diff
+    if diff:
+        fail(f"{label}: pipelined and synchronous tokens differ for {diff}")
+    torch.cuda.empty_cache()
+    tf = teacher_forced_stats(model, params, reqs, res)
+    out["teacher_forced"] = tf
+    out["reference_agreement_teacher_forced"] = tf["agreement"]
+    print(f"families: {label} pipelined == sync: {not diff}; sync pass "
+          f"{json.dumps(out['sync'])}; teacher-forced "
+          + json.dumps(tf), flush=True)
+    out["depth"] = depth_divergence(model, params, reqs, res)
+    print(f"families: {label} depth " + json.dumps(out["depth"]),
+          flush=True)
+    cut = build(cfg.scaled(n_layers=1))
+    cut_params = dict(params, layers=params["layers"][:1])
+    engine = ServeEngine(cut, cut_params, paged_kernel=True, pipeline=None,
+                         **kw)
+    res_cut = engine.run(reqs)
+    del engine
+    out["first_layer"] = teacher_forced_stats(cut, cut_params, reqs, res_cut)
+    print(f"families: {label} first layer alone teacher-forced "
+          + json.dumps(out["first_layer"]), flush=True)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    print(f"families: {label} peak {out['peak_gib']:.2f} GiB", flush=True)
+    hold_family(label, out, min_agreement)
+    del params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+NOISE_FACTOR = 1.5   # the served path against the reference's ulp response
+WITNESS_TOP5 = 0.9   # served tokens in the reference's top 5, cut model
+
+
+def hold_family(label, out, min_agreement=None) -> None:
+    """``serve_family``'s holds against the reference routes."""
+    depth = out["depth"]
+    over = [i for i, (r, u) in enumerate(zip(depth["step_rel"],
+                                               depth["step_ulp"]))
+            if r > NOISE_FACTOR * u]
+    if over:
+        fail(f"{label}: layers {over}: the served linears' error exceeds "
+             f"{NOISE_FACTOR} x the reference's one-ulp response")
+    for key, st in (("full depth", out["teacher_forced"]),
+                    ("first layer", out["first_layer"])):
+        rel, ulp = st["route1_logit_rel"]["p50"], st["ulp_logit_rel"]["p50"]
+        if rel > NOISE_FACTOR * ulp:
+            fail(f"{label} {key}: teacher-forced logits {rel} from the "
+                 f"reference's, over {NOISE_FACTOR} x its one-ulp "
+                 f"response {ulp}")
+        if key != "full depth" and st["served_top5"] < WITNESS_TOP5:
+            fail(f"{label} {key}: served tokens in the reference's top 5 "
+                 f"at {st['served_top5']} < {WITNESS_TOP5}")
+    agree = out["teacher_forced"]["agreement"]
+    if min_agreement is not None and agree < min_agreement:
+        fail(f"{label}: teacher-forced agreement {agree} < {min_agreement}")
+
+
+def families_phase(counters, card) -> dict:
+    """(g) mistral-nemo-12b at full width through all five serving
+    kernels; (h) gemma2-2b at full width (its windowed, softcapped
+    attention on the gathered path, rows 1 and 2 for its linears) with a
+    prompt past its 4096-token window; each gathered step reads the
+    whole 263-page table of every row, so (h) runs its counted and
+    synchronous passes only (no warm-up or profiled pass). (h), whose
+    embeddings are tied, is also held at a teacher-forced agreement >=
+    0.9; (g)'s untied random head has top-2 margins of ~0.15 and is not
+    (``serve_family``)."""
+    rows_all = [fn.__name__ for fn in counters]
+    return {"g": serve_family("mistral_nemo_12b", counters, card, rows_all),
+            "h": serve_family("gemma2_2b", counters, card,
+                              ["fused_cat_gemv_w4", "fused_cat_matmul_w4"],
+                              long_prompt=FAMILY_LONG_PROMPT, warm=False,
+                              min_agreement=0.9)}
+
+
 def composed_plain(x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
     """The composed linear through the six plain versions -> (y in x's
     dtype, codes, scales, zero points)."""
@@ -3125,6 +3780,10 @@ def main() -> None:
 
     from repro_torch.kernels import build
     t0 = time.perf_counter()
+
+    def stamp(phase):
+        print(f"elapsed: {time.perf_counter() - t0:.1f} s after {phase}",
+              flush=True)
     report = build.build_all((*build.SOURCES, "dq_floor"))
     print(f"build: {time.perf_counter() - t0:.1f} s for "
           f"{sorted(report)} (parallel nvcc)")
@@ -3178,18 +3837,29 @@ def main() -> None:
         **check_contractions(card, gen, dev),
         **check_stages(card, gen, dev),
     }
+    stamp("the kernels phase")
+    for name, recs in check_family_widths(card, dev).items():
+        results[name] += recs
+    stamp("the family widths")
     counters = [F.fused_cat_gemv_w4, F.fused_cat_matmul_w4,
                 P.paged_attention_ragged, P.paged_attention_decode,
                 L.decode_qkv_prologue]
     serving, model, params = serve(counters, card)
+    stamp("serving (a), (b)")
     serving["legacy"] = legacy_phase(model, params, counters, card)
+    stamp("the legacy phase")
     serving["prefix_spec"] = prefix_spec_phase(model, params, counters,
                                                card)
+    stamp("the prefix/spec phase")
     serving["train"] = train_phase(counters, card)
+    stamp("the train phase")
+    serving["families"] = families_phase(counters, card)
+    stamp("the families phase")
     composed_counters = [QW.quant_matmul_w4, QW.quant_gemv_w4,
                          QM.quant_matmul, DQ.dynamic_quant,
                          H.hadamard_transform, B.block_diag_matmul]
     composed = composed_phase(model, params, composed_counters, card, gen)
+    stamp("the composed phase")
 
     # the summary: the main-path shape of each kernel (decode GEMV at 8
     # rows, the 128-row unified step, wgu's D=512 x N=3072), errors over

@@ -116,6 +116,12 @@ class ArchConfig:
 ARCH_IDS = [
     # the paper's own evaluation model (a small LM used by benchmarks)
     "catlm_60m",
+    # the dense and vlm family of the reference's registry
+    "gemma2_2b",
+    "mistral_nemo_12b",
+    "granite_34b",
+    "gemma3_12b",
+    "paligemma_3b",
 ]
 
 

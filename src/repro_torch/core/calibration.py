@@ -84,5 +84,9 @@ def calibrate(model, params, batches: Iterable[dict],
     device = params["embed"].device
     for batch in batches:
         tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=device)
-        model.forward(params, tokens, taps=taps)
+        kw = {}
+        if "patch_embed" in batch:   # the vlm prefix
+            kw["extra_embed"] = torch.as_tensor(
+                np.asarray(batch["patch_embed"]), device=device)
+        model.forward(params, tokens, taps=taps, **kw)
     return taps

@@ -80,6 +80,11 @@ def _extract_diag_blocks(a: torch.Tensor, n: int, k: int) -> torch.Tensor:
     return a[idx, :, idx, :]
 
 
+def diag_blocks(a: torch.Tensor, k: int) -> torch.Tensor:
+    """The (d//k, k, k) diagonal blocks of a (d, d) matrix; k | d."""
+    return _extract_diag_blocks(a, a.shape[0] // k, k)
+
+
 def cat_block_stacked(sigma_w: torch.Tensor, sigma_x: torch.Tensor,
                       k: int) -> torch.Tensor:
     """(d//k, k, k) stacked block-diagonal CAT factors. Requires k | d."""

@@ -1,5 +1,5 @@
 """End-to-end PTQ pipeline — counterpart of ``repro.core.pipeline`` for the
-dense family:
+dense and vlm families:
 
   calibrate -> build one transform per layer group -> fuse T⁻¹ into the
   weights -> quantize weights (RTN or GPTQ, L2.4 ranges) -> QLinears
@@ -12,6 +12,12 @@ and cat_nohad. The loop order (groups outer, layers inner) matches the
 reference so the shared numpy rng draws the same Hadamard signs and
 rotations. ``eval_quantized`` is the paper's Table-1 metric: held-out CE
 and perplexity of fp against quantized params.
+
+``quantize_model_layerwise`` runs the CAT PTQ one layer at a time for a
+model whose fp weights do not fit at once (mistral-nemo-12b is 49 GB in
+f32): each layer is drawn, calibrated on the fp activations of the layers
+before it, quantized and freed; it keeps only the k x k diagonal blocks
+of Σ_x and Σ_w, the part the CAT block transform reads.
 """
 from __future__ import annotations
 
@@ -36,7 +42,7 @@ class GroupSpec:
 
 
 def layer_groups(cfg) -> List[GroupSpec]:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} PTQ is a later "
                                   f"slice of the port")
     mlp_in = ("wg", "wu") if cfg.gated_mlp else ("wu",)
@@ -157,3 +163,98 @@ def eval_quantized(model, params, qparams, eval_batches) -> dict:
     fp, q = float(np.mean(losses_fp)), float(np.mean(losses_q))
     return {"ce_fp": fp, "ce_quant": q, "delta": q - fp,
             "ppl_fp": float(np.exp(fp)), "ppl_quant": float(np.exp(q))}
+
+
+# ------------------------------------------------- layer-at-a-time PTQ
+
+class BlockTaps:
+    """Calibration taps keeping, per tap point, the k x k diagonal blocks
+    of Σ_x = E[x xᵀ] (block ``transforms.cat_block_size(d, k)``), summed
+    in f64 on the activations' device."""
+
+    def __init__(self, k: int):
+        self.k = k
+        self.sums: dict = {}
+        self.rows: dict = {}
+
+    def record(self, name: str, x: torch.Tensor) -> None:
+        xf = x.detach().reshape(-1, x.shape[-1]).to(torch.float64)
+        d = xf.shape[1]
+        k = T.cat_block_size(d, self.k)
+        xb = xf.reshape(-1, d // k, k)
+        s = torch.einsum("rni,rnj->nij", xb, xb)
+        self.sums[name] = self.sums.get(name, 0) + s
+        self.rows[name] = self.rows.get(name, 0) + xf.shape[0]
+
+    def sigma_blocks(self, name: str) -> torch.Tensor:
+        return self.sums[name] / self.rows[name]
+
+
+def _weight_blocks(ws, k: int) -> torch.Tensor:
+    """The k x k diagonal blocks of Σ_w = Σ V Vᵀ over a group's input-major
+    weights V (d_in, d_out), in f64."""
+    out = 0
+    for v in ws:
+        vb = v.to(torch.float64).reshape(v.shape[0] // k, k, v.shape[1])
+        out = out + torch.einsum("nid,njd->nij", vb, vb)
+    return out
+
+
+@torch.no_grad()
+def quantize_model_layerwise(model, qcfg: QuantizeConfig, calib_batches,
+                             rest: dict, draw_layer) -> dict:
+    """CAT PTQ (``transform`` "cat" or "cat_nohad", RTN) of a dense model
+    one layer at a time: ``rest`` holds the model's other params on the
+    device (embed, final_norm, unembed), ``draw_layer(i)`` returns layer
+    i's fp params there, called once per layer in order. Each layer is
+    calibrated on the fp activations of the layers before it (the taps of
+    ``calibrate``), its groups quantized as ``quantize_model`` does, and
+    its fp weights dropped. The Hadamard signs are drawn up front in
+    ``quantize_model``'s order (groups outer, layers inner), so given the
+    same fp params the two differ only in how Σ_x and Σ_w are summed
+    (their diagonal blocks here, in f64 on the device)."""
+    from repro_torch.models import dense
+    cfg = model.cfg
+    kind = qcfg.transform
+    if kind not in ("cat", "cat_nohad") or qcfg.w_method != "rtn":
+        raise ValueError(f"the layer-at-a-time PTQ takes the RTN CAT "
+                         f"transforms, got {kind!r} / {qcfg.w_method!r}")
+    device = rest["embed"].device
+    k = qcfg.cat_block or cfg.cat_block
+    in_dim = {"attn_in": cfg.d_model, "o_in": cfg.q_dim,
+              "mlp_in": cfg.d_model, "down_in": cfg.d_ff}
+    groups = layer_groups(cfg)
+    hads = {}
+    if kind == "cat":
+        rng = np.random.default_rng(qcfg.seed)
+        for group in groups:
+            for i in range(cfg.n_layers):
+                hads[group.tap, i] = T.make_hadamard(in_dim[group.tap], rng,
+                                                     device=device)
+    xs = []
+    for batch in calib_batches:
+        tokens = torch.as_tensor(np.asarray(batch["tokens"]), device=device)
+        extra = batch.get("patch_embed")
+        if extra is not None:
+            extra = torch.as_tensor(np.asarray(extra), device=device)
+        xs.append(dense.embed(cfg, rest, tokens, extra))
+    layers = []
+    for i in range(cfg.n_layers):
+        lp = draw_layer(i)
+        taps = BlockTaps(k)
+        xs = [dense.layer_forward(cfg, x, lp, i, taps=taps) for x in xs]
+        for group in groups:
+            ws = [lp[name].to(torch.float32) for name in group.weights]
+            d = ws[0].shape[0]
+            kk = T.cat_block_size(d, k)
+            sx = taps.sigma_blocks(f"layers.{i}.{group.tap}")
+            mt = T.cat_from_blocks(_weight_blocks(ws, kk).float(),
+                                   sx.float())
+            t = mt if kind == "cat_nohad" else T.Compose(
+                (mt, hads[group.tap, i]))
+            for name, v in zip(group.weights, ws):
+                codes, scale = _quantize_weight(fuse_weight_in(t, v), None,
+                                                qcfg)
+                lp[name] = _make_qlinear(codes, scale, t, qcfg)
+        layers.append(lp)
+    return dict(rest, layers=layers)

@@ -112,18 +112,32 @@ def make_cat_full(sigma_w, sigma_x) -> Dense:
     return Dense(m, torch.linalg.inv(m))
 
 
+def cat_block_size(d: int, k: int) -> int:
+    """The CAT block of width d for block k: min(k, d), or the largest
+    divisor of d below it."""
+    k = min(k, d)
+    return k if d % k == 0 else max(j for j in range(1, k + 1) if d % j == 0)
+
+
+def cat_from_blocks(sw_blocks, sx_blocks):
+    """M̂ᵏ_block from the (n, k, k) diagonal blocks of Σ_w and Σ_x, all it
+    reads of them: at k = 1 the per-channel closed form
+    (``cat_lib.cat_diagonal``), else the stacked blocks and inverses."""
+    n, k, _ = sw_blocks.shape
+    if k == 1:
+        return Scale((sw_blocks.reshape(n) / torch.clamp_min(
+            sx_blocks.reshape(n), 1e-30)) ** 0.25)
+    blocks = cat_lib.cat_optimal(sw_blocks, sx_blocks)
+    return BlockDiag(blocks, cat_lib.inv_blocks(blocks))
+
+
 def make_cat_block(sigma_w, sigma_x, k: int = 128, hadamard: bool = True,
                    rng: np.random.Generator | None = None):
     """The paper's T̂ᵏ_block = H · M̂ᵏ_block (eq. 10)."""
     d = sigma_w.shape[0]
-    if d % k != 0:  # fall back to the largest divisor ≤ k
-        k = max(j for j in range(1, k + 1) if d % j == 0)
-    if k == 1:
-        mt: object = Scale(torch.diagonal(cat_lib.cat_diagonal(sigma_w,
-                                                               sigma_x)))
-    else:
-        blocks = cat_lib.cat_block_stacked(sigma_w, sigma_x, k)
-        mt = BlockDiag(blocks, cat_lib.inv_blocks(blocks))
+    k = cat_block_size(d, k)
+    mt = cat_from_blocks(*(cat_lib.diag_blocks(s, k)
+                           for s in (sigma_w, sigma_x)))
     if not hadamard:
         return mt
     return Compose((mt, make_hadamard(d, rng, device=sigma_w.device)))

@@ -117,9 +117,15 @@ struct CtaLayout {
 
 // A launch plan: `clusters` clusters of `cluster` CTAs, `cols` output
 // columns per CTA (the tiled plan: rows per cluster), `smem` bytes of
-// dynamic shared memory per CTA.
+// dynamic shared memory per CTA. `path` 0 is the cluster path; 1 the
+// streamed path (wide_tq.cuh), which takes every width the general path
+// takes and the cluster path's shared memory does not hold: one
+// cooperative launch of one CTA per SM, `clusters` the column tiles (the
+// prologue's heads; the tiled stage: one group of all m rows) of `cols`
+// columns, the K dimension streamed through shared memory in tiles of
+// `ktile` K, its intermediates in a device scratch buffer (wide_scratch).
 struct Plan {
-  int cluster, clusters, cols, smem;
+  int cluster, clusters, cols, smem, path = 0, ktile = 0;
 };
 
 // The largest cluster (8, 4, 2, 1) the transform splits over that divides
@@ -130,6 +136,99 @@ CTQ_HD inline int cluster_size(int d, int a, int b, int bk, int groups) {
   for (int c = kMaxCluster; c >= 1; c /= 2)
     if (splits(d, a, b, bk, c) && (groups <= 0 || groups % c == 0)) return c;
   return general(d, a, b, bk) ? 1 : 0;
+}
+
+// ---------------------------------------------------- the streamed path
+
+constexpr int kWideMaxTile = 2048;   // most K per streamed tile
+constexpr int kWideMinTile = 64;     // fewest
+
+// The streamed contraction's shared memory for m rows, tiles of kt K and
+// `cols` columns per tile: two stages of (m rows of kt codes, the tile's
+// weight rows: kt / 2 packed rows, else kt, row pitch cols rounded up to
+// 16 bytes), contract_codes' partial sums of kThreads / cols K slices,
+// the int32 totals over the tiles (m rows and the column sums), the
+// columns' weight scales and with `outs` the (m, cols) f32 outputs (the
+// prologue's head).
+struct WideLayout {
+  int pitch, slices;
+  size_t q0, q1, w0, w1, part, tot, sw, out, end;
+  CTQ_HD WideLayout(int m, int kt, int packed, int cols, bool outs) {
+    pitch = (int)align16(cols);
+    slices = kThreads / cols;
+    const size_t qb = align16((size_t)m * kt);
+    const size_t wb = align16((size_t)(packed ? kt / 2 : kt) * pitch);
+    q0 = 0;
+    q1 = q0 + qb;
+    w0 = q1 + qb;
+    w1 = w0 + wb;
+    part = w1 + wb;
+    tot = part + align16(4 * (size_t)slices * (m + 1) * cols);
+    sw = tot + align16(4 * (size_t)(m + 1) * cols);
+    out = sw + align16(4 * (size_t)cols);
+    end = out + (outs ? align16(4 * (size_t)m * cols) : 0);
+  }
+};
+
+// The streamed path's device scratch for m rows of d (bytes from a
+// 256-byte aligned base): the transform's two f32 planes y and z (m x d
+// each), each row's range as two ordered ints, and with kt > 0 the codes
+// (m rows of wide_ldq(d, kt) bytes, zero past d).
+CTQ_HD inline size_t wide_ldq(int d, int kt) {
+  return kt > 0 ? (size_t)((k_groups(d) + kt - 1) / kt) * kt : 0;
+}
+struct WideScratch {
+  size_t y, z, mm, q, end;
+  CTQ_HD WideScratch(int m, int d, int kt) {
+    const size_t plane = align16(4 * (size_t)m * d);
+    y = 0;
+    z = y + plane;
+    mm = z + plane;
+    q = mm + align16(8 * (size_t)m);
+    end = q + (size_t)m * wide_ldq(d, kt);
+  }
+};
+
+// The largest tile (kWideMaxTile down to kWideMinTile, halving) whose
+// layout fits beside kStaticSmem, so the most weight bytes are in flight
+// per CTA; 0 if none does.
+CTQ_HD inline int wide_tile(int m, int packed, int cols, bool outs,
+                            int smem_optin, size_t* smem) {
+  for (int kt = kWideMaxTile; kt >= kWideMinTile; kt /= 2) {
+    const WideLayout lay(m, kt, packed, cols, outs);
+    if (lay.end + kStaticSmem <= (size_t)smem_optin) {
+      *smem = lay.end;
+      return kt;
+    }
+  }
+  return 0;
+}
+
+// The streamed decode linear's plan: `cols` columns per tile (a multiple
+// of 4 in [4, kThreads]), or 0 for the plan's own: of 64 and 32, the one
+// that gives the busiest of `sms` CTAs the fewest columns (ceil(tiles /
+// sms) * cols; 64 on a tie), 32-byte weight rows at least.
+CTQ_HD inline bool wide_gemv_plan(int m, int d, int n, int a, int b, int bk,
+                                  int packed, int sms, int smem_optin,
+                                  int cols, Plan* p) {
+  if (!general(d, a, b, bk)) return false;
+  if (cols == 0) {
+    int best = 0;
+    for (int c = 64; c >= 32; c /= 2) {
+      const int tiles = (n + c - 1) / c;
+      const int load = (tiles + sms - 1) / sms * c;
+      if (best == 0 || load < best) {
+        best = load;
+        cols = c;
+      }
+    }
+  }
+  if (cols < 4 || cols > kThreads || cols % 4) return false;
+  size_t smem = 0;
+  const int kt = wide_tile(m, packed, cols, false, smem_optin, &smem);
+  if (kt == 0) return false;
+  *p = Plan{1, (n + cols - 1) / cols, cols, (int)smem, 1, kt};
+  return true;
 }
 
 // The decode fused linear's plan for m rows of d = a * b against n
@@ -146,6 +245,7 @@ CTQ_HD inline bool gemv_plan(int m, int d, int n, int a, int b, int bk,
   if (m < 1 || m > kMaxRows || n < 1 || sms < 1) return false;
   const int c = cluster_size(d, a, b, bk, 0);
   if (c == 0) return false;
+  const int forced = cols;
   if (cols == 0) {
     const int ctas = c * (sms / c > 0 ? sms / c : 1);
     const int need = (int)align16((n + ctas - 1) / ctas);
@@ -154,11 +254,10 @@ CTQ_HD inline bool gemv_plan(int m, int d, int n, int a, int b, int bk,
   if (cols < 4 || cols > kThreads || cols % 4) return false;
   const CtaLayout lay(m, d, c, a, b, bk, packed, cols, false,
                       !splits(d, a, b, bk, c));
-  if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
-  p->cluster = c;
-  p->clusters = (n + c * cols - 1) / (c * cols);
-  p->cols = cols;
-  p->smem = (int)lay.end;
+  if (lay.end + kStaticSmem > (size_t)smem_optin)   // the streamed path
+    return wide_gemv_plan(m, d, n, a, b, bk, packed, sms, smem_optin,
+                          forced, p);
+  *p = Plan{c, (n + c * cols - 1) / (c * cols), cols, (int)lay.end};
   return true;
 }
 
@@ -166,26 +265,32 @@ CTQ_HD inline bool gemv_plan(int m, int d, int n, int a, int b, int bk,
 // b: clusters of the largest size the transform splits over, each
 // transforming `rows` consecutive rows (1..kMaxRows; 0: kMaxRows, so each
 // factor element a CTA reads serves eight rows), ceil(m / rows) clusters.
-// `cols` carries the rows per cluster. -> false for a shape the kernel
-// does not take.
+// `cols` carries the rows per cluster. Where that does not fit in shared
+// memory, the streamed path with `rows` 0: one group of all m rows,
+// transformed by one CTA per SM through the device scratch (no dynamic
+// shared memory). -> false for a shape the kernel does not take.
 CTQ_HD inline bool tiled_plan(int m, int d, int a, int b, int bk,
                               int smem_optin, int rows, Plan* p) {
+  const int forced = rows;
   if (rows == 0) rows = kMaxRows;
   if (m < 1 || rows < 1 || rows > kMaxRows) return false;
   const int c = cluster_size(d, a, b, bk, 0);
   if (c == 0) return false;
   const TqLayout lay(rows, d, c, a, b, bk, false);
-  if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
-  p->cluster = c;
-  p->clusters = (m + rows - 1) / rows;
-  p->cols = rows;
-  p->smem = (int)lay.end;
+  if (lay.end + kStaticSmem > (size_t)smem_optin) {
+    if (forced != 0 || kStaticSmem > smem_optin) return false;
+    *p = Plan{1, 1, m, 0, 1, 0};   // the streamed path
+    return true;
+  }
+  *p = Plan{c, (m + rows - 1) / rows, rows, (int)lay.end};
   return true;
 }
 
 // The prologue's plan for m rows of d = a * b against n = heads * hd QKV
 // columns: one CTA per head (cols = hd, a multiple of 4), in clusters of
 // the largest size the transform splits over that divides the heads.
+// Where that does not fit in shared memory, the streamed path: one head
+// per tile (`clusters` tiles of hd columns).
 CTQ_HD inline bool prologue_plan(int m, int d, int n, int hd, int a, int b,
                                  int bk, int packed, int smem_optin,
                                  Plan* p) {
@@ -196,11 +301,14 @@ CTQ_HD inline bool prologue_plan(int m, int d, int n, int hd, int a, int b,
   if (c == 0) return false;
   const CtaLayout lay(m, d, c, a, b, bk, packed, hd, true,
                       !splits(d, a, b, bk, c));
-  if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
-  p->cluster = c;
-  p->clusters = heads / c;
-  p->cols = hd;
-  p->smem = (int)lay.end;
+  if (lay.end + kStaticSmem > (size_t)smem_optin) {   // the streamed path
+    size_t smem = 0;
+    const int kt = wide_tile(m, packed, hd, true, smem_optin, &smem);
+    if (kt == 0) return false;
+    *p = Plan{1, heads, hd, (int)smem, 1, kt};
+    return true;
+  }
+  *p = Plan{c, heads / c, hd, (int)lay.end};
   return true;
 }
 
@@ -277,9 +385,20 @@ inline int device_smem_optin() {
 // The plans, for Python (kernels/fused_cat_matmul.gemv_plan and
 // tiled_plan, kernels/decode_layer.prologue_plan,
 // kernels/quant_matmul.gemv_plan): out = {cluster,
-// clusters, cols (tiled: rows per cluster), smem}. smem_optin 0 reads
-// the current device's (CUDA builds only). Return 0, or 1 for a shape the
-// kernel does not take.
+// clusters, cols (tiled: rows per cluster), smem, path, ktile}.
+// smem_optin 0 reads the current device's (CUDA builds only). Return 0,
+// or 1 for a shape the kernel does not take.
+namespace ctq {
+inline void write_plan(const Plan& p, int* out) {
+  out[0] = p.cluster;
+  out[1] = p.clusters;
+  out[2] = p.cols;
+  out[3] = p.smem;
+  out[4] = p.path;
+  out[5] = p.ktile;
+}
+}  // namespace ctq
+
 extern "C" int ctq_gemv_plan(int m, int d, int n, int a, int b, int bk,
                              int packed, int sms, int smem_optin, int cols,
                              int* out) {
@@ -289,10 +408,7 @@ extern "C" int ctq_gemv_plan(int m, int d, int n, int a, int b, int bk,
   ctq::Plan p;
   if (!ctq::gemv_plan(m, d, n, a, b, bk, packed, sms, smem_optin, cols, &p))
     return 1;
-  out[0] = p.cluster;
-  out[1] = p.clusters;
-  out[2] = p.cols;
-  out[3] = p.smem;
+  ctq::write_plan(p, out);
   return 0;
 }
 
@@ -303,10 +419,7 @@ extern "C" int ctq_tiled_plan(int m, int d, int a, int b, int bk,
 #endif
   ctq::Plan p;
   if (!ctq::tiled_plan(m, d, a, b, bk, smem_optin, rows, &p)) return 1;
-  out[0] = p.cluster;
-  out[1] = p.clusters;
-  out[2] = p.cols;
-  out[3] = p.smem;
+  ctq::write_plan(p, out);
   return 0;
 }
 
@@ -319,10 +432,7 @@ extern "C" int ctq_prologue_plan(int m, int d, int n, int hd, int a, int b,
   ctq::Plan p;
   if (!ctq::prologue_plan(m, d, n, hd, a, b, bk, packed, smem_optin, &p))
     return 1;
-  out[0] = p.cluster;
-  out[1] = p.clusters;
-  out[2] = p.cols;
-  out[3] = p.smem;
+  ctq::write_plan(p, out);
   return 0;
 }
 
@@ -334,9 +444,13 @@ extern "C" int ctq_code_gemv_plan(int m, int k, int n, int packed, int sms,
   ctq::Plan p;
   if (!ctq::code_gemv_plan(m, k, n, packed, sms, smem_optin, cols, &p))
     return 1;
-  out[0] = p.cluster;
-  out[1] = p.clusters;
-  out[2] = p.cols;
-  out[3] = p.smem;
+  ctq::write_plan(p, out);
+  return 0;
+}
+
+// The streamed path's device scratch in bytes for m rows of d and tiles
+// of ktile K (0: the tiled stage, no codes), into *out. Returns 0.
+extern "C" int ctq_wide_scratch(int m, int d, int ktile, long long* out) {
+  *out = (long long)ctq::WideScratch(m, d, ktile).end;
   return 0;
 }

@@ -26,6 +26,11 @@
 // Widths the cluster transform does not split (ctq::general: odd D, any
 // factors, any CAT block dividing D) run on clusters of one head CTA
 // through the general path of cluster_tq.cuh, bitwise as the vector path.
+// Widths whose operands the cluster's shared memory does not hold (D
+// 2048 at head_dim 128, 5120 and up) take the streamed path of
+// wide_tq.cuh: one cooperative launch, the transform through a device
+// scratch, then each CTA's heads with K streamed through a two-stage
+// cp.async ring, and the same head epilogue.
 //
 // Bound on this card: the packed QKV weight (D/2 x N bytes, 256 KiB at
 // full width) over HBM bandwidth; everything else is a few KiB. The design
@@ -41,6 +46,7 @@
 #include <type_traits>
 
 #include "cluster_tq.cuh"
+#include "wide_tq.cuh"
 
 namespace {
 
@@ -55,84 +61,31 @@ __device__ __forceinline__ float in_dtype(float v) {
     return v;
 }
 
-// grid (n_heads_total), clusters of c, ctq::kThreads threads; CTA
-// blockIdx.x owns head blockIdx.x. Dynamic shared memory: the plan's
-// (ctq::CtaLayout with outputs): the transform's (all m x d codes
-// included), the head's weight columns, partial sums and (m, hd) outputs.
-// ANY: the general path (c = 1), K padded to k_groups(d) with zero codes
-// and zero weight rows.
-template <typename T, bool PACKED, bool ANY>
-__global__ void __launch_bounds__(ctq::kThreads) decode_qkv_prologue_kernel(
-    const T* __restrict__ x, int m, int d,
-    const float* __restrict__ blocks, int bk,
-    const float* __restrict__ sign,
-    const float* __restrict__ ha, int a,
-    const float* __restrict__ hb, int b, int act_bits,
-    const int8_t* __restrict__ qw, const float* __restrict__ sw, int n,
-    int n_q, int n_kv, int hd, const float* __restrict__ freq,
-    int kv_bits, const int* __restrict__ page_ids,
-    const int* __restrict__ row_ids, const int* __restrict__ positions,
-    int page_size, int8_t* __restrict__ k_pool, float* __restrict__ k_scale,
-    int8_t* __restrict__ v_pool, float* __restrict__ v_scale,
-    float* __restrict__ q_out, int vw) {
-  extern __shared__ float4 prologue_smem_base[];   // 16-byte aligned
-  char* smem = reinterpret_cast<char*>(prologue_smem_base);
-  namespace cg = cooperative_groups;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
-  const int tid = threadIdx.x, nt = blockDim.x;
-  const int head = blockIdx.x;
-  const int kvh = n_kv / hd, L = d / c, bl = b / c;
-  const int unit = PACKED ? 2 : 1;   // K per weight row
-  const ctq::CtaLayout lay(m, d, c, a, b, blocks != nullptr ? bk : 0,
-                           PACKED, hd, true, ANY);
-  int8_t* s_w = reinterpret_cast<int8_t*>(smem + lay.w);
-  int* s_part = reinterpret_cast<int*>(smem + lay.part);
-  int* s_pcs = s_part + lay.slices * m * hd;
-  float* s_out = reinterpret_cast<float*>(smem + lay.out);
-  float* s_sw = reinterpret_cast<float*>(smem + lay.sw);
-  __shared__ float s_sx[kMaxRows], s_zx[kMaxRows];
+// The head's epilogue, by every thread of its CTA: the (m, hd) outputs
+// from the exact sums s_acc (row r at r * hd) and column sums s_cs
+// (rounded to T where the composed path rounds), RoPE on q and k heads,
+// then q out, or the symmetric int8 quant per (row, KV head) and the
+// paged scatter. Ends at a block barrier or with the head's last store.
+template <typename T>
+__device__ void head_epilogue(int head, int m, const float* s_sx,
+                              const float* s_zx, const float* s_sw,
+                              const int* s_acc, const int* s_cs,
+                              float* s_out, int n_q, int n_kv, int hd,
+                              const float* __restrict__ freq, int kv_bits,
+                              const int* __restrict__ page_ids,
+                              const int* __restrict__ row_ids,
+                              const int* __restrict__ positions,
+                              int page_size, int8_t* __restrict__ k_pool,
+                              float* __restrict__ k_scale,
+                              int8_t* __restrict__ v_pool,
+                              float* __restrict__ v_scale,
+                              float* __restrict__ q_out) {
+  const int tid = threadIdx.x, nt = blockDim.x, kvh = n_kv / hd;
   __shared__ float s_amax[kMaxRows];
-
-  // 1. the transform's operands and the head's weight columns (loads
-  //    overlap the transform), then the rows' transform + quant over the
-  //    cluster, which leaves all the codes in every CTA
-  if constexpr (ANY) {
-    ctq::stage_transform_any(x, m, d, blocks, bk, sign, ha, a, hb, b,
-                             lay.tq, smem);
-    ctq::stage_f32(s_sw, sw + head * hd, hd);
-    const int w_rows = (d + unit - 1) / unit;   // the weight's rows
-    ctq::stage_weights(s_w, lay.pitch, qw, n, w_rows, w_rows, 1, 1,
-                       head * hd, hd, vw);
-    ctq::zero_weight_rows(s_w, lay.pitch, w_rows, ctq::k_groups(d) / unit);
-    ctq::transform_quant_any(
-        m, d, blocks != nullptr, bk, sign, a, b, act_bits, lay.tq, smem,
-        s_sx, s_zx, reinterpret_cast<int8_t*>(smem + lay.tq.qall),
-        ctq::align16(d), ctq::k_groups(d));
-  } else {
-    ctq::stage_transform(x, m, d, c, rank, blocks, bk, sign, ha, a, hb, b,
-                         lay.tq, smem);
-    ctq::stage_f32(s_sw, sw + head * hd, hd);
-    ctq::stage_weights(s_w, lay.pitch, qw, n, d / unit, L / unit, bl / unit,
-                       b / unit, head * hd, hd, vw);
-    ctq::transform_quant(m, d, c, rank, blocks != nullptr, bk, sign, a, b,
-                         act_bits, lay.tq, smem, s_sx, s_zx);
-    cluster.sync();   // every CTA holds all the codes
-  }
-  ctq::cp_async_wait_all();
-  __syncthreads();
-
-  // 2. the head's hd columns over all of K (the table's row stride and
-  //    the K contracted: d on the vector path; d rounded up to 16 and to
-  //    a dp4a group on the general one), then the epilogue
-  ctq::contract_codes<PACKED, kMaxRows>(
-      reinterpret_cast<const int8_t*>(smem + lay.tq.qall),
-      ANY ? (int)ctq::align16(d) : d, ANY ? ctq::k_groups(d) : d, s_w,
-      lay.pitch, hd, m, s_part, s_pcs);
   for (int t = tid; t < m * hd; t += nt) {
     const int r = t / hd, j = t - r * hd;
-    s_out[t] = in_dtype<T>(contract::epilogue(s_sx[r], s_sw[j], s_part[t],
-                                              s_zx[r], s_pcs[j]));
+    s_out[t] = in_dtype<T>(contract::epilogue(s_sx[r], s_sw[j], s_acc[t],
+                                              s_zx[r], s_cs[j]));
   }
   __syncthreads();
 
@@ -189,6 +142,134 @@ __global__ void __launch_bounds__(ctq::kThreads) decode_qkv_prologue_kernel(
     pool[slot * hd + i] = (int8_t)code;
     if (i == 0) pscale[slot] = scale;
   }
+  __syncthreads();
+}
+
+// grid (n_heads_total), clusters of c, ctq::kThreads threads; CTA
+// blockIdx.x owns head blockIdx.x. Dynamic shared memory: the plan's
+// (ctq::CtaLayout with outputs): the transform's (all m x d codes
+// included), the head's weight columns, partial sums and (m, hd) outputs.
+// ANY: the general path (c = 1), K padded to k_groups(d) with zero codes
+// and zero weight rows.
+template <typename T, bool PACKED, bool ANY>
+__global__ void __launch_bounds__(ctq::kThreads) decode_qkv_prologue_kernel(
+    const T* __restrict__ x, int m, int d,
+    const float* __restrict__ blocks, int bk,
+    const float* __restrict__ sign,
+    const float* __restrict__ ha, int a,
+    const float* __restrict__ hb, int b, int act_bits,
+    const int8_t* __restrict__ qw, const float* __restrict__ sw, int n,
+    int n_q, int n_kv, int hd, const float* __restrict__ freq,
+    int kv_bits, const int* __restrict__ page_ids,
+    const int* __restrict__ row_ids, const int* __restrict__ positions,
+    int page_size, int8_t* __restrict__ k_pool, float* __restrict__ k_scale,
+    int8_t* __restrict__ v_pool, float* __restrict__ v_scale,
+    float* __restrict__ q_out, int vw) {
+  extern __shared__ float4 prologue_smem_base[];   // 16-byte aligned
+  char* smem = reinterpret_cast<char*>(prologue_smem_base);
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int head = blockIdx.x;
+  const int L = d / c, bl = b / c;
+  const int unit = PACKED ? 2 : 1;   // K per weight row
+  const ctq::CtaLayout lay(m, d, c, a, b, blocks != nullptr ? bk : 0,
+                           PACKED, hd, true, ANY);
+  int8_t* s_w = reinterpret_cast<int8_t*>(smem + lay.w);
+  int* s_part = reinterpret_cast<int*>(smem + lay.part);
+  int* s_pcs = s_part + lay.slices * m * hd;
+  float* s_out = reinterpret_cast<float*>(smem + lay.out);
+  float* s_sw = reinterpret_cast<float*>(smem + lay.sw);
+  __shared__ float s_sx[kMaxRows], s_zx[kMaxRows];
+
+  // 1. the transform's operands and the head's weight columns (loads
+  //    overlap the transform), then the rows' transform + quant over the
+  //    cluster, which leaves all the codes in every CTA
+  if constexpr (ANY) {
+    ctq::stage_transform_any(x, m, d, blocks, bk, sign, ha, a, hb, b,
+                             lay.tq, smem);
+    ctq::stage_f32(s_sw, sw + head * hd, hd);
+    const int w_rows = (d + unit - 1) / unit;   // the weight's rows
+    ctq::stage_weights(s_w, lay.pitch, qw, n, w_rows, w_rows, 1, 1,
+                       head * hd, hd, vw);
+    ctq::zero_weight_rows(s_w, lay.pitch, w_rows, ctq::k_groups(d) / unit);
+    ctq::transform_quant_any(
+        m, d, blocks != nullptr, bk, sign, a, b, act_bits, lay.tq, smem,
+        s_sx, s_zx, reinterpret_cast<int8_t*>(smem + lay.tq.qall),
+        ctq::align16(d), ctq::k_groups(d));
+  } else {
+    ctq::stage_transform(x, m, d, c, rank, blocks, bk, sign, ha, a, hb, b,
+                         lay.tq, smem);
+    ctq::stage_f32(s_sw, sw + head * hd, hd);
+    ctq::stage_weights(s_w, lay.pitch, qw, n, d / unit, L / unit, bl / unit,
+                       b / unit, head * hd, hd, vw);
+    ctq::transform_quant(m, d, c, rank, blocks != nullptr, bk, sign, a, b,
+                         act_bits, lay.tq, smem, s_sx, s_zx);
+    cluster.sync();   // every CTA holds all the codes
+  }
+  ctq::cp_async_wait_all();
+  __syncthreads();
+
+  // 2. the head's hd columns over all of K (the table's row stride and
+  //    the K contracted: d on the vector path; d rounded up to 16 and to
+  //    a dp4a group on the general one), then the head's epilogue
+  ctq::contract_codes<PACKED, kMaxRows>(
+      reinterpret_cast<const int8_t*>(smem + lay.tq.qall),
+      ANY ? (int)ctq::align16(d) : d, ANY ? ctq::k_groups(d) : d, s_w,
+      lay.pitch, hd, m, s_part, s_pcs);
+  head_epilogue<T>(head, m, s_sx, s_zx, s_sw, s_part, s_pcs, s_out, n_q,
+                   n_kv, hd, freq, kv_bits, page_ids, row_ids, positions,
+                   page_size, k_pool, k_scale, v_pool, v_scale, q_out);
+}
+
+// The streamed path (cluster_plan.h path 1): one cooperative launch (one
+// CTA per SM). The grid transforms and quantizes the m rows into the
+// scratch ws (wide_tq.cuh), then CTA i takes heads i, i + grid, ...,
+// streams K in tiles of kt against the head's hd columns and runs the
+// head's epilogue (RoPE, KV quant, scatter) as the cluster kernel does.
+// Dynamic shared memory: the plan's (ctq::WideLayout with outputs).
+template <typename T, bool PACKED>
+__global__ void __launch_bounds__(ctq::kThreads) wide_prologue_kernel(
+    const T* __restrict__ x, int m, int d,
+    const float* __restrict__ blocks, int bk,
+    const float* __restrict__ sign,
+    const float* __restrict__ ha, int a,
+    const float* __restrict__ hb, int b, int act_bits,
+    const int8_t* __restrict__ qw, const float* __restrict__ sw, int n,
+    int n_q, int n_kv, int hd, const float* __restrict__ freq,
+    int kv_bits, const int* __restrict__ page_ids,
+    const int* __restrict__ row_ids, const int* __restrict__ positions,
+    int page_size, int8_t* __restrict__ k_pool, float* __restrict__ k_scale,
+    int8_t* __restrict__ v_pool, float* __restrict__ v_scale,
+    float* __restrict__ q_out, int kt, int vw, void* ws) {
+  extern __shared__ float4 wide_prologue_smem_base[];   // 16-byte aligned
+  char* smem = reinterpret_cast<char*>(wide_prologue_smem_base);
+  const wide::Regions s(ws, m, d, kt);
+  const size_t ldq = ctq::wide_ldq(d, kt);
+  wide::transform_quant(x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits,
+                        s.y, s.z, s.mm, s.q, ldq, (int)ldq, nullptr,
+                        nullptr);
+  const ctq::WideLayout lay(m, kt, PACKED, hd, true);
+  const int* s_tot = reinterpret_cast<const int*>(smem + lay.tot);
+  float* s_sw = reinterpret_cast<float*>(smem + lay.sw);
+  float* s_out = reinterpret_cast<float*>(smem + lay.out);
+  __shared__ float s_sx[kMaxRows], s_zx[kMaxRows];
+  if (threadIdx.x < m) {
+    float zp;
+    wide::row_params(s.mm, threadIdx.x, act_bits, &s_sx[threadIdx.x], &zp,
+                     &s_zx[threadIdx.x]);
+  }
+  for (int head = blockIdx.x; head < n / hd; head += gridDim.x) {
+    for (int j = threadIdx.x; j < hd; j += ctq::kThreads)
+      s_sw[j] = sw[head * hd + j];
+    wide::contract_stream<PACKED>(s.q, ldq, m, kt, qw, n, d, head * hd, hd,
+                                  vw, lay, smem);
+    head_epilogue<T>(head, m, s_sx, s_zx, s_sw, s_tot, s_tot + m * hd,
+                     s_out, n_q, n_kv, hd, freq, kv_bits, page_ids, row_ids,
+                     positions, page_size, k_pool, k_scale, v_pool, v_scale,
+                     q_out);
+    __syncthreads();   // the totals and outputs are reused by the next head
+  }
 }
 
 template <typename T, bool PACKED>
@@ -199,7 +280,24 @@ cudaError_t launch(const void* x, int m, int d, const void* blocks, int bk,
                    const void* page_ids, const void* row_ids,
                    const void* positions, int page_size, void* k_pool,
                    void* k_scale, void* v_pool, void* v_scale, void* q_out,
-                   const ctq::Plan& p, cudaStream_t stream) {
+                   const ctq::Plan& p, void* ws, cudaStream_t stream) {
+  if (p.path == 1) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    return wide::launch(
+        wide_prologue_kernel<T, PACKED>, wide::device_sms(), (size_t)p.smem,
+        stream, static_cast<const T*>(x), m, d,
+        static_cast<const float*>(blocks), bk,
+        static_cast<const float*>(sign), static_cast<const float*>(ha), a,
+        static_cast<const float*>(hb), b, act_bits,
+        static_cast<const int8_t*>(qw), static_cast<const float*>(sw), n,
+        n_q, n_kv, hd, static_cast<const float*>(freq), kv_bits,
+        static_cast<const int*>(page_ids), static_cast<const int*>(row_ids),
+        static_cast<const int*>(positions), page_size,
+        static_cast<int8_t*>(k_pool), static_cast<float*>(k_scale),
+        static_cast<int8_t*>(v_pool), static_cast<float*>(v_scale),
+        static_cast<float*>(q_out), p.ktile, ctq::weight_vector(qw, n, hd),
+        ws);
+  }
   auto kernel =
       ctq::splits(d, a, b, blocks != nullptr ? bk : 0, p.cluster)
           ? decode_qkv_prologue_kernel<T, PACKED, false>
@@ -221,8 +319,11 @@ cudaError_t launch(const void* x, int m, int d, const void* blocks, int bk,
 }  // namespace
 
 // One launch in clusters of head CTAs, on the plan of ctq::prologue_plan
-// (cluster_plan.h). A shape the plan does not take returns
-// cudaErrorInvalidValue. Returns cudaGetLastError() of the launch.
+// (cluster_plan.h); on its streamed path (plan path 1) one cooperative
+// launch of one CTA per SM with the device scratch ``ws``
+// (ctq_wide_scratch bytes, 256-byte aligned; may be null on the cluster
+// path). A shape the plan does not take returns cudaErrorInvalidValue.
+// Returns cudaGetLastError() of the launch.
 extern "C" int decode_qkv_prologue(
     const void* x, int x_is_bf16, int m, int d,
     const void* blocks, int bk, const void* sign,
@@ -231,7 +332,7 @@ extern "C" int decode_qkv_prologue(
     int n_q, int n_kv, int hd, const void* freq, int kv_bits,
     const void* page_ids, const void* row_ids, const void* positions,
     int page_size, void* k_pool, void* k_scale, void* v_pool,
-    void* v_scale, void* q_out, void* stream_ptr) {
+    void* v_scale, void* q_out, void* ws, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   ctq::Plan p;
   if (act_bits < 2 || act_bits > 8
@@ -241,7 +342,7 @@ extern "C" int decode_qkv_prologue(
 #define REPRO_PROLOGUE_ARGS                                                 \
   x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits, qw, sw, n, n_q, n_kv,  \
       hd, freq, kv_bits, page_ids, row_ids, positions, page_size, k_pool,   \
-      k_scale, v_pool, v_scale, q_out, p, stream
+      k_scale, v_pool, v_scale, q_out, p, ws, stream
   cudaError_t err;
   if (x_is_bf16) {
     err = packed ? launch<__nv_bfloat16, true>(REPRO_PROLOGUE_ARGS)

@@ -35,6 +35,13 @@
 // stores the codes of its rows byte by byte, zero past D), bitwise to the
 // plain version as the vector path is.
 //
+// Widths whose operands the cluster's shared memory does not hold (d_ff
+// 14336 and up, N 28672 at M 8: cluster_plan.h's path 1) take the
+// streamed path of wide_tq.cuh in both entries: the decode linear as ONE
+// cooperative launch (transform into a device scratch, then each CTA's
+// column tiles with K streamed through a two-stage cp.async ring), the
+// tiled stage 1 as one cooperative launch writing the codes to qx.
+//
 // Bound on this card: at decode shapes the packed-weight bytes (D/2 x N)
 // over HBM bandwidth; at the 128-row ragged step the weight is still the
 // larger stream (D/2 x N vs m x D x 2), so bytes bound both. In practice
@@ -44,6 +51,7 @@
 // weight byte is read once.
 #include "cluster_tq.cuh"
 #include "contract.cuh"
+#include "wide_tq.cuh"
 
 namespace {
 
@@ -108,12 +116,87 @@ __global__ void __launch_bounds__(ctq::kThreads) cluster_transform_quant_kernel(
   }
 }
 
+// Tiled stage 1, streamed path: one cooperative launch (one CTA per SM)
+// transforms and quantizes all m rows through the scratch ws
+// (wide::transform_quant), the codes into qx (row stride k_pad, zero past
+// d), sx and zx. No dynamic shared memory.
+template <typename T>
+__global__ void __launch_bounds__(ctq::kThreads) wide_transform_quant_kernel(
+    const T* __restrict__ x, int m, int d, int k_pad,
+    const float* __restrict__ blocks, int bk,
+    const float* __restrict__ sign,
+    const float* __restrict__ ha, int a,
+    const float* __restrict__ hb, int b, int act_bits, void* ws,
+    int8_t* __restrict__ qx, float* __restrict__ sx, float* __restrict__ zx) {
+  const wide::Regions s(ws, m, d, 0);
+  wide::transform_quant(x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits,
+                        s.y, s.z, s.mm, qx, k_pad, k_pad, sx, zx);
+}
+
+// Decode, streamed path: one cooperative launch (one CTA per SM). The
+// grid transforms and quantizes the m rows into the scratch ws, then CTA
+// i takes column tiles i, i + grid, ... of tc columns, streams K in tiles
+// of kt (wide::contract_stream) and applies the epilogue. Dynamic shared
+// memory: the plan's (ctq::WideLayout).
+template <typename T, bool PACKED>
+__global__ void __launch_bounds__(ctq::kThreads) wide_gemv_kernel(
+    const T* __restrict__ x, int m, int d,
+    const float* __restrict__ blocks, int bk,
+    const float* __restrict__ sign,
+    const float* __restrict__ ha, int a,
+    const float* __restrict__ hb, int b, int act_bits,
+    const int8_t* __restrict__ qw, const float* __restrict__ sw, int n,
+    int tc, int kt, int vw, void* ws, float* __restrict__ out) {
+  extern __shared__ float4 wide_smem_base[];   // 16-byte aligned
+  char* smem = reinterpret_cast<char*>(wide_smem_base);
+  const wide::Regions s(ws, m, d, kt);
+  const size_t ldq = ctq::wide_ldq(d, kt);
+  wide::transform_quant(x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits,
+                        s.y, s.z, s.mm, s.q, ldq, (int)ldq, nullptr,
+                        nullptr);
+  const ctq::WideLayout lay(m, kt, PACKED, tc, false);
+  const int* s_tot = reinterpret_cast<const int*>(smem + lay.tot);
+  float* s_sw = reinterpret_cast<float*>(smem + lay.sw);
+  __shared__ float s_sx[ctq::kMaxRows], s_zx[ctq::kMaxRows];
+  if (threadIdx.x < m) {
+    float zp;
+    wide::row_params(s.mm, threadIdx.x, act_bits, &s_sx[threadIdx.x], &zp,
+                     &s_zx[threadIdx.x]);
+  }
+  const int tiles = (n + tc - 1) / tc;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = tile * tc, cols = min(tc, n - n0);
+    for (int j = threadIdx.x; j < cols; j += ctq::kThreads)
+      s_sw[j] = sw[n0 + j];
+    wide::contract_stream<PACKED>(s.q, ldq, m, kt, qw, n, d, n0, tc, vw,
+                                  lay, smem);
+    for (int t = threadIdx.x; t < m * cols; t += ctq::kThreads) {
+      const int r = t / cols, j = t - r * cols;
+      out[(size_t)r * n + n0 + j] = contract::epilogue(
+          s_sx[r], s_sw[j], s_tot[r * tc + j], s_zx[r], s_tot[m * tc + j]);
+    }
+    __syncthreads();   // the totals and scales are reused by the next tile
+  }
+}
+
 template <typename T>
 cudaError_t launch_stage1(const void* x, int m, int d, int k_pad,
                           const void* blocks, int bk, const void* sign,
                           const void* ha, int a, const void* hb, int b,
-                          int act_bits, const ctq::Plan& p, void* qx,
-                          void* sx, void* zx, cudaStream_t stream) {
+                          int act_bits, const ctq::Plan& p, void* ws,
+                          void* qx, void* sx, void* zx,
+                          cudaStream_t stream) {
+  if (p.path == 1) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    return wide::launch(
+        wide_transform_quant_kernel<T>, wide::device_sms(), 0, stream,
+        static_cast<const T*>(x), m, d, k_pad,
+        static_cast<const float*>(blocks), bk,
+        static_cast<const float*>(sign), static_cast<const float*>(ha), a,
+        static_cast<const float*>(hb), b, act_bits, ws,
+        static_cast<int8_t*>(qx), static_cast<float*>(sx),
+        static_cast<float*>(zx));
+  }
   // each CTA's runs of bl = b / c codes go out 4 or 2 bytes at a time (bl
   // is even, k_pad = d a multiple of 32); the general path's byte by byte
   const bool vec4 = (b / p.cluster) % 4 == 0;
@@ -208,8 +291,19 @@ cudaError_t launch_decode(const void* x, int m, int d, const void* blocks,
                           int bk, const void* sign, const void* ha, int a,
                           const void* hb, int b, int act_bits,
                           const void* qw, const void* sw, int n,
-                          const ctq::Plan& p, void* out,
+                          const ctq::Plan& p, int sms, void* ws, void* out,
                           cudaStream_t stream) {
+  if (p.path == 1) {
+    if (ws == nullptr) return cudaErrorInvalidValue;
+    return wide::launch(
+        wide_gemv_kernel<T, PACKED>, sms, (size_t)p.smem, stream,
+        static_cast<const T*>(x), m, d, static_cast<const float*>(blocks),
+        bk, static_cast<const float*>(sign), static_cast<const float*>(ha),
+        a, static_cast<const float*>(hb), b, act_bits,
+        static_cast<const int8_t*>(qw), static_cast<const float*>(sw), n,
+        p.cols, p.ktile, ctq::weight_vector(qw, n, p.cols), ws,
+        static_cast<float*>(out));
+  }
   auto kernel =
       ctq::splits(d, a, b, blocks != nullptr ? bk : 0, p.cluster)
           ? fused_cat_gemv_kernel<T, PACKED, false>
@@ -228,7 +322,10 @@ cudaError_t launch_decode(const void* x, int m, int d, const void* blocks,
 
 // Decode-shaped entry (1 <= m <= 8), one launch in clusters, on the plan
 // of ctq::gemv_plan (cluster_plan.h) for a card of ``sms`` SMs, with
-// ``cols`` output columns per CTA (0: the plan's own choice). A shape the
+// ``cols`` output columns per CTA (0: the plan's own choice). On the
+// streamed path (plan path 1) one cooperative launch of ``sms`` CTAs
+// with the device scratch ``ws`` (ctq_wide_scratch bytes, 256-byte
+// aligned; unused, and may be null, on the cluster path). A shape the
 // plan does not take returns cudaErrorInvalidValue. Returns
 // cudaGetLastError() of the launch.
 extern "C" int fused_cat_gemv_w4(
@@ -236,7 +333,7 @@ extern "C" int fused_cat_gemv_w4(
     const void* blocks, int bk, const void* sign,
     const void* ha, int a, const void* hb, int b, int act_bits,
     const void* qw, int packed, const void* sw, int n, int sms, int cols,
-    void* out, void* stream_ptr) {
+    void* ws, void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   ctq::Plan p;
   if (act_bits < 2 || act_bits > 8
@@ -244,8 +341,8 @@ extern "C" int fused_cat_gemv_w4(
                          sms, ctq::device_smem_optin(), cols, &p))
     return (int)cudaErrorInvalidValue;
 #define REPRO_GEMV_ARGS                                                    \
-  x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits, qw, sw, n, p, out,    \
-      stream
+  x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits, qw, sw, n, p, sms,   \
+      ws, out, stream
   cudaError_t err;
   if (x_is_bf16) {
     err = packed ? launch_decode<__nv_bfloat16, true>(REPRO_GEMV_ARGS)
@@ -268,7 +365,9 @@ extern "C" int fused_cat_gemv_capacity(int cluster, int smem) {
 
 // Tiled entry (m > 8): stage 1 is the cluster transform-quant on the plan
 // of ctq::tiled_plan (cluster_plan.h) with ``rows`` rows per cluster (0:
-// the plan's), into the code scratch qx (m, k_pad) int8 (k_pad = d, or d
+// the plan's) — on its streamed path one cooperative launch through the
+// device scratch ``tws`` (ctq_wide_scratch(m, d, 0) bytes; may be null on
+// the cluster path) — into the code scratch qx (m, k_pad) int8 (k_pad = d, or d
 // + 1 for odd d against packed weights: that code is 0), sx, zx (m,) f32;
 // stage 2 the tensor-core contraction, for packed or int8 weights,
 // with ``splits`` K splits and their scratch ws (quant_matmul_plan of
@@ -279,7 +378,8 @@ extern "C" int fused_cat_matmul_w4(
     const void* blocks, int bk, const void* sign,
     const void* ha, int a, const void* hb, int b, int act_bits,
     const void* qw, int packed, const void* sw, int n, int rows, int splits,
-    void* ws, void* qx, void* sx, void* zx, void* out, void* stream_ptr) {
+    void* ws, void* tws, void* qx, void* sx, void* zx, void* out,
+    void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   ctq::Plan p;
   if (act_bits < 2 || act_bits > 8 || k_pad != d + (packed ? d % 2 : 0)
@@ -289,10 +389,10 @@ extern "C" int fused_cat_matmul_w4(
   cudaError_t err =
       x_is_bf16 ? launch_stage1<__nv_bfloat16>(x, m, d, k_pad, blocks, bk,
                                                sign, ha, a, hb, b, act_bits,
-                                               p, qx, sx, zx, stream)
+                                               p, tws, qx, sx, zx, stream)
                 : launch_stage1<float>(x, m, d, k_pad, blocks, bk, sign, ha,
-                                       a, hb, b, act_bits, p, qx, sx, zx,
-                                       stream);
+                                       a, hb, b, act_bits, p, tws, qx, sx,
+                                       zx, stream);
   if (err != cudaSuccess) return (int)err;
   return (int)contract::launch_mma(qx, k_pad, k_pad, sx, zx, m, k_pad, qw,
                                    packed, sw, n, splits, ws, out, stream);

@@ -19,8 +19,14 @@ the rows' transform and quant once, split over its CTAs
 pushes its codes into every peer's shared memory; every CTA then
 contracts its head's columns against all the codes (16-byte weight loads
 into shared memory), applies RoPE and the KV quant on chip and writes
-its codes straight into the pool. What bounds it on the H100 is the packed QKV weight (D/2 x N
-bytes) over HBM bandwidth; each weight byte is read once.
+its codes straight into the pool. Widths whose operands one cluster's
+shared memory cannot hold (the plan's ``path`` 1: D 5120 at head_dim
+128, for one) take the streamed path (``csrc/wide_tq.cuh``): one
+cooperative launch of one CTA per SM, the transform through a device
+scratch this wrapper allocates, then each CTA's heads with K streamed
+through shared memory, and the same per-head epilogue. What bounds it on
+the H100 is the packed QKV weight (D/2 x N bytes) over HBM bandwidth;
+each weight byte is read once.
 
 The wrapper launches the kernel for CUDA tensors (counted in
 ``decode_qkv_prologue.launches``), raises for a device that is neither
@@ -34,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -41,15 +48,18 @@ from repro_torch.models.layers import quantize_kv, rope, rope_freq
 
 from . import build
 from .fused_cat_matmul import (_INVALID_VALUE, _PLAN, GEMV_M, _contiguous,
-                               fused_cat_linear_plain, read_plan)
+                               _SIGNATURES as _F_SIGNATURES,
+                               fused_cat_linear_plain, read_plan,
+                               wide_scratch)
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
 _SIGNATURES = {"decode_qkv_prologue": [
     _P, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C, _P, _C, _P, _C,
-    _C, _C, _C, _P, _C, _P, _P, _P, _C, _P, _P, _P, _P, _P, _P],
+    _C, _C, _C, _P, _C, _P, _P, _P, _C, _P, _P, _P, _P, _P, _P, _P],
     "decode_qkv_prologue_capacity": [_C, _C],
-    "ctq_prologue_plan": [_C] * 9 + [_PLAN]}
+    "ctq_prologue_plan": [_C] * 9 + [_PLAN],
+    "ctq_wide_scratch": _F_SIGNATURES["ctq_wide_scratch"]}
 
 _FREQ: dict = {}
 
@@ -98,11 +108,14 @@ class ProloguePlan:
     columns), in ``clusters`` clusters of ``cluster`` heads (cluster g
     holds heads g·cluster .. (g+1)·cluster − 1, each CTA computing
     D/cluster of the transform's values); ``smem`` bytes of dynamic
-    shared memory per CTA."""
+    shared memory per CTA. On the streamed path (``path`` 1) one CTA per
+    SM takes the ``clusters`` heads in turn, K in tiles of ``ktile``."""
     cluster: int
     clusters: int
     cols: int
     smem: int
+    path: int = 0
+    ktile: int = 0
 
     def heads(self, g: int) -> range:
         return range(g * self.cluster, (g + 1) * self.cluster)
@@ -123,6 +136,16 @@ def prologue_plan(m: int, d: int, n: int, head_dim: int, a: int, b: int,
     return ProloguePlan(*read_plan(lib.ctq_prologue_plan, "the prologue", m,
                                    d, n, head_dim, a, b, bk, int(packed),
                                    smem_optin))
+
+
+@functools.lru_cache(maxsize=256)
+def _served_plan(lib, *args):
+    """The prologue's plan for a served shape, read once; None for a shape
+    the plan refuses (the entry then reports it)."""
+    try:
+        return prologue_plan(*args, lib=lib)
+    except ValueError:
+        return None
 
 
 def _validate(x, blocks, ha, hb, sign, qw, sw, pools, ids, n_q, head_dim,
@@ -221,6 +244,12 @@ def decode_qkv_prologue(x, blocks, ha, hb, sign, qw, sw, k_pool, k_scale,
     bk = 0 if blocks is None else blocks.shape[1]
     freq = _freq(head_dim, rope_theta, x.device)
     lib = build.load("decode_layer", _SIGNATURES)
+    plan = _served_plan(lib, m, d, qw.shape[1], head_dim, ha.shape[0],
+                        hb.shape[0], bk, bool(packed))
+    ws = None
+    if plan is not None and plan.path == 1:
+        ws = torch.empty(wide_scratch(m, d, plan.ktile, lib=lib),
+                         dtype=torch.uint8, device=x.device)
     code = lib.decode_qkv_prologue(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d,
         build.ptr(blocks), bk, build.ptr(sign), build.ptr(ha), ha.shape[0],
@@ -228,7 +257,7 @@ def decode_qkv_prologue(x, blocks, ha, hb, sign, qw, sw, k_pool, k_scale,
         build.ptr(sw), qw.shape[1], n_q, n_kv, head_dim, build.ptr(freq),
         kv_bits, *(build.ptr(t) for t in ids), k_pool.shape[1],
         build.ptr(k_pool), build.ptr(k_scale), build.ptr(v_pool),
-        build.ptr(v_scale), build.ptr(q), build.stream_of(x))
+        build.ptr(v_scale), build.ptr(q), build.ptr(ws), build.stream_of(x))
     if code == _INVALID_VALUE:   # a shape the plan refuses: say why
         prologue_plan(m, d, qw.shape[1], head_dim, ha.shape[0], hb.shape[0],
                       bk, packed, lib=lib)

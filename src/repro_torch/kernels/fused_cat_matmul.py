@@ -18,9 +18,17 @@ epilogue. The plan (cluster size, columns per CTA) is the CUDA source's
 (``csrc/cluster_plan.h``); ``gemv_plan`` reads it. Widths that split over
 no cluster (odd D, factors or a CAT block that are not multiples of 4)
 run on clusters of one CTA through the general path, bitwise alike.
-Above 8 rows the same cluster transform runs on groups of up to eight
-rows, one cluster each (``tiled_plan``), every CTA storing the codes of
-its own K values to a scratch buffer; the tensor-core contraction of ``quant_matmul`` and
+Widths whose operands one cluster's shared memory cannot hold (the
+plan's ``path`` 1: d_ff 14336 and up, or N 28672 at M 8) take the
+streamed path (``csrc/wide_tq.cuh``): one cooperative launch of one CTA
+per SM, the transform's intermediates in a device scratch buffer this
+wrapper allocates (``wide_scratch`` bytes), each transform output still
+one in-order fma chain, then K streamed through shared memory in tiles
+against each CTA's column tiles. Above 8 rows the same cluster
+transform runs on groups of up to eight rows, one cluster each
+(``tiled_plan``; on its streamed path one cooperative launch over all
+rows), every CTA storing the codes of its own K values to a scratch
+buffer; the tensor-core contraction of ``quant_matmul`` and
 ``quant_matmul_w4`` follows, for int8 or packed int4 weights, the codes
 crossing HBM once ((K_pad + 8) bytes per row). What bounds both on the
 H100 is the packed weight stream (D/2 x N bytes); each weight byte is
@@ -36,6 +44,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -54,18 +63,20 @@ _C = ctypes.c_int
 _P = ctypes.c_void_p
 _PLAN = ctypes.POINTER(ctypes.c_int)
 # x, x_is_bf16, m, d, blocks, bk, sign, ha, a, hb, b, act_bits, qw, packed,
-# sw, n; the decode entry adds the SM count and its columns per CTA (0:
-# the plan's), the tiled one k_pad, its rows per cluster (0: the plan's),
-# the contraction's K splits and their scratch and the code scratch (qx,
-# sx, zx)
+# sw, n; the decode entry adds the SM count, its columns per CTA (0: the
+# plan's) and the streamed path's scratch, the tiled one k_pad, its rows
+# per cluster (0: the plan's), the contraction's K splits and their
+# scratch, the streamed stage 1's scratch and the code scratch (qx, sx,
+# zx)
 _OPS = [_P, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C, _P, _C, _P, _C]
 _SIGNATURES = {
-    "fused_cat_gemv_w4": _OPS + [_C, _C, _P, _P],
+    "fused_cat_gemv_w4": _OPS + [_C, _C, _P, _P, _P],
     "fused_cat_matmul_w4": (_OPS[:4] + [_C] + _OPS[4:] + [_C, _C]
-                            + [_P] * 6),
+                            + [_P] * 7),
     "fused_cat_gemv_capacity": [_C, _C],
     "ctq_gemv_plan": [_C] * 10 + [_PLAN],
-    "ctq_tiled_plan": [_C] * 7 + [_PLAN]}
+    "ctq_tiled_plan": [_C] * 7 + [_PLAN],
+    "ctq_wide_scratch": [_C] * 3 + [ctypes.POINTER(ctypes.c_longlong)]}
 
 
 # ------------------------------------------------------- cluster plan
@@ -84,11 +95,16 @@ class GemvPlan:
     of ``cluster`` CTAs; CTA ``rank`` of cluster g computes the transform
     values of its K set (``k_set``: D/cluster of them) and owns the output
     columns ``columns(g, rank, n)``, ``cols`` of them; ``smem`` bytes of
-    dynamic shared memory per CTA."""
+    dynamic shared memory per CTA. On the streamed path (``path`` 1) the
+    launch is one CTA per SM, ``clusters`` is the number of column tiles
+    ``columns(g, 0, n)`` that the CTAs take in turn, every K of the
+    transform is one work item's, and K streams in tiles of ``ktile``."""
     cluster: int
     clusters: int
     cols: int
     smem: int
+    path: int = 0
+    ktile: int = 0
 
     def k_set(self, rank: int, a: int, b: int) -> list:
         return k_set(self.cluster, rank, a, b)
@@ -101,9 +117,9 @@ class GemvPlan:
 def read_plan(fn, what: str, *args) -> tuple:
     """Call a plan export of ``csrc/cluster_plan.h`` (``ctq_gemv_plan``,
     ``ctq_tiled_plan``, ``ctq_prologue_plan``) -> (cluster, clusters, cols
-    or rows, smem); raises ValueError for a shape the kernel does not
-    take."""
-    out = (ctypes.c_int * 4)()
+    or rows, smem, path, ktile); raises ValueError for a shape the kernel
+    does not take."""
+    out = (ctypes.c_int * 6)()
     if fn(*args, out):
         raise ValueError(f"{what} does not take this shape {args}: the "
                          f"transform needs D = a·b and a CAT block that "
@@ -112,6 +128,16 @@ def read_plan(fn, what: str, *args) -> tuple:
                          f"multiple of 4 up to 256; and its shared memory "
                          f"must fit (csrc/cluster_plan.h)")
     return tuple(out)
+
+
+def wide_scratch(m: int, d: int, ktile: int, lib=None) -> int:
+    """Bytes of the streamed path's device scratch for M rows of D and K
+    tiles of ``ktile`` (0: the tiled stage 1, which writes its codes to
+    the code scratch): ``ctq::WideScratch`` of ``csrc/cluster_plan.h``."""
+    lib = lib or build.load("fused_cat_matmul", _SIGNATURES)
+    out = ctypes.c_longlong(0)
+    lib.ctq_wide_scratch(m, d, ktile, ctypes.byref(out))
+    return int(out.value)
 
 
 def gemv_plan(m: int, d: int, n: int, a: int, b: int, bk: int,
@@ -136,11 +162,15 @@ class TiledPlan:
     ``clusters`` clusters of ``cluster`` CTAs; cluster g transforms the
     rows ``row_group(g, m)``, and its CTA ``rank`` computes and stores the
     codes of the K set ``k_set(rank, a, b)`` of each; ``smem`` bytes of
-    dynamic shared memory per CTA."""
+    dynamic shared memory per CTA. On the streamed path (``path`` 1) one
+    group of all M rows, transformed by one CTA per SM through the device
+    scratch."""
     cluster: int
     clusters: int
     rows: int
     smem: int
+    path: int = 0
+    ktile: int = 0
 
     def row_group(self, g: int, m: int) -> range:
         return range(min(g * self.rows, m), min((g + 1) * self.rows, m))
@@ -230,10 +260,32 @@ def _contiguous(*ts):
     return out
 
 
+@functools.lru_cache(maxsize=1024)
+def _served_plan(kind: str, lib, *args):
+    """A plan of the built library for a served shape, read once (the
+    streamed path's scratch depends on it); None for a shape the plan
+    refuses (the entry then reports it)."""
+    try:
+        if kind == "gemv":
+            return gemv_plan(*args, lib=lib)
+        return tiled_plan(*args, lib=lib)
+    except ValueError:
+        return None
+
+
+def _wide_ws(plan, m, d, ktile, device, lib):
+    """The streamed path's scratch (None on the cluster path)."""
+    if plan is None or plan.path != 1:
+        return None
+    return torch.empty(wide_scratch(m, d, ktile, lib=lib),
+                       dtype=torch.uint8, device=device)
+
+
 def _launch_gemv(x, blocks, ha, hb, sign, qw, sw, act_bits, packed,
                  cols=0):
     """One launch of the decode kernel, on its plan with ``cols`` columns
-    per CTA (0: the plan's own); allocates the output only."""
+    per CTA (0: the plan's own); allocates the output and, on the
+    streamed path, its scratch."""
     _validate(x, blocks, ha, hb, sign, qw, sw, act_bits, packed)
     x, blocks, ha, hb, sign, qw, sw = _contiguous(x, blocks, ha, hb, sign,
                                                   qw, sw)
@@ -245,11 +297,15 @@ def _launch_gemv(x, blocks, ha, hb, sign, qw, sw, act_bits, packed,
     bk = 0 if blocks is None else blocks.shape[1]
     sms = build.sm_count(x.device)
     lib = build.load("fused_cat_matmul", _SIGNATURES)
+    plan = _served_plan("gemv", lib, m, d, n, ha.shape[0], hb.shape[0], bk,
+                        bool(packed), sms, 0, cols)
+    ws = _wide_ws(plan, m, d, plan and plan.ktile, x.device, lib)
     code = lib.fused_cat_gemv_w4(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d,
         build.ptr(blocks), bk, build.ptr(sign), build.ptr(ha), ha.shape[0],
         build.ptr(hb), hb.shape[0], act_bits, build.ptr(qw), int(packed),
-        build.ptr(sw), n, sms, cols, build.ptr(out), build.stream_of(x))
+        build.ptr(sw), n, sms, cols, build.ptr(ws), build.ptr(out),
+        build.stream_of(x))
     if code == _INVALID_VALUE:   # a shape the plan refuses: say why
         gemv_plan(m, d, n, ha.shape[0], hb.shape[0], bk, packed, sms,
                   cols=cols, lib=lib)
@@ -276,12 +332,16 @@ def _launch_tiled(x, blocks, ha, hb, sign, qw, sw, act_bits, packed,
     zx = torch.empty((m,), dtype=torch.float32, device=x.device)
     bk = 0 if blocks is None else blocks.shape[1]
     splits, ws = w8a8_plan(m, k_pad, n, x.device)
+    plan = _served_plan("tiled", lib, m, d, ha.shape[0], hb.shape[0], bk, 0,
+                        rows)
+    tws = _wide_ws(plan, m, d, 0, x.device, lib)
     code = lib.fused_cat_matmul_w4(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d, k_pad,
         build.ptr(blocks), bk, build.ptr(sign), build.ptr(ha), ha.shape[0],
         build.ptr(hb), hb.shape[0], act_bits, build.ptr(qw), int(packed),
-        build.ptr(sw), n, rows, splits, build.ptr(ws), build.ptr(qx),
-        build.ptr(sx), build.ptr(zx), build.ptr(out), build.stream_of(x))
+        build.ptr(sw), n, rows, splits, build.ptr(ws), build.ptr(tws),
+        build.ptr(qx), build.ptr(sx), build.ptr(zx), build.ptr(out),
+        build.stream_of(x))
     if code == _INVALID_VALUE:   # a shape the plan refuses: say why
         tiled_plan(m, d, ha.shape[0], hb.shape[0], bk, rows=rows, lib=lib)
     build.check(code, "fused_cat_matmul_w4")

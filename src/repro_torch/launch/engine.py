@@ -107,6 +107,10 @@ class ServeEngine:
     """Continuous-batching greedy-decode engine (see module docstring).
     ``max_len`` bounds prompt + generated tokens per slot."""
 
+    # families with per-slot position vectors in decode: the reference's
+    # ("dense", "moe", "vlm"), less moe, a later slice of the port
+    _SLOT_FAMILIES = ("dense", "vlm")
+
     def __init__(self, model, params, *, n_slots: int = 4,
                  max_len: int = 256, eos_id: Optional[int] = None,
                  paged: bool = False, page_size: int = 16,
@@ -137,6 +141,10 @@ class ServeEngine:
                              "(it tunes the per-slot draft depth)")
         if mesh is not None:
             raise _later_slice("mesh (tensor-parallel) serving")
+        if model.cfg.family not in self._SLOT_FAMILIES:
+            raise NotImplementedError(
+                f"ServeEngine serves the families {self._SLOT_FAMILIES}; "
+                f"got family {model.cfg.family!r}")
         self.spec_k = int(speculative_k)
         # depth-1 pipelined loop by default for unified serving, as the
         # reference's; REPRO_SYNC_STEP selects the synchronous loop when

@@ -29,12 +29,13 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config
-from repro_torch.core.pipeline import QuantizeConfig, quantize_model
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.core.pipeline import (QuantizeConfig, quantize_model,
+                                       quantize_model_layerwise)
 from repro_torch.core.qlinear import iter_qlinear, num_weight_bytes
 from repro_torch.data import calibration_batches, make_batch, request_workload
 from repro_torch.launch.engine import ServeEngine, resolve_device
-from repro_torch.models import build
+from repro_torch.models import build, dense
 from repro_torch.models.layers import KV_QUANT_GROUP
 
 
@@ -87,27 +88,55 @@ def run_steady(engine: ServeEngine, requests, passes: int = 1) -> tuple:
     return results, summary
 
 
+# fp32 layer weights above this many bytes are drawn, calibrated and
+# quantized one layer at a time (mistral-nemo-12b's are 43.6 GB)
+LAYERWISE_BYTES = 4 << 30
+
+
+def layer_weight_bytes(cfg) -> int:
+    """The fp32 bytes of the dense layers' linear weights."""
+    d, f = cfg.d_model, cfg.d_ff
+    per_layer = (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
+                 + (3 if cfg.gated_mlp else 2) * d * f)
+    return 4 * cfg.n_layers * per_layer
+
+
 def build_served_model(arch: str, transform: str, w_bits: int, a_bits: int,
                        kv_bits: int, smoke: bool, seed: int,
                        cfg_overrides: Optional[dict] = None,
                        device="cuda"):
     """-> (cfg, model, params, weight-memory report): seeded torch init on
     ``device`` and, unless ``transform='fp'``, PTQ there (CAT block
-    min(cfg.cat_block, 32), RTN, int4-packed at w_bits=4)."""
+    min(cfg.cat_block, 32), RTN, int4-packed at w_bits=4).
+
+    A model whose fp32 layer weights exceed ``LAYERWISE_BYTES`` (the
+    full-width LLMs: gemma2-2b's are 8.1 GB, mistral-nemo-12b's 43.6 GB) is
+    CAT-quantized one layer at a time (``quantize_model_layerwise``; the
+    CAT transforms only): its params are drawn in the order embed,
+    [unembed,] layers by one generator on ``device`` (the host generator
+    draws a 12B model for minutes), embed and unembed stored in the
+    compute dtype they are read in, and each layer is drawn, calibrated,
+    quantized and freed in turn."""
     device = resolve_device(device)
     cfg = get_config(arch)
     if smoke:
         cfg = cfg.smoke()
     cfg = cfg.scaled(kv_quant_bits=kv_bits, **(cfg_overrides or {}))
     model = build(cfg)
+    qcfg = QuantizeConfig(w_bits=w_bits, a_bits=a_bits, transform=transform,
+                          cat_block=min(cfg.cat_block, 32))
+    calib = calibration_batches(cfg, n_seqs=8, seq_len=64, batch=4)
+    if layer_weight_bytes(cfg) > LAYERWISE_BYTES:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        rest = dense.init_rest(cfg, gen, device, dense.compute_dtype(cfg))
+        params = quantize_model_layerwise(
+            model, qcfg, calib, rest,
+            lambda i: dense.init_layer(cfg, gen, device))
+        return cfg, model, params, weight_memory_report(params)
     gen = torch.Generator().manual_seed(seed)
     params = model.init(gen, device)
     mem = {}
     if transform != "fp":
-        qcfg = QuantizeConfig(w_bits=w_bits, a_bits=a_bits,
-                              transform=transform,
-                              cat_block=min(cfg.cat_block, 32))
-        calib = calibration_batches(cfg, n_seqs=8, seq_len=64, batch=4)
         params = quantize_model(model, params, qcfg, calib)
         mem = weight_memory_report(params)
     return cfg, model, params, mem
@@ -249,7 +278,7 @@ def validate_flags(ap: argparse.ArgumentParser, args) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="catlm_60m")
+    ap.add_argument("--arch", default="catlm_60m", choices=ARCH_IDS)
     ap.add_argument("--batch", "--n-slots", dest="batch", type=int,
                     default=4, help="engine slot count")
     ap.add_argument("--requests", type=int, default=0,

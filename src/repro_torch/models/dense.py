@@ -1,10 +1,13 @@
-"""Dense decoder-only transformer, catlm features — counterpart of
-``repro.models.dense``.
+"""Dense decoder-only transformer — counterpart of ``repro.models.dense``
+for the dense and vlm families: catlm-60m, mistral-nemo-12b, granite-34b
+(MQA, ungated GELU MLP), gemma2-2b (local/global alternation, both
+softcaps, sandwich norms), gemma3-12b (5:1 local/global, qk-norm) and the
+paligemma-3b backbone (a prefix of patch embeddings). The MoE variants
+are a later slice.
 
-Params are a dict ``{"embed" (V, D), "final_norm" (D,), "layers": [one
-dict per layer]}``; layers run as a Python loop. This slice covers the
-catlm family: no sliding window, softcaps, qk-norm, sandwich norms or vlm
-prefix. A cache with a ``page_table`` is a paged KV pool ((L, n_pages,
+Params are a dict ``{"embed" (V, D), "final_norm" (D,), ["unembed" (D,
+V),] "layers": [one dict per layer]}``; layers run as a Python loop. A
+cache with a ``page_table`` is a paged KV pool ((L, n_pages,
 page_size, KV, hd) tensors, updated in place); one without is a slot
 cache ((L, B, max_len, KV, hd), updated in place: ``init_cache``), whose
 batch row b is slot b. ``paged_kernel`` routes
@@ -14,6 +17,9 @@ logits the step reads through the decode kernel, the rest through the
 ragged one), the decode one otherwise — and, where
 ``ops.use_fused_decode`` allows it, a pure-decode layer's attention block
 through the two-launch path (``decode_qkv_prologue`` + decode attention).
+As in the reference, a sliding window or an attention softcap keeps
+attention on the gathered path, and qk-norm keeps the decode prologue
+off.
 """
 from __future__ import annotations
 
@@ -29,10 +35,9 @@ from repro_torch.models.layers import (_paged_indices, activation,
                                        fake_quant_kv, gather_pages,
                                        paged_cache_update,
                                        paged_cache_update_quantized,
-                                       rms_norm, rope)
+                                       rms_norm, rope, softcap)
 
-_UNPORTED = ("window", "attn_softcap", "logit_softcap", "qk_norm",
-             "post_norms", "n_patches", "n_experts")
+_UNPORTED = ("n_experts",)
 
 
 def compute_dtype(cfg):
@@ -40,41 +45,76 @@ def compute_dtype(cfg):
 
 
 def check_supported(cfg) -> None:
-    """This slice ports the catlm features of the dense family only."""
-    if cfg.family != "dense":
+    """The port serves the dense and vlm families; MoE is a later slice."""
+    if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(the port covers the dense family)")
+                                  f"(the port covers the dense and vlm "
+                                  f"families)")
     used = [f for f in _UNPORTED if getattr(cfg, f)]
-    if used or not cfg.tie_embeddings:
-        raise NotImplementedError(
-            f"dense features {used or ['untied embeddings']} are not ported "
-            f"yet (this slice serves catlm)")
+    if used:
+        raise NotImplementedError(f"dense features {used} are not ported "
+                                  f"yet (mixture-of-experts layers are a "
+                                  f"later slice)")
 
 
-def _init_linear(gen, d_in, d_out):
-    return torch.randn((d_in, d_out), generator=gen) / math.sqrt(d_in)
+def is_global_flags(cfg) -> list:
+    """Per layer, whether it attends globally (no sliding window): all
+    layers without a window or with ``local_ratio`` 0, else every
+    (local_ratio + 1)-th, after local_ratio local ones."""
+    if not cfg.window or cfg.local_ratio == 0:
+        return [True] * cfg.n_layers
+    return [i % (cfg.local_ratio + 1) == cfg.local_ratio
+            for i in range(cfg.n_layers)]
+
+
+def _init_linear(gen, d_in, d_out, device="cpu"):
+    return (torch.randn((d_in, d_out), generator=gen, device=device)
+            / math.sqrt(d_in))
+
+
+def init_layer(cfg, gen: torch.Generator, device="cpu") -> dict:
+    """One layer's seeded f32 params, drawn by ``gen`` on its device, in
+    the order ``init`` draws them."""
+    D, F = cfg.d_model, cfg.d_ff
+    dev = gen.device
+    lp = {"ln1": torch.zeros(D), "ln2": torch.zeros(D),
+          "wq": _init_linear(gen, D, cfg.q_dim, dev),
+          "wk": _init_linear(gen, D, cfg.kv_dim, dev),
+          "wv": _init_linear(gen, D, cfg.kv_dim, dev),
+          "wo": _init_linear(gen, cfg.q_dim, D, dev)}
+    if cfg.post_norms:
+        lp["ln1_post"] = torch.zeros(D)
+        lp["ln2_post"] = torch.zeros(D)
+    if cfg.qk_norm:
+        lp["q_norm"] = torch.zeros(cfg.head_dim)
+        lp["k_norm"] = torch.zeros(cfg.head_dim)
+    if cfg.gated_mlp:
+        lp["wg"] = _init_linear(gen, D, F, dev)
+    lp["wu"] = _init_linear(gen, D, F, dev)
+    lp["wd"] = _init_linear(gen, F, D, dev)
+    return {k: v.to(device) for k, v in lp.items()}
+
+
+def init_rest(cfg, gen: torch.Generator, device="cpu",
+              dtype=torch.float32) -> dict:
+    """The params outside the layers, drawn by ``gen`` on its device in
+    ``init``'s order and stored in ``dtype``: embed, final_norm and, for
+    untied embeddings, unembed (its own draw, as the reference's)."""
+    D, dev = cfg.d_model, gen.device
+    rest = {"embed": (torch.randn((cfg.vocab, D), generator=gen, device=dev)
+                      * 0.02).to(device=device, dtype=dtype),
+            "final_norm": torch.zeros(D, device=device)}
+    if not cfg.tie_embeddings:
+        rest["unembed"] = _init_linear(gen, D, cfg.vocab, dev).to(
+            device=device, dtype=dtype)
+    return rest
 
 
 def init(cfg, gen: torch.Generator, device="cpu") -> dict:
     """Seeded f32 params (drawn on the host generator, then moved)."""
     check_supported(cfg)
-    D, F = cfg.d_model, cfg.d_ff
-    layers = []
-    for _ in range(cfg.n_layers):
-        lp = {"ln1": torch.zeros(D), "ln2": torch.zeros(D),
-              "wq": _init_linear(gen, D, cfg.q_dim),
-              "wk": _init_linear(gen, D, cfg.kv_dim),
-              "wv": _init_linear(gen, D, cfg.kv_dim),
-              "wo": _init_linear(gen, cfg.q_dim, D)}
-        if cfg.gated_mlp:
-            lp["wg"] = _init_linear(gen, D, F)
-        lp["wu"] = _init_linear(gen, D, F)
-        lp["wd"] = _init_linear(gen, F, D)
-        layers.append({k: v.to(device) for k, v in lp.items()})
-    return {"embed": (torch.randn((cfg.vocab, D), generator=gen) * 0.02
-                      ).to(device),
-            "final_norm": torch.zeros(D, device=device),
-            "layers": layers}
+    layers = [init_layer(cfg, gen, device) for _ in range(cfg.n_layers)]
+    return dict(init_rest(cfg, gen, device), layers=layers)
 
 
 # ----------------------------------------------------------------- forward
@@ -94,7 +134,8 @@ def _paged_attention(cfg, q, k, v, cache_sl, page_table, pos, s,
     ck, cks, cv, cvs = paged_cache_update_quantized(
         cache_sl["k"], cache_sl["k_scale"], cache_sl["v"],
         cache_sl["v_scale"], k, v, page_table, pos, cfg.kv_quant_bits)
-    if not (paged_kernel and s == 1):
+    if not (paged_kernel and s == 1 and not cfg.window
+            and not cfg.attn_softcap):
         return (None, (gather_pages(ck, page_table),
                        gather_pages(cks, page_table)),
                 (gather_pages(cv, page_table), gather_pages(cvs, page_table)))
@@ -116,9 +157,10 @@ def _paged_attention(cfg, q, k, v, cache_sl, page_table, pos, s,
 
 
 def _attention(cfg, lp, h, cache_sl, pos, positions, page_table,
-               paged_kernel, ragged_desc):
-    """The composed attention block: QKV projection, RoPE, KV write (or
-    fake quant without a cache) and attention. -> o (B, S, Hq·hd)."""
+               paged_kernel, ragged_desc, is_global=True):
+    """The composed attention block: QKV projection (qk-norm), RoPE, KV
+    write (or fake quant without a cache) and attention (a sliding window
+    on local layers, the attention softcap). -> o (B, S, Hq·hd)."""
     b, s, _ = h.shape
     if "wqkv" in lp:
         qkv = qlinear.dense(lp["wqkv"], h)
@@ -128,9 +170,14 @@ def _attention(cfg, lp, h, cache_sl, pos, positions, page_table,
         q = qlinear.dense(lp["wq"], h)
         k = qlinear.dense(lp["wk"], h)
         v = qlinear.dense(lp["wv"], h)
-    q = rope(q.reshape(b, s, -1, cfg.head_dim), positions, cfg.rope_theta)
-    k = rope(k.reshape(b, s, -1, cfg.head_dim), positions, cfg.rope_theta)
+    q = q.reshape(b, s, -1, cfg.head_dim)
+    k = k.reshape(b, s, -1, cfg.head_dim)
     v = v.reshape(b, s, -1, cfg.head_dim)
+    if cfg.qk_norm:
+        q = rms_norm(q, lp["q_norm"])
+        k = rms_norm(k, lp["k_norm"])
+    q = rope(q, positions, cfg.rope_theta)
+    k = rope(k, positions, cfg.rope_theta)
 
     quant_cache = (bool(cfg.kv_quant_bits) and cache_sl is not None
                    and "k_scale" in cache_sl)
@@ -157,8 +204,13 @@ def _attention(cfg, lp, h, cache_sl, pos, positions, page_table,
     else:
         k_att, v_att = k, v
     if o is None:
-        o = chunked_attention(q, k_att, v_att,
-                              q_positions=positions).reshape(b, s, -1)
+        window = None
+        if cfg.window:
+            window = 2 ** 30 if is_global else cfg.window
+        o = chunked_attention(q, k_att, v_att, q_positions=positions,
+                              window=window,
+                              attn_softcap=cfg.attn_softcap
+                              ).reshape(b, s, -1)
     return o
 
 
@@ -171,12 +223,14 @@ def _fused_decode_operands(cfg, lp, cache_sl, s, b, ragged_desc,
     The prologue covers single-token rows (s == 1, B <= 8) on int8 paged
     pools, with a concatenated QKV QLinear with act bits whose transform
     ``fused_transform_operands`` decomposes; mixed-q_len (ragged) steps
-    keep the composed path. ``ops.use_fused_decode`` decides the routing
-    (on for CUDA devices, ``REPRO_DECODE_FUSED`` overrides)."""
+    keep the composed path, as do layers with a sliding window, an
+    attention softcap or qk-norm. ``ops.use_fused_decode`` decides the
+    routing (on for CUDA devices, ``REPRO_DECODE_FUSED`` overrides)."""
     if not (paged_kernel and s == 1 and ragged_desc is None
             and page_table is not None and cache_sl is not None
             and "k_scale" in cache_sl and bool(cfg.kv_quant_bits)
-            and b <= 8):
+            and b <= 8 and not cfg.window and not cfg.attn_softcap
+            and not cfg.qk_norm):
         return None
     p = lp.get("wqkv")
     if not isinstance(p, qlinear.QLinear) or not p.act_bits:
@@ -220,7 +274,7 @@ def _fused_decode_attn(cfg, fd, h, cache_sl, page_table, pos, b):
 
 def _layer_body(cfg, x, lp, cache_sl, pos, positions, taps=None,
                 layer_idx=None, page_table=None, paged_kernel=False,
-                ragged_desc=None):
+                ragged_desc=None, is_global=True):
     b, s, _ = x.shape
     h = rms_norm(x, lp["ln1"])
     _tap(taps, layer_idx, "attn_in", h)
@@ -233,9 +287,11 @@ def _layer_body(cfg, x, lp, cache_sl, pos, positions, taps=None,
         o = _fused_decode_attn(cfg, fd, h, cache_sl, page_table, pos, b)
     else:
         o = _attention(cfg, lp, h, cache_sl, pos, positions, page_table,
-                       paged_kernel, ragged_desc)
+                       paged_kernel, ragged_desc, is_global)
     _tap(taps, layer_idx, "o_in", o)
     a = qlinear.dense(lp["wo"], o)
+    if cfg.post_norms:
+        a = rms_norm(a, lp["ln1_post"])
     if taps is None:
         # the reference compiles its steps (the norm takes the f32 sum);
         # it collects taps only in its eager calibration forward
@@ -254,7 +310,10 @@ def _layer_body(cfg, x, lp, cache_sl, pos, positions, taps=None,
     else:
         hmid = _gate(cfg, qlinear.dense(lp["wu"], h2), None)
     _tap(taps, layer_idx, "down_in", hmid)
-    return x + qlinear.dense(lp["wd"], hmid)
+    mlp_out = qlinear.dense(lp["wd"], hmid)
+    if cfg.post_norms:
+        mlp_out = rms_norm(mlp_out, lp["ln2_post"])
+    return x + mlp_out
 
 
 def _gate(cfg, g, u):
@@ -297,16 +356,36 @@ def embed_rows(embed, tokens):
     return embed[tokens]
 
 
-def forward(cfg, params, tokens, *, cache=None, taps=None,
-            paged_kernel: bool = False, ragged_desc=None):
-    """-> (hidden (B, S, D), aux_loss, cache). ``tokens`` (B, S) int;
-    with ``cache`` (paged pools + ``pos`` int or (B,) + ``page_table``)
-    k/v are written at [pos, pos+S) before attention."""
+def embed(cfg, params, tokens, extra_embed=None):
+    """The first layer's input: the embedding rows of ``tokens`` in the
+    compute dtype times sqrt(d_model), after the vlm prefix if any."""
     cd = compute_dtype(cfg)
     # a 0-dim host tensor enters a device op as a scalar: no copy, no sync
     scale = torch.tensor(math.sqrt(float(cfg.d_model)),
                          dtype=torch.float32).to(cd)
     x = embed_rows(params["embed"], tokens).to(cd) * scale
+    if extra_embed is not None:
+        x = torch.cat([extra_embed.to(cd), x], dim=1)
+    return x
+
+
+def layer_forward(cfg, x, lp, layer_idx, taps=None):
+    """Layer ``layer_idx`` (params ``lp``) on x (B, S, D) without a cache,
+    at positions 0..S-1, collecting ``taps`` — a calibration forward one
+    layer at a time (``core.pipeline.quantize_model_layerwise``)."""
+    positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+    return _layer_body(cfg, x, lp, None, 0, positions, taps=taps,
+                       layer_idx=layer_idx,
+                       is_global=is_global_flags(cfg)[layer_idx])
+
+
+def forward(cfg, params, tokens, *, extra_embed=None, cache=None,
+            taps=None, paged_kernel: bool = False, ragged_desc=None):
+    """-> (hidden (B, S, D), aux_loss, cache). ``tokens`` (B, S) int;
+    ``extra_embed`` (B, P, D) is prepended (the vlm prefix); with
+    ``cache`` (paged pools + ``pos`` int or (B,) + ``page_table``) k/v
+    are written at [pos, pos+S) before attention."""
+    x = embed(cfg, params, tokens, extra_embed)
     b, s, _ = x.shape
     pos = cache["pos"] if cache is not None else 0
     steps = torch.arange(s, dtype=torch.int32, device=x.device)
@@ -321,12 +400,14 @@ def forward(cfg, params, tokens, *, cache=None, taps=None,
         page_table = cache.get("page_table")
         pools = {k: v for k, v in cache.items()
                  if k not in ("pos", "page_table")}
+    flags = is_global_flags(cfg)
     for i, lp in enumerate(params["layers"]):
         csl = ({k: v[i] for k, v in pools.items()}
                if pools is not None else None)
         x = _layer_body(cfg, x, lp, csl, pos, positions, taps=taps,
                         layer_idx=i, page_table=page_table,
-                        paged_kernel=paged_kernel, ragged_desc=ragged_desc)
+                        paged_kernel=paged_kernel, ragged_desc=ragged_desc,
+                        is_global=flags[i])
     new_cache = None
     if cache is not None:
         new_cache = dict(pools, pos=pos + s)
@@ -337,19 +418,27 @@ def forward(cfg, params, tokens, *, cache=None, taps=None,
 
 
 def logits_fn(cfg, params, hidden):
-    return hidden @ params["embed"].T.to(hidden.dtype)
+    unembed = (params["embed"].T if cfg.tie_embeddings
+               else params["unembed"])
+    return softcap(hidden @ unembed.to(hidden.dtype), cfg.logit_softcap)
 
 
 def loss(cfg, params, batch, *, loss_chunk: int = 512):
     """Chunked CE over the sequence (reference ``dense.loss``), through
     autograd: ``batch`` holds ``tokens`` and ``labels`` (B, S) tensors or
-    arrays. -> (total loss, {"ce", "aux"}). Callers that only evaluate
-    wrap it in ``torch.no_grad``."""
+    arrays, and for a vlm config ``patch_embed`` (B, P, D), the prefix
+    whose rows the loss leaves out. -> (total loss, {"ce", "aux"}).
+    Callers that only evaluate wrap it in ``torch.no_grad``."""
     from repro_torch.models.losses import chunked_ce
     device = params["embed"].device
     tokens = torch.as_tensor(batch["tokens"], device=device)
     labels = torch.as_tensor(batch["labels"], device=device)
-    hidden, aux, _ = forward(cfg, params, tokens)
+    extra = batch.get("patch_embed") if cfg.n_patches else None
+    if extra is not None:
+        extra = torch.as_tensor(extra, device=device)
+    hidden, aux, _ = forward(cfg, params, tokens, extra_embed=extra)
+    if extra is not None:
+        hidden = hidden[:, extra.shape[1]:]
     return chunked_ce(lambda h: logits_fn(cfg, params, h), hidden, labels,
                       aux, loss_chunk=loss_chunk)
 
@@ -357,8 +446,9 @@ def loss(cfg, params, batch, *, loss_chunk: int = 512):
 # ----------------------------------------------------------------- serving
 
 def make_serving_params(cfg, params, keep_packed=None) -> dict:
-    """Fused-serving params: wq|wk|wv -> ``wqkv`` and wg|wu -> ``wgu``
-    column concats (exact), and every QLinear gains ``colsum`` (plus
+    """Fused-serving params: wq|wk|wv -> ``wqkv`` and, where the MLP is
+    gated, wg|wu -> ``wgu`` column concats (exact), and every QLinear
+    gains ``colsum`` (plus
     ``w_eff`` where route 1 will not serve it; see
     ``qlinear.make_serving``)."""
     from repro_torch.core.qlinear import QLinear, concat_out, make_serving

@@ -1,6 +1,7 @@
 """Shared model layers — counterpart of ``repro.models.layers`` for the
-dense catlm path: norms, RoPE, chunked online-softmax attention (also over
-``(codes, scale)`` int8 KV tuples), the gated MLP, KV quantization, the
+dense family: norms, softcap, RoPE, chunked online-softmax attention
+(also over ``(codes, scale)`` int8 KV tuples, with a sliding window and an
+attention softcap), the activations, the gated MLP, KV quantization, the
 slot cache's writes and the paged KV pool's scatter and gather.
 
 The cache writes update the cache and pool tensors in place (the
@@ -44,6 +45,13 @@ def add_rms_norm(x: torch.Tensor, a: torch.Tensor, scale: torch.Tensor,
     return total.to(x.dtype), rms_norm(total, scale, eps).to(x.dtype)
 
 
+def softcap(x: torch.Tensor, cap: float):
+    """cap · tanh(x / cap); the identity for cap 0."""
+    if not cap:
+        return x
+    return cap * torch.tanh(x / cap)
+
+
 def rope_freq(head_dim: int, theta: float, device) -> torch.Tensor:
     """RoPE's (head_dim // 2,) f32 inverse frequencies."""
     half = head_dim // 2
@@ -68,12 +76,16 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
 
 
 def chunked_attention(q: torch.Tensor, k, v, *, q_positions: torch.Tensor,
+                      window: Optional[int] = None,
+                      attn_softcap: float = 0.0,
                       kv_chunk: int = 1024) -> torch.Tensor:
     """Online-softmax attention. q: (B, Sq, H, hd); k, v: (B, Skv, KV, hd)
     with KV | H — or (codes int8, scale) tuples, dequantized per chunk.
     q_positions: (B, Sq) or (Sq,); KV positions are arange(Skv); causal
-    mask q_pos >= kv_pos. Score and PV products accumulate in f32 on the
-    compute-dtype operands, as the reference's preferred_element_type."""
+    mask q_pos >= kv_pos, and with ``window`` also q_pos - kv_pos <
+    window; ``attn_softcap`` caps the scores (``softcap``) before the
+    mask. Score and PV products accumulate in f32 on the compute-dtype
+    operands, as the reference's preferred_element_type."""
     k_q = isinstance(k, tuple)
     v_q = isinstance(v, tuple)
     k_arr = k[0] if k_q else k
@@ -103,8 +115,10 @@ def chunked_attention(q: torch.Tensor, k, v, *, q_positions: torch.Tensor,
         kj = chunk(k, lo, hi, k_q)
         vj = chunk(v, lo, hi, v_q)
         pj = torch.arange(lo, hi, dtype=torch.int32, device=q.device)
-        s = torch.einsum("bqkgd,bckd->bkgqc", qf, kj)
+        s = softcap(torch.einsum("bqkgd,bckd->bkgqc", qf, kj), attn_softcap)
         mask = qp[:, :, None] >= pj[None, None, :]
+        if window is not None:
+            mask = mask & ((qp[:, :, None] - pj[None, None, :]) < window)
         s = torch.where(mask[:, None, None, :, :], s,
                         torch.full_like(s, _NEG_INF))
         m_new = torch.maximum(m, s.amax(-1))
@@ -128,11 +142,19 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+_SQRT_2_OVER_PI = float(np.sqrt(2 / np.pi).astype(np.float32))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh approximation as the reference's ``jax.nn.gelu`` is
+    written — x · (0.5 · (1 + tanh(√(2/π) · (x + 0.044715 · x³)))), x³ as
+    x · x · x (``lax.integer_pow``), each op rounded to x's dtype."""
+    inner = _SQRT_2_OVER_PI * (x + 0.044715 * (x * x * x))
+    return x * (0.5 * (1.0 + torch.tanh(inner)))
+
+
 def activation(name: str):
-    if name != "silu":
-        raise NotImplementedError(f"activation {name!r} is not ported yet "
-                                  f"(catlm uses silu)")
-    return silu
+    return {"silu": silu, "gelu": gelu}[name]
 
 
 def glu_mlp(p, x, act: str):

@@ -1,6 +1,7 @@
 """Unified model API — counterpart of ``repro.models.model``:
 ``build(cfg) -> Model``, a bundle of functions over (params, tensors).
-This slice builds the dense family (catlm features)."""
+It builds the dense and vlm families (``models.dense``); the MoE family
+is refused with ``NotImplementedError``."""
 from __future__ import annotations
 
 import dataclasses

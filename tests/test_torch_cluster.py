@@ -31,6 +31,7 @@ bindings' argument lists are held against the ``extern "C"`` prototypes
 of ``csrc/*.cu`` and the headers they include.
 """
 import ctypes
+import hashlib
 import importlib.util
 import re
 import shutil
@@ -42,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.hadamard import hadamard_factors
 from repro_torch.core.quantizers import pack_int4
 from repro_torch.kernels import block_matmul, build, decode_layer
@@ -76,11 +78,36 @@ def plan_lib(tmp_path_factory):
                       ("ctq_prologue_plan",
                        decode_layer._SIGNATURES["ctq_prologue_plan"]),
                       ("ctq_code_gemv_plan",
-                       quant_matmul._SIGNATURES["ctq_code_gemv_plan"])):
+                       quant_matmul._SIGNATURES["ctq_code_gemv_plan"]),
+                      ("ctq_wide_scratch", F._SIGNATURES["ctq_wide_scratch"])):
         fn = getattr(lib, name)
         fn.argtypes = sig
         fn.restype = ctypes.c_int
     return lib
+
+
+# (D, N) of the serving linears of the dense family's configs at full
+# width (the concatenated wqkv, wo, wgu or the ungated wu, wd) and their
+# QKV heads (D, N, head_dim)
+FAMILY_ARCHS = ("mistral_nemo_12b", "granite_34b", "gemma2_2b",
+                "gemma3_12b", "paligemma_3b")
+
+
+def _family_shapes():
+    linears, qkv = [], []
+    for arch in FAMILY_ARCHS:
+        cfg = get_config(arch)
+        up = 2 * cfg.d_ff if cfg.gated_mlp else cfg.d_ff
+        for shape in ((cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim),
+                      (cfg.q_dim, cfg.d_model), (cfg.d_model, up),
+                      (cfg.d_ff, cfg.d_model)):
+            if shape not in linears:
+                linears.append(shape)
+        qkv.append((cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim, cfg.head_dim))
+    return linears, qkv
+
+
+FAMILY_LINEARS, FAMILY_QKV = _family_shapes()
 
 
 def _factors(d):
@@ -123,6 +150,124 @@ def test_gemv_plan_owns_every_column_and_k_once(plan_lib, d, n, packed):
     if (d, n) in SERVING:
         assert plan.cluster == 8
         assert plan.clusters == {1024: 8, 512: 4, 3072: 12}[n]
+
+
+def _owned_once(plan, n, a, b, d):
+    """Every output column of an N-column linear in one CTA's columns (on
+    the streamed path: one column tile), and every K of D in one CTA's K
+    set."""
+    col_owned = np.zeros(n, int)
+    for g in range(plan.clusters):
+        for rank in range(plan.cluster):
+            col_owned[list(plan.columns(g, rank, n))] += 1
+    k_owned = np.zeros(d, int)
+    for rank in range(plan.cluster):
+        k_owned[plan.k_set(rank, a, b)] += 1
+    return (col_owned == 1).all() and (k_owned == 1).all()
+
+
+@pytest.mark.parametrize("d,n", FAMILY_LINEARS)
+@pytest.mark.parametrize("packed", [True, False])
+def test_family_widths_take_every_plan(plan_lib, d, n, packed):
+    """Every serving linear of the dense family's configs: the decode plan
+    at M 1..8 and the tiled stage's at ragged M 9..255 own every output
+    column (rows of the step) and every K once, fit in the H100's 227 KiB
+    beside the kernels' static shared memory and keep clusters at the
+    portable 8; what a cluster cannot hold takes the streamed path (one
+    CTA per SM: cluster 1, K in tiles of 64..2048 that divide the codes'
+    row), whose scratch holds the transform's two f32 planes and the
+    codes."""
+    a, b = _factors(d)
+    for m in range(1, 9):
+        plan = _gemv_plan(plan_lib, m, d, n, 32, packed)
+        assert plan.path in (0, 1) and 1 <= plan.cluster <= 8
+        assert plan.smem + 4096 <= SMEM_OPTIN
+        assert _owned_once(plan, n, a, b, d)
+        if plan.path:
+            assert plan.cluster == 1 and plan.cols in (32, 64)
+            assert plan.ktile in (64, 128, 256, 512, 1024, 2048)
+            scratch = F.wide_scratch(m, d, plan.ktile, lib=plan_lib)
+            assert scratch >= 8 * m * d + m * -(-d // plan.ktile) * plan.ktile
+    for m in (9, 37, 100, 128, 255):
+        plan = F.tiled_plan(m, d, a, b, 32, SMEM_OPTIN, lib=plan_lib)
+        assert plan.smem + 4096 <= SMEM_OPTIN and 1 <= plan.cluster <= 8
+        owned = np.zeros(m, int)
+        for g in range(plan.clusters):
+            group = plan.row_group(g, m)
+            assert len(group)
+            owned[list(group)] += 1
+        assert (owned == 1).all()
+        k_owned = np.zeros(d, int)
+        for rank in range(plan.cluster):
+            k_owned[plan.k_set(rank, a, b)] += 1
+        assert (k_owned == 1).all()
+        if plan.path:
+            assert (plan.cluster, plan.clusters, plan.rows) == (1, 1, m)
+
+
+@pytest.mark.parametrize("d,n,hd", FAMILY_QKV)
+@pytest.mark.parametrize("packed", [True, False])
+def test_family_qkv_take_the_prologue_plan(plan_lib, d, n, hd, packed):
+    """The prologue takes the dense family's QKV at B 1..8 (mistral-nemo's
+    32 + 8 + 8 heads of 128, granite's 48 + 1 + 1, gemma's and
+    paligemma's heads of 256): each head in one CTA's turn once, within
+    227 KiB."""
+    a, b = _factors(d)
+    for m in range(1, 9):
+        plan = decode_layer.prologue_plan(m, d, n, hd, a, b, 32, packed,
+                                          SMEM_OPTIN, lib=plan_lib)
+        assert plan.cols == hd and plan.smem + 4096 <= SMEM_OPTIN
+        assert 1 <= plan.cluster <= 8
+        owned = np.zeros(n // hd, int)
+        for g in range(plan.clusters):
+            owned[list(plan.heads(g))] += 1
+        assert (owned == 1).all()
+
+
+def _today_plans(lib):
+    """Every plan at today's widths (SERVING, RAGGED, OTHER): the decode
+    plan at M 1..8 with the plan's and forced columns, the prologue at
+    heads of 32 and 64, the tiled stage at ragged M with every rows per
+    cluster; (return code, the first four plan fields)."""
+    out = (ctypes.c_int * 6)()
+    rows = []
+    for d, n in SERVING + RAGGED + OTHER:
+        a, b = _factors(d)
+        for packed in (1, 0):
+            for m in range(1, 9):
+                for cols in (0, 16, 32, 64):
+                    rc = lib.ctq_gemv_plan(m, d, n, a, b, 32, packed, SMS,
+                                           SMEM_OPTIN, cols, out)
+                    rows.append(("g", d, n, packed, m, cols, rc,
+                                 tuple(out)[:4] if rc == 0 else None))
+                    assert rc or out[4] == 0        # the cluster path
+            for hd in (32, 64):
+                if n % hd == 0:
+                    for m in range(1, 9):
+                        rc = lib.ctq_prologue_plan(m, d, n, hd, a, b, 32,
+                                                   packed, SMEM_OPTIN, out)
+                        rows.append(("p", d, n, hd, packed, m, rc,
+                                     tuple(out)[:4] if rc == 0 else None))
+                        assert rc or out[4] == 0
+        for m in (9, 15, 17, 100, 128, 129, 255):
+            for r in range(0, 9):
+                rc = lib.ctq_tiled_plan(m, d, a, b, 32, SMEM_OPTIN, r, out)
+                rows.append(("t", d, m, r, rc,
+                             tuple(out)[:4] if rc == 0 else None))
+                assert rc or out[4] == 0
+    return rows
+
+
+def test_today_widths_keep_their_plans(plan_lib):
+    """The streamed path serves only what the cluster plans refuse: at
+    today's widths all 1,780 plans (decode, prologue, tiled) are taken on
+    the cluster path and equal, field for field, the plans of the header
+    before the streamed path was added (the SHA-1 of their list, computed
+    then)."""
+    rows = _today_plans(plan_lib)
+    assert len(rows) == 1780 and all(r[-2] == 0 for r in rows)
+    assert hashlib.sha1(repr(rows).encode()).hexdigest() == (
+        "06cd9eb2a55b7acb49bf2dab5bed6c6d41df3991")
 
 
 @pytest.mark.parametrize("cols", [4, 8, 12, 16, 32, 64, 128])
@@ -177,8 +322,13 @@ def test_plans_refuse_what_the_kernels_do_not_take(plan_lib):
     with pytest.raises(ValueError, match="does not take"):
         F.gemv_plan(4, 512, 64, 32, 16, 6, True, SMS, SMEM_OPTIN,
                     lib=plan_lib)                 # CAT block 6 !| D 512
+    # shared memory that holds no cluster plan: the streamed path takes
+    # the shape; memory that holds not even its smallest K tile refuses it
+    plan = F.gemv_plan(8, 1536, 512, 32, 48, 32, True, SMS, 64 * 1024,
+                       lib=plan_lib)
+    assert plan.path == 1 and plan.smem + 4096 <= 64 * 1024
     with pytest.raises(ValueError, match="does not take"):
-        F.gemv_plan(8, 1536, 512, 32, 48, 32, True, SMS, 64 * 1024,
+        F.gemv_plan(8, 1536, 512, 32, 48, 32, True, SMS, 16 * 1024,
                     lib=plan_lib)                 # shared memory too small
     a, b = _factors(512)
     with pytest.raises(ValueError, match="does not take"):
@@ -248,8 +398,13 @@ def test_tiled_plan_refuses_what_the_kernel_does_not_take(plan_lib):
     for m, rows in ((0, 0), (128, 9), (128, -1)):
         with pytest.raises(ValueError, match="does not take"):
             F.tiled_plan(m, 512, 32, 16, 32, SMEM_OPTIN, rows, lib=plan_lib)
+    # 32 KiB holds no cluster plan at D 1536: the streamed stage 1, which
+    # needs no dynamic shared memory, takes it (forced rows it refuses)
+    plan = F.tiled_plan(128, 1536, 32, 48, 32, 32 * 1024, lib=plan_lib)
+    assert (plan.path, plan.cluster, plan.clusters, plan.rows,
+            plan.smem) == (1, 1, 1, 128, 0)
     with pytest.raises(ValueError, match="does not take"):
-        F.tiled_plan(128, 1536, 32, 48, 32, 32 * 1024, lib=plan_lib)
+        F.tiled_plan(128, 1536, 32, 48, 32, 32 * 1024, 8, lib=plan_lib)
 
 
 # (D, a, b, CAT block) the reference's fused kernels take that split over
@@ -298,8 +453,12 @@ def test_general_path_refuses_what_the_reference_refuses(plan_lib):
                         lib=plan_lib)
         with pytest.raises(ValueError, match="does not take"):
             F.tiled_plan(16, d, a, b, bk, SMEM_OPTIN, lib=plan_lib)
+    # shared memory too small for the general path's cluster of one: the
+    # streamed path; too small for its smallest tile: refused
+    assert F.gemv_plan(8, 1001, 40, 7, 143, 0, True, SMS, 64 * 1024,
+                       lib=plan_lib).path == 1
     with pytest.raises(ValueError, match="does not take"):
-        F.gemv_plan(8, 1001, 40, 7, 143, 0, True, SMS, 64 * 1024,
+        F.gemv_plan(8, 1001, 40, 7, 143, 0, True, SMS, 16 * 1024,
                     lib=plan_lib)
 
 
@@ -479,10 +638,14 @@ def test_gemv_wrapper_checks_and_allocates_no_scratch(monkeypatch):
         monkeypatch.setattr(torch, name, spy)
     out = F._launch_gemv(x, blocks, ha, hb, sign, qw, sw, 4, True)
     assert allocs == ["empty"] and out.shape == (8, 1000)
-    (name, args), = lib.calls
+    # the plan is read first (its path decides the scratch), then one launch
+    assert [c[0] for c in lib.calls] == ["ctq_gemv_plan",
+                                         "fused_cat_gemv_w4"]
+    (name, args) = lib.calls[1]
     assert name == "fused_cat_gemv_w4"
     assert len(args) == len(F._SIGNATURES[name])
-    assert args[-4:-2] == (SMS, 0)   # the card's SMs; the plan's columns
+    # the card's SMs; the plan's columns; no streamed-path scratch
+    assert args[-5:-3] == (SMS, 0) and args[-3].value is None
 
 
 def test_tiled_wrapper_passes_rows_and_checks_no_shared_memory(
@@ -498,7 +661,8 @@ def test_tiled_wrapper_passes_rows_and_checks_no_shared_memory(
     out = F._launch_tiled(x, blocks, ha, hb, sign, qw, sw, 4, True)
     assert out.shape == (128, 64)
     out = F._launch_tiled(x, blocks, ha, hb, sign, qw, sw, 4, True, rows=2)
-    (name, args0), (_, args1) = lib.calls
+    (name, args0), (_, args1) = [c for c in lib.calls
+                                 if c[0] != "ctq_tiled_plan"]
     assert name == "fused_cat_matmul_w4"
     assert len(args0) == len(F._SIGNATURES[name])
     # x, x_is_bf16, m, d, k_pad, ..., sw, n (16), rows, splits

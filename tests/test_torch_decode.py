@@ -123,6 +123,17 @@ def test_prologue_matches_reference_at_general_widths(d, a, n_blocks,
     _assert_matches(port, oracle)
 
 
+@pytest.mark.parametrize("packed", [True, False])
+def test_prologue_matches_reference_at_a_family_width(packed):
+    """D 2304 = 64 x 36 (gemma2-2b's d_model; the card's streamed path at
+    this D and 128-wide heads), 72 CAT blocks of 32, B 8: the plain
+    prologue against the Pallas kernel in interpret mode and the
+    oracle."""
+    port, kern, oracle, _ = _run_three(8, 5, 72, packed, d=2304, a=64)
+    _assert_matches(port, kern)
+    _assert_matches(port, oracle)
+
+
 @pytest.mark.parametrize("b", [1, 3, 8])
 def test_prologue_batch_sizes(b):
     port, kern, oracle, _ = _run_three(b, 2)

@@ -342,6 +342,16 @@ def test_fused_matches_reference_at_general_widths(packed, m, d, n,
                  packed=packed)
 
 
+@pytest.mark.parametrize("packed", [True, False])
+@pytest.mark.parametrize("m", [8, 17])
+def test_fused_matches_reference_at_a_family_width(packed, m):
+    """D 2304 (gemma2-2b's d_model, 72 CAT blocks of 32), N 64, which the
+    card serves on the streamed path at M <= 8 and the tiled stage's:
+    the plain version, which the card is held to bitwise, against the
+    Pallas kernels in interpret mode and the oracle."""
+    _check_fused(m, 2304, 64, seed=2304 + m, n_blocks=72, packed=packed)
+
+
 @pytest.mark.parametrize("act_bits", [4, 8])
 def test_fused_act_bits(act_bits):
     _check_fused(9, 64, 48, seed=act_bits, n_blocks=4, act_bits=act_bits)
