@@ -44,7 +44,10 @@ Phases (any failure exits non-zero before the final line):
              bitwise at every M in 1..8, odd K, K not a multiple of 16,
              ragged N, int4 and int8 weights and code extremes, with its
              plan, one kernel per call, and at M 8, D 512, N 3072 every
-             forced number of columns per CTA timed
+             forced number of columns per CTA timed; at the dense
+             family's deep K (the wd of mistral-nemo-12b, gemma3-12b,
+             paligemma-3b, granite-34b) at M 1 and 8 on its streamed plan,
+             mistral-nemo-12b's timed at M 8
              (``check_code_gemv_edges``, ``code_gemv_cols_sweep``); the
              fused linear (both entries) and the prologue at the widths
              the reference takes that split over no cluster (D 63 = 7 x
@@ -158,8 +161,11 @@ Phases (any failure exits non-zero before the final line):
              launches) on all 32 serving linears of the served CAT-W4A4
              params and of a CAT-W8A4 PTQ of the same seeded model, at 8
              and 128 rows: bf16 against the plain composition, f32 bitwise
-             against the fused linear, each timed beside the fused linear. All six
-             of its kernels must have launched in its counted pass.
+             against the fused linear, each timed beside the fused linear;
+             and mistral-nemo-12b's four linears at 8 rows of f32 (its wd
+             on the code GEMV's streamed plan), bitwise against the fused
+             linear. All six of its kernels must have launched in its
+             counted pass.
 
 The second line from the end is the per-kernel JSON summary, the last line
 ``{"ok": true, "device": {...}}``. Full results also go to
@@ -170,9 +176,17 @@ The second line from the end is the per-kernel JSON summary, the last line
 times rows 1-5, 7, 8 and 9 only (the flag keeps its first name, from when it
 timed rows 2 and 4), of the port package under SRC (another checkout's
 ``src``, such as the parent commit's; default this one's), at this
-script's timed shapes and ``DECODE_LENGTHS``: run it for two packages in
-turns within one call for a before/after of those kernels
-(``compare_rows``).
+script's timed shapes and ``DECODE_LENGTHS``, and the streamed path's
+halves at mistral-nemo-12b's widths (rows 1 and 5, row 2's streamed
+stage 1, the transform alone and the contraction alone, ``stream_split``):
+run it for two packages in turns within one call for a before/after of
+those kernels (``compare_rows``).
+
+    python3 chip_smoke.py --serve-g [SRC]
+
+serves (g) mistral-nemo-12b with the port package under SRC (warm-up,
+counted and profiled passes, no holds), for a before/after end to end in
+one call (``serve_g``).
 """
 from __future__ import annotations
 
@@ -762,6 +776,10 @@ GEMV_CODE_EDGES = [(512, 3072), (1536, 512), (63, 40), (1535, 520),
 # a deep K at a wide N, where 64 columns of int8 weights do not fit in a
 # CTA's shared memory and the plan takes fewer (held at M 1 and 8)
 GEMV_DEEP_WIDE = (4096, 32000)
+# (K, N) of the dense family's wd (d_ff at d_model): mistral-nemo-12b,
+# gemma3-12b, paligemma-3b, granite-34b; a K no CTA's tile of all of K
+# holds at M 8, which the code GEMV streams (held at M 1 and 8)
+GEMV_DEEP_K = [(14336, 5120), (15360, 3840), (16384, 2048), (24576, 6144)]
 GEMV_SWEEP_COLS = (4, 8, 16, 32, 64, 128)
 
 
@@ -798,7 +816,8 @@ def check_code_gemv_edges(gen, dev):
     integer accumulation and one epilogue in the same op order) at every
     M in 1..8 and each (K, N) of ``GEMV_CODE_EDGES`` (odd K: the missing
     code reads as 0 against the zero high nibble) and at M 1 and 8 at
-    ``GEMV_DEEP_WIDE``, with its plan; and at
+    ``GEMV_DEEP_WIDE`` and the family's deep K (``GEMV_DEEP_K``: the
+    streamed plan at M 8, one launch of its kernel), with its plan; and at
     code extremes, where each sum passes 2^24: codes -128 against -8 (int8:
     -128) but the last three (1), and alternating -128 / 127 against 7 /
     -8 (int8: 127 / -128) along K. -> (row 7's records, row 8's)."""
@@ -833,6 +852,23 @@ def check_code_gemv_edges(gen, dev):
             args, _ = contraction_operands(m, k, n, gen, dev, packed,
                                            4 if packed else 8)
             held(args, packed, {})
+    run = {True: QW.quant_gemv_w4, False: QM.quant_matmul}
+    for k, n in GEMV_DEEP_K:
+        for packed in (True, False):
+            args8, _ = contraction_operands(8, k, n, gen, dev, packed,
+                                            4 if packed else 8)
+            for m in (1, 8):
+                args = [t[:m] for t in args8[:3]] + args8[3:]
+                rec = {"deep_k": True}
+                held(args, packed, rec)
+                if m == 8:
+                    rec["one_call"] = one_launch(
+                        lambda: run[packed](*args),
+                        "code_gemv_stream_kernel")
+                    if rec["plan"]["path"] != 1 or not rec["one_call"]["ok"]:
+                        fail(f"deep K not one streamed launch: "
+                             f"{json.dumps(rec)}")
+            del args, args8
     for m, k, n, pattern in ((8, 1536, 40, "min"), (3, 1535, 24, "min"),
                              (8, 1536, 72, "alternating"),
                              (5, 1535, 24, "alternating")):
@@ -2150,6 +2186,26 @@ def check_contractions(card, gen, dev):
                         "ok"]:
                     fail(f"{name} m={m} k={k} n={n}: max error {err}, "
                          f"{differing} outputs differ: {json.dumps(extra)}")
+    # rows 7 and 8 at mistral-nemo-12b's wd (K 14336, N 5120), M 8: the
+    # streamed code GEMV, timed
+    k, n = GEMV_DEEP_K[0]
+    for name, run, plain, packed, _ in (cases[0], cases[2]):
+        args, _ = contraction_operands(8, k, n, gen, dev, packed)
+        got, want = run(*args), plain(*args)
+        differing = int((got != want).sum().item())
+        w_bytes = k * n // 2 if packed else k * n
+        extra = {"max_err": (got - want).abs().max().item(), "tol": 0.0,
+                 "differing": differing, "deep_k": True,
+                 "plan": dataclasses.asdict(QM.gemv_plan(
+                     8, k, n, packed, build.sm_count(dev)))}
+        out[name].append(timed_record(
+            name, {"m": 8, "d": k, "n": n}, lambda: run(*args),
+            lambda: plain(*args), None,
+            8 * k + w_bytes + 4 * n + 8 * 8 + 4 * 8 * n,
+            2 * 8 * k * n / INT8_OP_S, card, extra))
+        if differing:
+            fail(f"{name} at a deep K: {json.dumps(extra)}")
+        del args, got, want
     w4_gemv, w8_gemv = check_code_gemv_edges(gen, dev)
     out["quant_gemv_w4"] += w4_gemv
     out["quant_matmul_w4"] += check_w4_edges(gen, dev)
@@ -3530,7 +3586,11 @@ def composed_phase(model, params_w4, counters, card, gen):
     ``ops.fused_cat_matmul`` bitwise (the same f32 transform chains, the
     same quant and the same contractions: above 8 rows both run the
     tensor-core contraction, W4 and W8), and each call is timed beside the
-    fused linear (device ms)."""
+    fused linear (device ms). The counted pass also runs mistral-nemo-12b's
+    four linears (wqkv, wo, wgu, wd) at 8 rows of f32 activations on
+    seeded int4-packed weights, each held bitwise against the fused
+    linear and timed beside it: its wd (K 14336) takes the code GEMV's
+    streamed plan."""
     import torch
 
     from repro_torch.kernels import block_matmul as B
@@ -3575,6 +3635,11 @@ def composed_phase(model, params_w4, counters, card, gen):
             x = xs[ql.d_in if ql.packed else ql.qweight.shape[0]][:m]
             runs.append((bits, li, name, ql, dec, x, call(x, ql, dec),
                          call(x.float(), ql, dec)))
+    wide = []
+    for seed, (lin, d, n) in enumerate(family_linears("mistral_nemo_12b")):
+        args = wide_operands(8, d, n, torch.device("cuda"), 500 + seed, True)
+        wide.append((lin, d, n, args, ops.cat_transform_matmul(
+            *args, act_bits=4, packed_int4=True)))
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
     print("composed: counted pass launches " + json.dumps(launches))
@@ -3617,6 +3682,23 @@ def composed_phase(model, params_w4, counters, card, gen):
         if not (rec["bf16_within_tol"] and rec["code_shift_max"] <= 1
                 and rec["code_shift_share"] <= 1e-2 and err32 == 0):
             fail(f"composed linear: {json.dumps(rec)}")
+    wide_recs = []
+    for lin, d, n, args, y in wide:
+        fused = ops.fused_cat_matmul(*args, act_bits=4, packed=True)
+        rec = {"arch": "mistral_nemo_12b", "linear": lin, "m": 8, "d": d,
+               "n": n, "differing": int((y != fused).sum().item()),
+               "f32_vs_fused_max_err": (y - fused).abs().max().item(),
+               "composed_ms": device_ms(lambda: ops.cat_transform_matmul(
+                   *args, act_bits=4, packed_int4=True)),
+               "fused_ms": device_ms(lambda: ops.fused_cat_matmul(
+                   *args, act_bits=4, packed=True)),
+               "card": card}
+        print("composed: " + json.dumps(rec))
+        wide_recs.append(rec)
+        if rec["differing"]:
+            fail(f"composed linear at mistral-nemo-12b's {lin}: "
+                 f"{json.dumps(rec)}")
+    del wide
     summary = {}
     for bits in ("w4", "w8"):
         for m in COMPOSED_ROWS:
@@ -3631,10 +3713,283 @@ def composed_phase(model, params_w4, counters, card, gen):
                 "f32_vs_fused_max_err": max(r["f32_vs_fused_max_err"]
                                             for r in sel)}
     out = {"ptq_w8_s": ptq8_s, "launches": launches, "summary": summary,
-           "calls": recs}
+           "calls": recs, "mistral_m8": wide_recs}
     print("composed: 32 linears x {W4, W8} x {8, 128} rows, activations "
           "from a seed " + json.dumps(summary))
     return out
+
+
+# A probe of the streamed path's two halves, built against the csrc/
+# headers of the package being compared (``-I``), so the same source
+# times the parent's and this checkout's: the transform and quant alone
+# (``wide::transform_quant`` as the decode linear's streamed kernel runs
+# it, its codes into the scratch) and, where the headers still have it,
+# the earlier two-stage contraction alone (this checkout's is the code
+# GEMV's streamed entry, ``quant_matmul.gemv_stream``).
+STREAM_PROBE_CU = r"""
+#include "wide_tq.cuh"
+
+// the launch bounds of the checkout's own streamed kernels
+#ifdef REPRO_WIDE_STREAM_RING
+#define PROBE_BOUNDS __launch_bounds__(ctq::kThreads, ctq::kStreamCtasPerSm)
+#else
+#define PROBE_BOUNDS __launch_bounds__(ctq::kThreads)
+#endif
+
+namespace {
+template <typename T>
+__global__ void PROBE_BOUNDS probe_transform_kernel(
+    const T* x, int m, int d, const float* blocks, int bk,
+    const float* sign, const float* ha, int a, const float* hb, int b,
+    int bits, void* ws, int kt) {
+  const wide::Regions s(ws, m, d, kt);
+  const size_t ldq = ctq::wide_ldq(d, kt);
+#ifdef REPRO_WIDE_STREAM_RING
+  extern __shared__ float4 probe_tile[];
+  wide::transform_quant(x, m, d, blocks, bk, sign, ha, a, hb, b, bits, s.y,
+                        s.z, s.mm, s.q, ldq, (int)ldq, nullptr, nullptr,
+                        reinterpret_cast<float*>(probe_tile));
+#else
+  wide::transform_quant(x, m, d, blocks, bk, sign, ha, a, hb, b, bits, s.y,
+                        s.z, s.mm, s.q, ldq, (int)ldq, nullptr, nullptr);
+#endif
+}
+
+#ifndef REPRO_WIDE_STREAM_RING
+template <bool PACKED>
+__global__ void __launch_bounds__(ctq::kThreads) probe_contract_kernel(
+    const int8_t* q, size_t ldq, int m, int kt, const int8_t* w, int n,
+    int d, int tc, int vw, const float* sx, const float* zx,
+    const float* sw, float* out) {
+  extern __shared__ float4 probe_smem[];
+  char* smem = reinterpret_cast<char*>(probe_smem);
+  const ctq::WideLayout lay(m, kt, PACKED, tc, false);
+  const int* s_tot = reinterpret_cast<const int*>(smem + lay.tot);
+  const int tiles = (n + tc - 1) / tc;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int n0 = tile * tc, cols = min(tc, n - n0);
+    wide::contract_stream<PACKED>(q, ldq, m, kt, w, n, d, n0, tc, vw, lay,
+                                  smem);
+    for (int t = threadIdx.x; t < m * cols; t += ctq::kThreads) {
+      const int r = t / cols, j = t - r * cols;
+      out[(size_t)r * n + n0 + j] = contract::epilogue(
+          sx[r], sw[n0 + j], s_tot[r * tc + j], zx[r], s_tot[m * tc + j]);
+    }
+    __syncthreads();
+  }
+}
+#endif
+}  // namespace
+
+extern "C" int probe_transform(const void* x, int bf16, int m, int d,
+                               const void* blocks, int bk, const void* sign,
+                               const void* ha, int a, const void* hb, int b,
+                               int bits, void* ws, int kt, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#ifdef REPRO_WIDE_STREAM_RING   // the tile, two CTAs per SM, as row 1 runs it
+  const size_t smem = ctq::wide_tq_bytes(a, b, blocks != nullptr ? bk : 0);
+  const int grid = ctq::kStreamCtasPerSm * ctq::device_sms();
+#else
+  const size_t smem = 0;
+  const int grid = wide::device_sms();
+#endif
+  auto f = [&](auto kernel, auto xp) {
+    return (int)wide::launch(kernel, grid, smem, st, xp, m, d,
+                             static_cast<const float*>(blocks), bk,
+                             static_cast<const float*>(sign),
+                             static_cast<const float*>(ha), a,
+                             static_cast<const float*>(hb), b, bits, ws, kt);
+  };
+  if (bf16)
+    return f(probe_transform_kernel<__nv_bfloat16>,
+             static_cast<const __nv_bfloat16*>(x));
+  return f(probe_transform_kernel<float>, static_cast<const float*>(x));
+}
+
+extern "C" long long probe_scratch(int m, int d, int kt) {
+  return (long long)ctq::WideScratch(m, d, kt).end;
+}
+
+// The earlier streamed contraction alone on its own plan: codes (m, ldq)
+// with ldq = probe_ldq (zero past d); 1 where the headers no longer
+// have it.
+extern "C" long long probe_ldq(int m, int d, int n, int packed) {
+#ifndef REPRO_WIDE_STREAM_RING
+  ctq::Plan p;
+  if (!ctq::wide_gemv_plan(m, d, n, 1, d, 0, packed, wide::device_sms(),
+                           ctq::device_smem_optin(), 0, &p))
+    return -1;
+  return (long long)ctq::wide_ldq(d, p.ktile);
+#else
+  return -1;
+#endif
+}
+
+extern "C" int probe_contract(const void* q, int m, int d, const void* w,
+                              int packed, int n, const void* sx,
+                              const void* zx, const void* sw, void* out,
+                              void* stream) {
+#ifndef REPRO_WIDE_STREAM_RING
+  ctq::Plan p;
+  if (!ctq::wide_gemv_plan(m, d, n, 1, d, 0, packed, wide::device_sms(),
+                           ctq::device_smem_optin(), 0, &p))
+    return 1;
+  const size_t ldq = ctq::wide_ldq(d, p.ktile);   // the parent's plan
+  const int vw = ctq::weight_vector(w, n, p.cols);
+  auto kernel = packed ? probe_contract_kernel<true>
+                       : probe_contract_kernel<false>;
+  return (int)wide::launch(
+      kernel, wide::device_sms(), (size_t)p.smem,
+      static_cast<cudaStream_t>(stream), static_cast<const int8_t*>(q), ldq,
+      m, p.ktile, static_cast<const int8_t*>(w), n, d, p.cols, vw,
+      static_cast<const float*>(sx), static_cast<const float*>(zx),
+      static_cast<const float*>(sw), static_cast<float*>(out));
+#else
+  return 1;
+#endif
+}
+"""
+STREAM_PROBE_SIGNATURES = {
+    "probe_transform": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    "probe_scratch": [ctypes.c_int] * 3,
+    "probe_ldq": [ctypes.c_int] * 4,
+    "probe_contract": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_void_p]}
+
+
+def stream_probe(tag: str):
+    """``STREAM_PROBE_CU`` built with nvcc against the imported package's
+    csrc/ headers into build/probe_<tag>/ -> the loaded library."""
+    from repro_torch.kernels import build
+    out_dir = ROOT / "build" / f"probe_{tag}"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cu = out_dir / "probe.cu"
+    cu.write_text(STREAM_PROBE_CU)
+    lib_path = out_dir / "probe.so"
+    res = subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-I",
+                          str(build.CSRC), "-o", str(lib_path), str(cu)],
+                         capture_output=True, text=True, timeout=600)
+    if res.returncode:
+        fail(f"the stream probe did not build:\n{res.stdout}{res.stderr}")
+    lib = ctypes.CDLL(str(lib_path))
+    for name, sig in STREAM_PROBE_SIGNATURES.items():
+        getattr(lib, name).argtypes = sig
+        getattr(lib, name).restype = (ctypes.c_longlong if name in (
+            "probe_scratch", "probe_ldq") else ctypes.c_int)
+    return lib
+
+
+def stream_split(tag: str, dev) -> list:
+    """The streamed path at mistral-nemo-12b's widths, its halves apart:
+    row 1 (the decode linear) at each of the four linears and row 5 (the
+    prologue, QKV of 32 + 8 + 8 heads of 128) at M 8 on bf16 rows; row 2
+    (the tiled linear, its stage 1 streamed) at wd, M 128; the transform
+    and quant alone (``stream_probe``) at M 8 for each D, and at wd, M 128
+    (row 2's streamed stage 1); and the contraction alone at each linear's
+    K, N and M 8 (this checkout: the code GEMV's streamed entry, the plan
+    row 1 runs; an earlier checkout: its two-stage contraction through the
+    probe), bitwise against the plain contraction. Device ms by CUDA-graph
+    replay. -> records."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_layer as L
+    from repro_torch.kernels import fused_cat_matmul as F
+    from repro_torch.kernels import quant_matmul as QM
+    from repro_torch.kernels import quant_matmul_w4 as QW
+    probe = stream_probe(tag)
+    sms = build.sm_count(dev)
+    recs = []
+
+    def transform_ms(args, m, kt):
+        x = args[0][:m].to(torch.bfloat16)
+        a, b = args[2].shape[0], args[3].shape[0]
+        d = x.shape[1]
+        ws = torch.empty(probe.probe_scratch(m, d, kt), dtype=torch.uint8,
+                         device=dev)
+
+        def run():
+            build.check(probe.probe_transform(
+                build.ptr(x), 1, m, d, build.ptr(args[1]), CAT_BLOCK,
+                build.ptr(args[4]), build.ptr(args[2]), a,
+                build.ptr(args[3]), b, 4, build.ptr(ws), kt,
+                build.stream_of(x)), "probe_transform")
+        return device_ms(run)
+
+    cfg = get_config("mistral_nemo_12b")
+    for seed, (lin, d, n) in enumerate(family_linears("mistral_nemo_12b")):
+        rows = 128 if lin == "wd" else 8
+        args = wide_operands(rows, d, n, dev, 700 + seed, True)
+        a, b = args[2].shape[0], args[3].shape[0]
+        x8 = (args[0][:8].to(torch.bfloat16), *args[1:])
+        plan = F.gemv_plan(8, d, n, a, b, CAT_BLOCK, True, sms)
+        rec = {"kernel": "stream_split", "linear": lin, "m": 8, "d": d,
+               "n": n, "plan": dataclasses.asdict(plan),
+               "row1_ms": device_ms(lambda: F.fused_cat_gemv_w4(
+                   *x8, act_bits=4, packed=True)),
+               "transform_ms": transform_ms(args, 8, plan.ktile or 64)}
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        qx = torch.randint(-8, 8, (8, d), generator=gen, device=dev,
+                           dtype=torch.int8)
+        sx = torch.rand((8, 1), generator=gen, device=dev) * 0.02 + 0.001
+        zx = torch.randint(-8, 8, (8, 1), generator=gen,
+                           device=dev).float()
+        cargs = (qx, sx, zx, args[5], args[6])
+        want = QW.quant_matmul_w4_plain(*cargs)
+        if hasattr(QM, "gemv_stream"):
+            run = lambda: QM.gemv_stream(*cargs, packed=True)  # noqa: E731
+        else:
+            ldq = probe.probe_ldq(8, d, n, 1)
+            qpad = torch.zeros((8, ldq), dtype=torch.int8, device=dev)
+            qpad[:, :d] = qx
+            y = torch.empty((8, n), dtype=torch.float32, device=dev)
+
+            def run():
+                build.check(probe.probe_contract(
+                    build.ptr(qpad), 8, d, build.ptr(args[5]), 1, n,
+                    build.ptr(sx), build.ptr(zx), build.ptr(args[6]),
+                    build.ptr(y), build.stream_of(qx)), "probe_contract")
+                return y
+        rec["contract_differing"] = int((run() != want).sum().item())
+        rec["contract_ms"] = device_ms(run)
+        if lin == "wd":
+            xt = (args[0].to(torch.bfloat16), *args[1:])
+            rec["row2_m128_ms"] = device_ms(lambda: F.fused_cat_matmul_w4(
+                *xt, act_bits=4, packed=True))
+            rec["transform_m128_ms"] = transform_ms(args, 128, 64)
+        recs.append(rec)
+        del args, cargs, want
+    # row 5 at mistral-nemo-12b's QKV, B 8
+    d, hd = cfg.d_model, cfg.head_dim
+    n = cfg.q_dim + 2 * cfg.kv_dim
+    args = wide_operands(8, d, n, dev, 800, True)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    shape = (12, 16, cfg.n_kv_heads, hd)
+    pools = [torch.zeros(shape, dtype=torch.int8, device=dev),
+             torch.zeros(shape[:3] + (1,), device=dev),
+             torch.zeros(shape, dtype=torch.int8, device=dev),
+             torch.zeros(shape[:3] + (1,), device=dev)]
+    ids = [torch.tensor(v, dtype=torch.int32, device=dev)
+           for v in ([1 + i for i in range(8)],
+                     [(5 * i) % 16 for i in range(8)],
+                     [1000 * i + 37 for i in range(8)])]
+    kw = dict(n_q=cfg.q_dim, head_dim=hd, rope_theta=float(cfg.rope_theta),
+              kv_bits=8, act_bits=4, packed=True)
+    xb = (args[0].to(torch.bfloat16), *args[1:])
+    recs.append({"kernel": "stream_split", "linear": "qkv_prologue",
+                 "m": 8, "d": d, "n": n, "row5_ms": device_ms(
+                     lambda: L.decode_qkv_prologue(*xb, *pools, *ids,
+                                                   **kw))})
+    for rec in recs:
+        print("stream split " + json.dumps(rec))
+    return recs
 
 
 def compare_rows(src: Path, card: str, out_dir: Path) -> None:
@@ -3652,7 +4007,9 @@ def compare_rows(src: Path, card: str, out_dir: Path) -> None:
     ``quant_matmul``) at 8 rows of every main-path (D, N) (outputs
     differing from the plain version); the dynamic quant (row 9) at the
     composed phase's shapes (M 8 and 128, D 512 and 1536, bf16; codes,
-    scales and zero points differing). Run it for two packages in one
+    scales and zero points differing); and the streamed path's halves at
+    mistral-nemo-12b's widths (``stream_split``). Run it for two packages
+    in one
     call, in turns, for a before/after; writes
     ``chiprun_out/compare_<tag>.json`` and, for the libraries it built,
     the compiler's output ``chiprun_out/nvcc_<tag>.log``."""
@@ -3737,6 +4094,7 @@ def compare_rows(src: Path, card: str, out_dir: Path) -> None:
                  device_ms(lambda: L.decode_qkv_prologue(*args, *pools,
                                                          *ids, **kw))})
     tag = hashlib.sha1(str(src.resolve()).encode()).hexdigest()[:8]
+    recs += stream_split(tag, dev)
     res = {"src": str(src), "card": card, "records": recs,
            "seconds": time.perf_counter() - t0}
     for rec in recs:
@@ -3752,13 +4110,65 @@ def compare_rows(src: Path, card: str, out_dir: Path) -> None:
             for name, r in sorted(report.items())))
 
 
+def serve_g(src: Path, card: str, out_dir: Path) -> None:
+    """(g) mistral-nemo-12b served by the port package under ``src``
+    (another checkout's ``src``, such as the parent commit's, or this
+    one's), as ``serve_family`` serves it (seeded layerwise PTQ, (b)'s
+    engine and 8 requests): a warm-up pass, the counted pass (tok/s, ITL,
+    TTFT, launches of rows 1-5) and the profiled pass (device ms by
+    kernel, busy share), without the reference's holds. Run it for two
+    packages in turns within one call for a before/after end to end;
+    writes ``chiprun_out/serve_g_<tag>.json``."""
+    import hashlib
+    import os
+
+    import torch
+
+    from repro_torch.data import request_workload
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_layer as L
+    from repro_torch.kernels import fused_cat_matmul as F
+    from repro_torch.kernels import paged_attention as P
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.serve import build_served_model
+    build.build_all()
+    counters = [F.fused_cat_gemv_w4, F.fused_cat_matmul_w4,
+                P.paged_attention_ragged, P.paged_attention_decode,
+                L.decode_qkv_prologue]
+    cfg, model, params, _ = build_served_model(
+        "mistral_nemo_12b", "cat", 4, 4, 8, smoke=False, seed=0,
+        device="cuda")
+    reqs = request_workload(cfg, 8, gen=32, seed=0)
+    max_len = max(len(r["tokens"]) + r["max_new_tokens"] for r in reqs) + 8
+    os.environ.pop("REPRO_DECODE_FUSED", None)
+    engine = ServeEngine(model, params, paged_kernel=True, pipeline=None,
+                         n_slots=8, max_len=max_len, schedule="unified",
+                         max_batch_tokens=128, page_size=16, device="cuda")
+    engine.run(reqs)
+    engine.reset()
+    for fn in counters:
+        fn.launches = 0
+    engine.run(reqs)
+    torch.cuda.synchronize()
+    summ = engine.summary()
+    rec = {"src": str(src), "card": card,
+           "launches": {fn.__name__: fn.launches for fn in counters},
+           **{k: summ[k] for k in SERVED_KEYS if k in summ},
+           "profile": profile_serving(engine, reqs)}
+    print("serve g " + json.dumps(rec))
+    tag = hashlib.sha1(str(src.resolve()).encode()).hexdigest()[:8]
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / f"serve_g_{tag}.json").write_text(json.dumps(rec, indent=1))
+
+
 def main() -> None:
-    compare = None
-    if sys.argv[1:2] == ["--rows-2-4"]:
+    compare = mode = None
+    if sys.argv[1:2] in (["--rows-2-4"], ["--serve-g"]):
+        mode = sys.argv[1]
         compare = Path(sys.argv[2]) if len(sys.argv) > 2 else SRC
     elif sys.argv[1:]:
         fail(f"unknown arguments {sys.argv[1:]}: run with none, or with "
-             f"--rows-2-4 [SRC]")
+             f"--rows-2-4 [SRC] or --serve-g [SRC]")
     src = compare or SRC
     if not (src / "repro_torch").is_dir():
         fail(f"{src / 'repro_torch'} not found: run from a checkout of the "
@@ -3774,8 +4184,11 @@ def main() -> None:
     print(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if compare is not None:
+    if mode == "--rows-2-4":
         compare_rows(compare, card, ROOT / "chiprun_out")
+        return
+    if mode == "--serve-g":
+        serve_g(compare, card, ROOT / "chiprun_out")
         return
 
     from repro_torch.kernels import build

@@ -28,9 +28,11 @@
 // through the general path of cluster_tq.cuh, bitwise as the vector path.
 // Widths whose operands the cluster's shared memory does not hold (D
 // 2048 at head_dim 128, 5120 and up) take the streamed path of
-// wide_tq.cuh: one cooperative launch, the transform through a device
-// scratch, then each CTA's heads with K streamed through a two-stage
-// cp.async ring, and the same head epilogue.
+// wide_tq.cuh: one cooperative launch, the first weight stages issued
+// before the transform runs through a device scratch, then each head's K
+// split over CTAs on the tensor cores, streamed through a deep ring, the
+// splits' exact sums added in split order, and the same head epilogue
+// run once, by the head's owner.
 //
 // Bound on this card: the packed QKV weight (D/2 x N bytes, 256 KiB at
 // full width) over HBM bandwidth; everything else is a few KiB. The design
@@ -222,14 +224,18 @@ __global__ void __launch_bounds__(ctq::kThreads) decode_qkv_prologue_kernel(
                    page_size, k_pool, k_scale, v_pool, v_scale, q_out);
 }
 
-// The streamed path (cluster_plan.h path 1): one cooperative launch (one
-// CTA per SM). The grid transforms and quantizes the m rows into the
-// scratch ws (wide_tq.cuh), then CTA i takes heads i, i + grid, ...,
-// streams K in tiles of kt against the head's hd columns and runs the
-// head's epilogue (RoPE, KV quant, scatter) as the cluster kernel does.
-// Dynamic shared memory: the plan's (ctq::WideLayout with outputs).
+// The streamed path (cluster_plan.h path 1): one cooperative launch (the
+// plan's CTAs per SM). Each CTA issues the weight stages of its first
+// work items (a head's K split each, ctq::stream_plan); the grid
+// transforms and quantizes the m rows into the scratch ws (wide_tq.cuh),
+// then each CTA contracts its items on the tensor cores (wide::Stream),
+// and the head's owner adds its splits in split order after a grid
+// barrier and runs the head's epilogue (RoPE, KV quant, scatter) as the
+// cluster kernel does, once. Dynamic shared memory: the plan's
+// (ctq::StreamLayout with outputs).
 template <typename T, bool PACKED>
-__global__ void __launch_bounds__(ctq::kThreads) wide_prologue_kernel(
+__global__ void __launch_bounds__(ctq::kThreads, ctq::kStreamCtasPerSm)
+    wide_prologue_kernel(
     const T* __restrict__ x, int m, int d,
     const float* __restrict__ blocks, int bk,
     const float* __restrict__ sign,
@@ -241,35 +247,37 @@ __global__ void __launch_bounds__(ctq::kThreads) wide_prologue_kernel(
     const int* __restrict__ row_ids, const int* __restrict__ positions,
     int page_size, int8_t* __restrict__ k_pool, float* __restrict__ k_scale,
     int8_t* __restrict__ v_pool, float* __restrict__ v_scale,
-    float* __restrict__ q_out, int kt, int vw, void* ws) {
+    float* __restrict__ q_out, ctq::Plan p, int vw, void* ws) {
   extern __shared__ float4 wide_prologue_smem_base[];   // 16-byte aligned
   char* smem = reinterpret_cast<char*>(wide_prologue_smem_base);
-  const wide::Regions s(ws, m, d, kt);
-  const size_t ldq = ctq::wide_ldq(d, kt);
+  const wide::Regions s(ws, m, d, p.ktile);
+  const size_t ldq = ctq::wide_ldq(d, p.ktile);
+  wide::Stream<PACKED> st(
+      wide::StreamArgs{s.q, ldq, (int)ldq, m, true, qw, d, n, vw, p, s.part},
+      smem, true);
+  st.init();
+  st.prefetch_weights();
   wide::transform_quant(x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits,
-                        s.y, s.z, s.mm, s.q, ldq, (int)ldq, nullptr,
-                        nullptr);
-  const ctq::WideLayout lay(m, kt, PACKED, hd, true);
-  const int* s_tot = reinterpret_cast<const int*>(smem + lay.tot);
-  float* s_sw = reinterpret_cast<float*>(smem + lay.sw);
-  float* s_out = reinterpret_cast<float*>(smem + lay.out);
+                        s.y, s.z, s.mm, s.q, ldq, (int)ldq, nullptr, nullptr,
+                        reinterpret_cast<float*>(smem + st.lay.tq));
+  float* s_sw = reinterpret_cast<float*>(smem + st.lay.sw);
+  float* s_out = reinterpret_cast<float*>(smem + st.lay.out);
   __shared__ float s_sx[kMaxRows], s_zx[kMaxRows];
   if (threadIdx.x < m) {
     float zp;
     wide::row_params(s.mm, threadIdx.x, act_bits, &s_sx[threadIdx.x], &zp,
                      &s_zx[threadIdx.x]);
   }
-  for (int head = blockIdx.x; head < n / hd; head += gridDim.x) {
+  st.prefetch_codes();
+  st.run([&](int head, const int* s_tot) {
     for (int j = threadIdx.x; j < hd; j += ctq::kThreads)
-      s_sw[j] = sw[head * hd + j];
-    wide::contract_stream<PACKED>(s.q, ldq, m, kt, qw, n, d, head * hd, hd,
-                                  vw, lay, smem);
+      s_sw[j] = __ldg(sw + head * hd + j);
+    __syncthreads();
     head_epilogue<T>(head, m, s_sx, s_zx, s_sw, s_tot, s_tot + m * hd,
                      s_out, n_q, n_kv, hd, freq, kv_bits, page_ids, row_ids,
                      positions, page_size, k_pool, k_scale, v_pool, v_scale,
                      q_out);
-    __syncthreads();   // the totals and outputs are reused by the next head
-  }
+  });
 }
 
 template <typename T, bool PACKED>
@@ -284,7 +292,8 @@ cudaError_t launch(const void* x, int m, int d, const void* blocks, int bk,
   if (p.path == 1) {
     if (ws == nullptr) return cudaErrorInvalidValue;
     return wide::launch(
-        wide_prologue_kernel<T, PACKED>, wide::device_sms(), (size_t)p.smem,
+        wide_prologue_kernel<T, PACKED>, p.per_sm * ctq::device_sms(),
+        (size_t)p.smem,
         stream, static_cast<const T*>(x), m, d,
         static_cast<const float*>(blocks), bk,
         static_cast<const float*>(sign), static_cast<const float*>(ha), a,
@@ -295,8 +304,7 @@ cudaError_t launch(const void* x, int m, int d, const void* blocks, int bk,
         static_cast<const int*>(positions), page_size,
         static_cast<int8_t*>(k_pool), static_cast<float*>(k_scale),
         static_cast<int8_t*>(v_pool), static_cast<float*>(v_scale),
-        static_cast<float*>(q_out), p.ktile, ctq::weight_vector(qw, n, hd),
-        ws);
+        static_cast<float*>(q_out), p, ctq::weight_vector(qw, n, hd), ws);
   }
   auto kernel =
       ctq::splits(d, a, b, blocks != nullptr ? bk : 0, p.cluster)
@@ -320,7 +328,7 @@ cudaError_t launch(const void* x, int m, int d, const void* blocks, int bk,
 
 // One launch in clusters of head CTAs, on the plan of ctq::prologue_plan
 // (cluster_plan.h); on its streamed path (plan path 1) one cooperative
-// launch of one CTA per SM with the device scratch ``ws``
+// launch of the plan's CTAs per SM with the device scratch ``ws``
 // (ctq_wide_scratch bytes, 256-byte aligned; may be null on the cluster
 // path). A shape the plan does not take returns cudaErrorInvalidValue.
 // Returns cudaGetLastError() of the launch.
@@ -337,7 +345,8 @@ extern "C" int decode_qkv_prologue(
   ctq::Plan p;
   if (act_bits < 2 || act_bits > 8
       || !ctq::prologue_plan(m, d, n, hd, a, b, blocks != nullptr ? bk : 0,
-                             packed, ctq::device_smem_optin(), &p))
+                             packed, ctq::device_sms(),
+                             ctq::device_smem_optin(), &p))
     return (int)cudaErrorInvalidValue;
 #define REPRO_PROLOGUE_ARGS                                                 \
   x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits, qw, sw, n, n_q, n_kv,  \

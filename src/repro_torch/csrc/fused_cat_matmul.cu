@@ -38,9 +38,12 @@
 // Widths whose operands the cluster's shared memory does not hold (d_ff
 // 14336 and up, N 28672 at M 8: cluster_plan.h's path 1) take the
 // streamed path of wide_tq.cuh in both entries: the decode linear as ONE
-// cooperative launch (transform into a device scratch, then each CTA's
-// column tiles with K streamed through a two-stage cp.async ring), the
-// tiled stage 1 as one cooperative launch writing the codes to qx.
+// cooperative launch (its first weight stages issued, the transform into
+// a device scratch, then each CTA's work items, a column tile's K split
+// each, streamed through a deep ring onto the tensor cores, the splits'
+// exact int32 sums added in split order and the epilogue run once per
+// tile), the tiled stage 1 as one cooperative launch writing the codes to
+// qx.
 //
 // Bound on this card: at decode shapes the packed-weight bytes (D/2 x N)
 // over HBM bandwidth; at the 128-row ragged step the weight is still the
@@ -116,67 +119,75 @@ __global__ void __launch_bounds__(ctq::kThreads) cluster_transform_quant_kernel(
   }
 }
 
-// Tiled stage 1, streamed path: one cooperative launch (one CTA per SM)
-// transforms and quantizes all m rows through the scratch ws
+// Tiled stage 1, streamed path: one cooperative launch (the plan's CTAs
+// per SM) transforms and quantizes all m rows through the scratch ws
 // (wide::transform_quant), the codes into qx (row stride k_pad, zero past
-// d), sx and zx. No dynamic shared memory.
+// d), sx and zx. Dynamic shared memory: the transform's tile
+// (ctq::wide_tq_bytes, the plan's).
 template <typename T>
-__global__ void __launch_bounds__(ctq::kThreads) wide_transform_quant_kernel(
+__global__ void __launch_bounds__(ctq::kThreads, ctq::kStreamCtasPerSm)
+    wide_transform_quant_kernel(
     const T* __restrict__ x, int m, int d, int k_pad,
     const float* __restrict__ blocks, int bk,
     const float* __restrict__ sign,
     const float* __restrict__ ha, int a,
     const float* __restrict__ hb, int b, int act_bits, void* ws,
     int8_t* __restrict__ qx, float* __restrict__ sx, float* __restrict__ zx) {
+  extern __shared__ float4 wide_tq_smem[];   // 16-byte aligned
   const wide::Regions s(ws, m, d, 0);
   wide::transform_quant(x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits,
-                        s.y, s.z, s.mm, qx, k_pad, k_pad, sx, zx);
+                        s.y, s.z, s.mm, qx, k_pad, k_pad, sx, zx,
+                        reinterpret_cast<float*>(wide_tq_smem));
 }
 
-// Decode, streamed path: one cooperative launch (one CTA per SM). The
-// grid transforms and quantizes the m rows into the scratch ws, then CTA
-// i takes column tiles i, i + grid, ... of tc columns, streams K in tiles
-// of kt (wide::contract_stream) and applies the epilogue. Dynamic shared
-// memory: the plan's (ctq::WideLayout).
+// Decode, streamed path: one cooperative launch (the plan's CTAs per SM,
+// two where its ring fits in half an SM's shared memory). Each CTA first
+// issues the weight stages of its first work items into its ring
+// (wide::Stream, the plan's, ctq::stream_plan); the grid then
+// transforms and quantizes the m rows into the scratch ws
+// (wide::transform_quant), and each CTA contracts its items' K splits on
+// the tensor cores; a tile's splits are added in split order, by the
+// tile's owner after a grid barrier, which applies the epilogue to its
+// columns. Dynamic shared memory: the plan's (ctq::StreamLayout).
 template <typename T, bool PACKED>
-__global__ void __launch_bounds__(ctq::kThreads) wide_gemv_kernel(
+__global__ void __launch_bounds__(ctq::kThreads, ctq::kStreamCtasPerSm)
+    wide_gemv_kernel(
     const T* __restrict__ x, int m, int d,
     const float* __restrict__ blocks, int bk,
     const float* __restrict__ sign,
     const float* __restrict__ ha, int a,
     const float* __restrict__ hb, int b, int act_bits,
     const int8_t* __restrict__ qw, const float* __restrict__ sw, int n,
-    int tc, int kt, int vw, void* ws, float* __restrict__ out) {
+    ctq::Plan p, int vw, void* ws, float* __restrict__ out) {
   extern __shared__ float4 wide_smem_base[];   // 16-byte aligned
   char* smem = reinterpret_cast<char*>(wide_smem_base);
-  const wide::Regions s(ws, m, d, kt);
-  const size_t ldq = ctq::wide_ldq(d, kt);
+  const wide::Regions s(ws, m, d, p.ktile);
+  const size_t ldq = ctq::wide_ldq(d, p.ktile);
+  wide::Stream<PACKED> st(
+      wide::StreamArgs{s.q, ldq, (int)ldq, m, true, qw, d, n, vw, p, s.part},
+      smem);
+  st.init();
+  st.prefetch_weights();
   wide::transform_quant(x, m, d, blocks, bk, sign, ha, a, hb, b, act_bits,
-                        s.y, s.z, s.mm, s.q, ldq, (int)ldq, nullptr,
-                        nullptr);
-  const ctq::WideLayout lay(m, kt, PACKED, tc, false);
-  const int* s_tot = reinterpret_cast<const int*>(smem + lay.tot);
-  float* s_sw = reinterpret_cast<float*>(smem + lay.sw);
+                        s.y, s.z, s.mm, s.q, ldq, (int)ldq, nullptr, nullptr,
+                        reinterpret_cast<float*>(smem + st.lay.tq));
   __shared__ float s_sx[ctq::kMaxRows], s_zx[ctq::kMaxRows];
   if (threadIdx.x < m) {
     float zp;
     wide::row_params(s.mm, threadIdx.x, act_bits, &s_sx[threadIdx.x], &zp,
                      &s_zx[threadIdx.x]);
   }
-  const int tiles = (n + tc - 1) / tc;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+  st.prefetch_codes();
+  const int tc = p.cols;
+  st.run([&](int tile, const int* s_tot) {
     const int n0 = tile * tc, cols = min(tc, n - n0);
-    for (int j = threadIdx.x; j < cols; j += ctq::kThreads)
-      s_sw[j] = sw[n0 + j];
-    wide::contract_stream<PACKED>(s.q, ldq, m, kt, qw, n, d, n0, tc, vw,
-                                  lay, smem);
     for (int t = threadIdx.x; t < m * cols; t += ctq::kThreads) {
       const int r = t / cols, j = t - r * cols;
       out[(size_t)r * n + n0 + j] = contract::epilogue(
-          s_sx[r], s_sw[j], s_tot[r * tc + j], s_zx[r], s_tot[m * tc + j]);
+          s_sx[r], __ldg(sw + n0 + j), s_tot[r * tc + j], s_zx[r],
+          s_tot[m * tc + j]);
     }
-    __syncthreads();   // the totals and scales are reused by the next tile
-  }
+  });
 }
 
 template <typename T>
@@ -189,7 +200,9 @@ cudaError_t launch_stage1(const void* x, int m, int d, int k_pad,
   if (p.path == 1) {
     if (ws == nullptr) return cudaErrorInvalidValue;
     return wide::launch(
-        wide_transform_quant_kernel<T>, wide::device_sms(), 0, stream,
+        wide_transform_quant_kernel<T>, p.per_sm * ctq::device_sms(),
+        (size_t)p.smem,
+        stream,
         static_cast<const T*>(x), m, d, k_pad,
         static_cast<const float*>(blocks), bk,
         static_cast<const float*>(sign), static_cast<const float*>(ha), a,
@@ -296,13 +309,13 @@ cudaError_t launch_decode(const void* x, int m, int d, const void* blocks,
   if (p.path == 1) {
     if (ws == nullptr) return cudaErrorInvalidValue;
     return wide::launch(
-        wide_gemv_kernel<T, PACKED>, sms, (size_t)p.smem, stream,
+        wide_gemv_kernel<T, PACKED>, p.per_sm * sms,
+        (size_t)p.smem, stream,
         static_cast<const T*>(x), m, d, static_cast<const float*>(blocks),
         bk, static_cast<const float*>(sign), static_cast<const float*>(ha),
         a, static_cast<const float*>(hb), b, act_bits,
-        static_cast<const int8_t*>(qw), static_cast<const float*>(sw), n,
-        p.cols, p.ktile, ctq::weight_vector(qw, n, p.cols), ws,
-        static_cast<float*>(out));
+        static_cast<const int8_t*>(qw), static_cast<const float*>(sw), n, p,
+        ctq::weight_vector(qw, n, p.cols), ws, static_cast<float*>(out));
   }
   auto kernel =
       ctq::splits(d, a, b, blocks != nullptr ? bk : 0, p.cluster)

@@ -21,7 +21,14 @@
 // cp.async, then ctq::contract_codes, the dp4a contraction the decode
 // fused linear and the prologue run: K split over kThreads / cols slices
 // of whole dp4a groups, 16 codes of a row per read, the column sums riding
-// along, the slices added in shared memory, one epilogue. Above 8 rows,
+// along, the slices added in shared memory, one epilogue. At a K whose
+// tile does not fit in shared memory even at 4 columns (about 9,100 int8
+// or 13,700 packed K at m 8: the deep wd of LLMs) the plan is the
+// streamed one (path 1), and the kernel the streamed contraction of the
+// decode linear's streamed path (wide_tq.cuh wide::Stream): one
+// cooperative launch, K through a deep ring onto the tensor cores, each
+// column tile's K split over CTAs, the splits' exact int32 sums added in
+// split order, one epilogue per output. Above 8 rows,
 // the tensor-core contraction of contract.cuh that the fused CAT linear's
 // stage 2 runs (quant_matmul_w4 at any m, quant_matmul above 8 rows:
 // mma.sync m16n8k32 s8 on 64 x 64 tiles, weights transposed in shared
@@ -36,6 +43,7 @@
 // by spreading the columns over every SM.
 #include "cluster_tq.cuh"
 #include "contract.cuh"
+#include "wide_tq.cuh"
 
 namespace {
 
@@ -90,20 +98,78 @@ __global__ void __launch_bounds__(ctq::kThreads) code_gemv_kernel(
   }
 }
 
+// The code GEMV at a K too deep for one tile of all of K (the plan's path
+// 1): one cooperative launch (the plan's CTAs per SM) running the streamed
+// contraction of the decode linear's streamed path (wide::Stream): each
+// CTA issues its first weight stages, then contracts its work items (a
+// column tile's K split each) on the tensor cores; a tile's splits are
+// added in split order by its owner after a grid barrier, which applies
+// the epilogue. qx (m, k) with row stride k (vec: 16-byte rows at a
+// 16-byte aligned address); gws: the splits' partial sums
+// (ctq::stream_totals).
+template <bool PACKED>
+__global__ void __launch_bounds__(ctq::kThreads, ctq::kStreamCtasPerSm)
+    code_gemv_stream_kernel(
+    const int8_t* __restrict__ qx, int k, bool vec,
+    const float* __restrict__ sx, const float* __restrict__ zx, int m,
+    const int8_t* __restrict__ qw, const float* __restrict__ sw, int n,
+    ctq::Plan p, int vw, int* gws, float* __restrict__ out) {
+  extern __shared__ float4 code_stream_smem[];   // 16-byte aligned
+  char* smem = reinterpret_cast<char*>(code_stream_smem);
+  wide::Stream<PACKED> st(
+      wide::StreamArgs{qx, (size_t)k, k, m, vec, qw, k, n, vw, p, gws},
+      smem);
+  st.init();
+  st.prefetch_weights();
+  __shared__ float s_sx[ctq::kMaxRows], s_zx[ctq::kMaxRows];
+  if (threadIdx.x < m) {
+    s_sx[threadIdx.x] = sx[threadIdx.x];
+    s_zx[threadIdx.x] = zx[threadIdx.x];
+  }
+  st.prefetch_codes();
+  const int tc = p.cols;
+  st.run([&](int tile, const int* s_tot) {
+    const int n0 = tile * tc, cols = min(tc, n - n0);
+    for (int t = threadIdx.x; t < m * cols; t += ctq::kThreads) {
+      const int r = t / cols, j = t - r * cols;
+      out[(size_t)r * n + n0 + j] = contract::epilogue(
+          s_sx[r], __ldg(sw + n0 + j), s_tot[r * tc + j], s_zx[r],
+          s_tot[m * tc + j]);
+    }
+  });
+}
+
 // Launch the code GEMV of m <= 8 rows on the plan of ctq::code_gemv_plan
-// for a card of ``sms`` SMs with ``cols`` columns per CTA (0: the plan's).
+// for a card of ``sms`` SMs with ``cols`` columns per CTA (0: the plan's)
+// (with ``stream``: on ctq::stream_plan, the streamed contraction whatever
+// the K, for timing it alone); its streamed plan takes the scratch gws.
 // A shape the plan does not take returns cudaErrorInvalidValue. Returns
 // the launch's CUDA error.
 cudaError_t launch_code_gemv(const void* qx, int m, int k, const void* sx,
                              const void* zx, const void* qw, int packed,
                              const void* sw, int n, int sms, int cols,
-                             void* out, cudaStream_t stream) {
+                             void* gws, void* out, cudaStream_t stream,
+                             bool force_stream = false) {
   ctq::Plan p;
-  if (!ctq::code_gemv_plan(m, k, n, packed, sms, ctq::device_smem_optin(),
-                           cols, &p))
+  const int optin = ctq::device_smem_optin();
+  if (!(force_stream
+            ? ctq::stream_plan(m, k, n, packed, cols, false, sms, optin, &p)
+            : ctq::code_gemv_plan(m, k, n, packed, sms, optin, cols, &p)))
     return cudaErrorInvalidValue;
   const bool vec = k % 16 == 0 && reinterpret_cast<uintptr_t>(qx) % 16 == 0;
   const int vw = ctq::weight_vector(qw, n, p.cols);
+  if (p.path == 1) {
+    if (p.splits > 1 && gws == nullptr) return cudaErrorInvalidValue;
+    auto kernel = packed ? code_gemv_stream_kernel<true>
+                         : code_gemv_stream_kernel<false>;
+    return wide::launch(kernel, p.per_sm * sms, (size_t)p.smem, stream,
+                        static_cast<const int8_t*>(qx), k, vec,
+                        static_cast<const float*>(sx),
+                        static_cast<const float*>(zx), m,
+                        static_cast<const int8_t*>(qw),
+                        static_cast<const float*>(sw), n, p, vw,
+                        static_cast<int*>(gws), static_cast<float*>(out));
+  }
   auto kernel = packed ? code_gemv_kernel<true> : code_gemv_kernel<false>;
   const cudaError_t err = ctq::opt_in(kernel);
   if (err != cudaSuccess) return err;
@@ -119,14 +185,33 @@ cudaError_t launch_code_gemv(const void* qx, int m, int k, const void* sx,
 
 // qx (m, k) int8, sx/zx (m,) f32, qw packed (ceil(k/2), n) int8, sw (n,)
 // f32 -> out (m, n) f32; m <= 8, the code GEMV on a card of ``sms`` SMs
-// with ``cols`` columns per CTA (0: the plan's). Returns the launch's CUDA
-// error (cudaErrorInvalidValue for a shape the plan does not take).
+// with ``cols`` columns per CTA (0: the plan's); on its streamed plan
+// (a deep K) gws holds the splits' partial sums (ctq_stream_totals bytes;
+// may be null otherwise). Returns the launch's CUDA error
+// (cudaErrorInvalidValue for a shape the plan does not take).
 extern "C" int quant_gemv_w4(const void* qx, int m, int k, const void* sx,
                              const void* zx, const void* qw, const void* sw,
-                             int n, int sms, int cols, void* out,
+                             int n, int sms, int cols, void* gws, void* out,
                              void* stream_ptr) {
   return (int)launch_code_gemv(qx, m, k, sx, zx, qw, 1, sw, n, sms, cols,
-                               out, static_cast<cudaStream_t>(stream_ptr));
+                               gws, out,
+                               static_cast<cudaStream_t>(stream_ptr));
+}
+
+// The streamed contraction alone, as the decode linear's streamed path
+// runs it (ctq::stream_plan with ``cols`` columns per tile, 0: the
+// plan's), whatever the K: qx (m, k) int8 against packed or int8 weights
+// (``packed``), the other operands as quant_gemv_w4's, gws the plan's
+// split sums (ctq_stream_totals bytes; null for one split). For timing the
+// contraction apart from the transform. Returns the launch's CUDA error.
+extern "C" int quant_gemv_stream(const void* qx, int m, int k,
+                                 const void* sx, const void* zx,
+                                 const void* qw, int packed, const void* sw,
+                                 int n, int sms, int cols, void* gws,
+                                 void* out, void* stream_ptr) {
+  return (int)launch_code_gemv(qx, m, k, sx, zx, qw, packed, sw, n, sms,
+                               cols, gws, out,
+                               static_cast<cudaStream_t>(stream_ptr), true);
 }
 
 // As quant_gemv_w4, any m, through the tensor-core contraction with
@@ -153,18 +238,18 @@ extern "C" int quant_matmul_plan(int m, int k, int n, int sms,
 }
 
 // qx (m, k) int8 against int8 weight codes qw (k, n): the code GEMV for m
-// <= 8 (on ``sms`` SMs, ``cols`` columns per CTA, 0: the plan's), the
-// tensor-core contraction above with ``splits`` K splits and their
-// scratch ws, as quant_matmul_plan gives them. Returns the launches' CUDA
-// error.
+// <= 8 (on ``sms`` SMs, ``cols`` columns per CTA, 0: the plan's; on its
+// streamed plan with the totals gws), the tensor-core contraction above
+// with ``splits`` K splits and their scratch ws, as quant_matmul_plan
+// gives them. Returns the launches' CUDA error.
 extern "C" int quant_matmul(const void* qx, int m, int k, const void* sx,
                             const void* zx, const void* qw, const void* sw,
                             int n, int splits, void* ws, int sms, int cols,
-                            void* out, void* stream_ptr) {
+                            void* gws, void* out, void* stream_ptr) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   if (m <= contract::kGemvM)
     return (int)launch_code_gemv(qx, m, k, sx, zx, qw, 0, sw, n, sms, cols,
-                                 out, stream);
+                                 gws, out, stream);
   return (int)contract::launch_mma(qx, k, k, sx, zx, m, k, qw, 0, sw, n,
                                    splits, ws, out, stream);
 }

@@ -22,9 +22,12 @@ into shared memory), applies RoPE and the KV quant on chip and writes
 its codes straight into the pool. Widths whose operands one cluster's
 shared memory cannot hold (the plan's ``path`` 1: D 5120 at head_dim
 128, for one) take the streamed path (``csrc/wide_tq.cuh``): one
-cooperative launch of one CTA per SM, the transform through a device
-scratch this wrapper allocates, then each CTA's heads with K streamed
-through shared memory, and the same per-head epilogue. What bounds it on
+cooperative launch of two CTAs per SM, the transform through a device
+scratch this wrapper allocates (beside the first weight stages, issued
+before it), then each head's K split over CTAs and streamed through a
+deep ring onto the tensor cores, the splits' exact sums added in the
+same scratch, and the same per-head epilogue, run once per head by the
+CTA that adds its last split. What bounds it on
 the H100 is the packed QKV weight (D/2 x N bytes) over HBM bandwidth;
 each weight byte is read once.
 
@@ -50,7 +53,7 @@ from . import build
 from .fused_cat_matmul import (_INVALID_VALUE, _PLAN, GEMV_M, _contiguous,
                                _SIGNATURES as _F_SIGNATURES,
                                fused_cat_linear_plain, read_plan,
-                               wide_scratch)
+                               split_k_range, wide_scratch)
 
 _C = ctypes.c_int
 _P = ctypes.c_void_p
@@ -58,7 +61,7 @@ _SIGNATURES = {"decode_qkv_prologue": [
     _P, _C, _C, _C, _P, _C, _P, _P, _C, _P, _C, _C, _P, _C, _P, _C,
     _C, _C, _C, _P, _C, _P, _P, _P, _C, _P, _P, _P, _P, _P, _P, _P],
     "decode_qkv_prologue_capacity": [_C, _C],
-    "ctq_prologue_plan": [_C] * 9 + [_PLAN],
+    "ctq_prologue_plan": [_C] * 10 + [_PLAN],
     "ctq_wide_scratch": _F_SIGNATURES["ctq_wide_scratch"]}
 
 _FREQ: dict = {}
@@ -108,34 +111,46 @@ class ProloguePlan:
     columns), in ``clusters`` clusters of ``cluster`` heads (cluster g
     holds heads g·cluster .. (g+1)·cluster − 1, each CTA computing
     D/cluster of the transform's values); ``smem`` bytes of dynamic
-    shared memory per CTA. On the streamed path (``path`` 1) one CTA per
-    SM takes the ``clusters`` heads in turn, K in tiles of ``ktile``."""
+    shared memory per CTA. On the streamed path (``path`` 1) each of the
+    ``clusters`` heads is a column tile whose K is split ``splits`` ways
+    (``k_range``), each split a work item that ``per_sm`` CTAs per SM
+    take in turn, streamed in stages of ``ktile`` K through a ring of
+    ``stages``; the head's owner adds its splits and runs its epilogue."""
     cluster: int
     clusters: int
     cols: int
     smem: int
     path: int = 0
     ktile: int = 0
+    splits: int = 1
+    stages: int = 0
+    per_sm: int = 1
 
     def heads(self, g: int) -> range:
         return range(g * self.cluster, (g + 1) * self.cluster)
 
+    def k_range(self, split: int, d: int) -> range:
+        """The K of D that split ``split`` of a head contracts (all of D
+        on the cluster path)."""
+        return split_k_range(self, split, d)
+
 
 def prologue_plan(m: int, d: int, n: int, head_dim: int, a: int, b: int,
                   bk: int, packed: bool, smem_optin: int = 0,
-                  lib=None) -> ProloguePlan:
+                  lib=None, sms: int = 0) -> ProloguePlan:
     """The prologue's plan for B = m rows of D = a·b against the N =
     heads·head_dim QKV columns (``ctq::prologue_plan``, which the kernel's
     entry runs on every call): the largest cluster that divides the heads
     and over which the transform splits (8 at full width: 2 clusters of 8
     heads). ``smem_optin`` (0: the current card's) bounds the shared
-    memory per CTA; ``lib`` a library exporting ``ctq_prologue_plan``
+    memory per CTA and ``sms`` (0: the current card's) is the streamed
+    path's grid; ``lib`` a library exporting ``ctq_prologue_plan``
     (default: the built CUDA library). Raises ValueError for a shape the
     kernel does not take."""
     lib = lib or build.load("decode_layer", _SIGNATURES)
     return ProloguePlan(*read_plan(lib.ctq_prologue_plan, "the prologue", m,
                                    d, n, head_dim, a, b, bk, int(packed),
-                                   smem_optin))
+                                   sms, smem_optin))
 
 
 @functools.lru_cache(maxsize=256)
@@ -248,7 +263,7 @@ def decode_qkv_prologue(x, blocks, ha, hb, sign, qw, sw, k_pool, k_scale,
                         hb.shape[0], bk, bool(packed))
     ws = None
     if plan is not None and plan.path == 1:
-        ws = torch.empty(wide_scratch(m, d, plan.ktile, lib=lib),
+        ws = torch.empty(wide_scratch(m, d, plan, lib=lib),
                          dtype=torch.uint8, device=x.device)
     code = lib.decode_qkv_prologue(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d,

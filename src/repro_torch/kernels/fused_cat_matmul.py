@@ -21,10 +21,13 @@ run on clusters of one CTA through the general path, bitwise alike.
 Widths whose operands one cluster's shared memory cannot hold (the
 plan's ``path`` 1: d_ff 14336 and up, or N 28672 at M 8) take the
 streamed path (``csrc/wide_tq.cuh``): one cooperative launch of one CTA
-per SM, the transform's intermediates in a device scratch buffer this
-wrapper allocates (``wide_scratch`` bytes), each transform output still
-one in-order fma chain, then K streamed through shared memory in tiles
-against each CTA's column tiles. Above 8 rows the same cluster
+per SM that issues its first weight stages before the transform, the
+transform's intermediates and the contraction's split sums in a device
+scratch buffer this wrapper allocates (``wide_scratch`` bytes), each
+transform output still one in-order fma chain, then each column tile's K
+split over CTAs and streamed through a deep ring onto the tensor cores,
+the splits' exact int32 sums added in split order and the epilogue applied
+once per tile. Above 8 rows the same cluster
 transform runs on groups of up to eight rows, one cluster each
 (``tiled_plan``; on its streamed path one cooperative launch over all
 rows), every CTA storing the codes of its own K values to a scratch
@@ -54,7 +57,8 @@ from . import build
 from .block_matmul import block_diag_f32
 from .dynamic_quant import dynamic_quant_plain
 from .hadamard import hadamard_f32
-from .quant_matmul import quant_matmul_plain, w8a8_plan
+from .quant_matmul import (PLAN_FIELDS, quant_matmul_plain, split_k_range,
+                           w8a8_plan)
 from .quant_matmul_w4 import GEMV_M
 
 _INVALID_VALUE = 1   # cudaErrorInvalidValue
@@ -76,7 +80,7 @@ _SIGNATURES = {
     "fused_cat_gemv_capacity": [_C, _C],
     "ctq_gemv_plan": [_C] * 10 + [_PLAN],
     "ctq_tiled_plan": [_C] * 7 + [_PLAN],
-    "ctq_wide_scratch": [_C] * 3 + [ctypes.POINTER(ctypes.c_longlong)]}
+    "ctq_wide_scratch": [_C] * 6 + [ctypes.POINTER(ctypes.c_longlong)]}
 
 
 # ------------------------------------------------------- cluster plan
@@ -96,15 +100,20 @@ class GemvPlan:
     values of its K set (``k_set``: D/cluster of them) and owns the output
     columns ``columns(g, rank, n)``, ``cols`` of them; ``smem`` bytes of
     dynamic shared memory per CTA. On the streamed path (``path`` 1) the
-    launch is one CTA per SM, ``clusters`` is the number of column tiles
-    ``columns(g, 0, n)`` that the CTAs take in turn, every K of the
-    transform is one work item's, and K streams in tiles of ``ktile``."""
+    launch is ``per_sm`` CTAs per SM, ``clusters`` is the number of
+    column tiles ``columns(g, 0, n)``, every K of the transform is one
+    work item's, and each tile's K is split ``splits`` ways
+    (``k_range``), each split a work item the CTAs take in turn, streamed
+    in stages of ``ktile`` K through a ring of ``stages``."""
     cluster: int
     clusters: int
     cols: int
     smem: int
     path: int = 0
     ktile: int = 0
+    splits: int = 1
+    stages: int = 0
+    per_sm: int = 1
 
     def k_set(self, rank: int, a: int, b: int) -> list:
         return k_set(self.cluster, rank, a, b)
@@ -113,13 +122,18 @@ class GemvPlan:
         n0 = (g * self.cluster + rank) * self.cols
         return range(min(n0, n), min(n0 + self.cols, n))
 
+    def k_range(self, split: int, d: int) -> range:
+        """The K of D that split ``split`` of a tile contracts (all of D
+        on the cluster path)."""
+        return split_k_range(self, split, d)
+
 
 def read_plan(fn, what: str, *args) -> tuple:
     """Call a plan export of ``csrc/cluster_plan.h`` (``ctq_gemv_plan``,
     ``ctq_tiled_plan``, ``ctq_prologue_plan``) -> (cluster, clusters, cols
-    or rows, smem, path, ktile); raises ValueError for a shape the kernel
-    does not take."""
-    out = (ctypes.c_int * 6)()
+    or rows, smem, path, ktile, splits, stages, per_sm); raises
+    ValueError for a shape the kernel does not take."""
+    out = (ctypes.c_int * PLAN_FIELDS)()
     if fn(*args, out):
         raise ValueError(f"{what} does not take this shape {args}: the "
                          f"transform needs D = a·b and a CAT block that "
@@ -130,13 +144,19 @@ def read_plan(fn, what: str, *args) -> tuple:
     return tuple(out)
 
 
-def wide_scratch(m: int, d: int, ktile: int, lib=None) -> int:
-    """Bytes of the streamed path's device scratch for M rows of D and K
-    tiles of ``ktile`` (0: the tiled stage 1, which writes its codes to
-    the code scratch): ``ctq::WideScratch`` of ``csrc/cluster_plan.h``."""
+def wide_scratch(m: int, d: int, plan=None, lib=None) -> int:
+    """Bytes of the streamed path's device scratch for M rows of D on a
+    streamed ``plan`` (its K stages and its splits' sums; None: the
+    tiled stage 1, which writes its codes to the code scratch):
+    ``ctq::WideScratch`` and ``ctq::stream_totals`` of
+    ``csrc/cluster_plan.h``."""
     lib = lib or build.load("fused_cat_matmul", _SIGNATURES)
     out = ctypes.c_longlong(0)
-    lib.ctq_wide_scratch(m, d, ktile, ctypes.byref(out))
+    if plan is None:
+        lib.ctq_wide_scratch(m, d, 0, 0, 0, 1, ctypes.byref(out))
+    else:
+        lib.ctq_wide_scratch(m, d, plan.ktile, plan.clusters, plan.cols,
+                             plan.splits, ctypes.byref(out))
     return int(out.value)
 
 
@@ -163,14 +183,17 @@ class TiledPlan:
     rows ``row_group(g, m)``, and its CTA ``rank`` computes and stores the
     codes of the K set ``k_set(rank, a, b)`` of each; ``smem`` bytes of
     dynamic shared memory per CTA. On the streamed path (``path`` 1) one
-    group of all M rows, transformed by one CTA per SM through the device
-    scratch."""
+    group of all M rows, transformed by ``per_sm`` CTAs per SM through
+    the device scratch."""
     cluster: int
     clusters: int
     rows: int
     smem: int
     path: int = 0
     ktile: int = 0
+    splits: int = 1
+    stages: int = 0
+    per_sm: int = 1
 
     def row_group(self, g: int, m: int) -> range:
         return range(min(g * self.rows, m), min((g + 1) * self.rows, m))
@@ -273,11 +296,11 @@ def _served_plan(kind: str, lib, *args):
         return None
 
 
-def _wide_ws(plan, m, d, ktile, device, lib):
+def _wide_ws(plan, m, d, device, lib, tiled=False):
     """The streamed path's scratch (None on the cluster path)."""
     if plan is None or plan.path != 1:
         return None
-    return torch.empty(wide_scratch(m, d, ktile, lib=lib),
+    return torch.empty(wide_scratch(m, d, None if tiled else plan, lib=lib),
                        dtype=torch.uint8, device=device)
 
 
@@ -299,7 +322,7 @@ def _launch_gemv(x, blocks, ha, hb, sign, qw, sw, act_bits, packed,
     lib = build.load("fused_cat_matmul", _SIGNATURES)
     plan = _served_plan("gemv", lib, m, d, n, ha.shape[0], hb.shape[0], bk,
                         bool(packed), sms, 0, cols)
-    ws = _wide_ws(plan, m, d, plan and plan.ktile, x.device, lib)
+    ws = _wide_ws(plan, m, d, x.device, lib)
     code = lib.fused_cat_gemv_w4(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d,
         build.ptr(blocks), bk, build.ptr(sign), build.ptr(ha), ha.shape[0],
@@ -334,7 +357,7 @@ def _launch_tiled(x, blocks, ha, hb, sign, qw, sw, act_bits, packed,
     splits, ws = w8a8_plan(m, k_pad, n, x.device)
     plan = _served_plan("tiled", lib, m, d, ha.shape[0], hb.shape[0], bk, 0,
                         rows)
-    tws = _wide_ws(plan, m, d, 0, x.device, lib)
+    tws = _wide_ws(plan, m, d, x.device, lib, tiled=True)
     code = lib.fused_cat_matmul_w4(
         build.ptr(x), int(x.dtype == torch.bfloat16), m, d, k_pad,
         build.ptr(blocks), bk, build.ptr(sign), build.ptr(ha), ha.shape[0],

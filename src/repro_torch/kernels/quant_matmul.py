@@ -12,7 +12,12 @@ The CUDA source is ``src/repro_torch/csrc/quant_matmul.cu``: for M <= 8
 the code GEMV, one CTA per few output columns on a plan that fills every
 SM (``gemv_plan``), its weight columns and the codes staged by 16-byte
 ``cp.async`` and contracted by the dp4a contraction the decode fused
-linear runs (``csrc/cluster_tq.cuh`` ``contract_codes``); above it a
+linear runs (``csrc/cluster_tq.cuh`` ``contract_codes``); at a K too deep
+for one CTA's tile of all of K (the plan's ``path`` 1: the wd of an LLM)
+the streamed contraction of the decode linear's streamed path
+(``csrc/wide_tq.cuh``: K through a ring onto the tensor cores, split over
+CTAs, the splits' exact int32 sums added from a scratch this wrapper
+allocates, ``stream_totals`` bytes); above 8 rows a
 tensor-core kernel: 64x64 output tiles, each product an ``mma.sync``
 m16n8k32 s8 x s8 -> s32, the (K, N) weight tile copied raw into shared
 memory (``cp.async``, a four-deep ring over K) and transposed there with
@@ -34,6 +39,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 
@@ -53,13 +59,21 @@ _P = ctypes.c_void_p
 _OPS = [_P, _C, _C, _P, _P, _P, _P, _C]
 _SPLIT = [_C, _P]
 _GEMV = [_C, _C]
-_SIGNATURES = {"quant_gemv_w4": _OPS + _GEMV + [_P, _P],
+# (the GEMV's streamed plan also its split sums' scratch, before out)
+_SIGNATURES = {"quant_gemv_w4": _OPS + _GEMV + [_P, _P, _P],
+               "quant_gemv_stream": _OPS[:6] + [_C, _P, _C] + _GEMV
+               + [_P, _P, _P],
                "quant_matmul_w4": _OPS + _SPLIT + [_P, _P],
-               "quant_matmul": _OPS + _SPLIT + _GEMV + [_P, _P],
+               "quant_matmul": _OPS + _SPLIT + _GEMV + [_P, _P, _P],
                "quant_matmul_plan": [_C, _C, _C, _C,
                                      ctypes.POINTER(ctypes.c_longlong)],
                "ctq_code_gemv_plan": [_C] * 7
-               + [ctypes.POINTER(ctypes.c_int)]}
+               + [ctypes.POINTER(ctypes.c_int)],
+               "ctq_stream_plan": [_C] * 7
+               + [ctypes.POINTER(ctypes.c_int)],
+               "ctq_stream_totals": [_C] * 4
+               + [ctypes.POINTER(ctypes.c_longlong)]}
+PLAN_FIELDS = 9   # ctq::write_plan's
 
 
 def quant_matmul_plain(qx, sx, zpx, qw, sw) -> torch.Tensor:
@@ -97,13 +111,38 @@ class GemvPlan:
     """Launch plan of the code GEMV (M <= 8): ``ctas`` CTAs, CTA i owning
     the output columns ``columns(i, n)``, ``cols`` of them, each
     contracting all of K; ``smem`` bytes of dynamic shared memory per
-    CTA."""
+    CTA. On the streamed plan (``path`` 1, a deep K) ``ctas`` counts the
+    column tiles ``columns(i, n)``, whose K each of ``splits`` work items
+    takes a part of (``k_range``), in stages of ``ktile`` K through a ring
+    of ``stages``; ``per_sm`` CTAs per SM take the work items in turn."""
     ctas: int
     cols: int
     smem: int
+    path: int = 0
+    ktile: int = 0
+    splits: int = 1
+    stages: int = 0
+    per_sm: int = 1
 
     def columns(self, i: int, n: int) -> range:
         return range(min(i * self.cols, n), min((i + 1) * self.cols, n))
+
+    def k_range(self, split: int, k: int) -> range:
+        """The K of split ``split`` of a tile (all of K on path 0)."""
+        return split_k_range(self, split, k)
+
+
+def split_k_range(plan, split: int, k: int) -> range:
+    """The K that split ``split`` of a streamed plan's tile contracts:
+    stages [s·per, (s+1)·per) of ``ktile`` K, per = ceil(steps /
+    splits), cut at K (``ctq::stream_per`` of ``csrc/cluster_plan.h``);
+    all of K for a plan that does not split."""
+    if plan.path != 1:
+        return range(k)
+    steps = -(-k // plan.ktile)
+    per = -(-steps // plan.splits)
+    lo = split * per * plan.ktile
+    return range(min(lo, k), min(lo + per * plan.ktile, k))
 
 
 def gemv_plan(m: int, k: int, n: int, packed: bool, sms: int,
@@ -117,23 +156,56 @@ def gemv_plan(m: int, k: int, n: int, packed: bool, sms: int,
     (default: the built CUDA library). Raises ValueError for a shape the
     kernel does not take."""
     lib = lib or build.load("quant_matmul", _SIGNATURES)
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * PLAN_FIELDS)()
     if lib.ctq_code_gemv_plan(m, k, n, int(packed), sms, smem_optin, cols,
                               out):
         raise ValueError(f"the code GEMV does not take M={m}, K={k}, N={n},"
                          f" cols={cols}: it needs M in 1..8, the columns "
-                         f"per CTA a multiple of 4 up to 256 and its shared "
-                         f"memory (M + 16 bytes per K) to fit "
+                         f"per CTA a multiple of 4 up to 256 and shared "
+                         f"memory for its streamed ring at least "
                          f"(csrc/cluster_plan.h)")
-    return GemvPlan(out[1], out[2], out[3])
+    return GemvPlan(*out[1:4], *out[4:9])
+
+
+def stream_totals(m: int, plan: GemvPlan, lib=None) -> int:
+    """Bytes of the streamed plan's device scratch (each split's int32
+    partial sums, ``ctq::stream_totals``); 0 for one split."""
+    lib = lib or build.load("quant_matmul", _SIGNATURES)
+    out = ctypes.c_longlong(0)
+    lib.ctq_stream_totals(m, plan.ctas, plan.cols, plan.splits,
+                          ctypes.byref(out))
+    return int(out.value)
+
+
+@functools.lru_cache(maxsize=1024)
+def _served_plan(lib, *args):
+    """The code GEMV's plan for a served shape, read once (its streamed
+    path needs a scratch); None for a shape the plan refuses (the entry
+    then reports it)."""
+    try:
+        return gemv_plan(*args, lib=lib)
+    except ValueError:
+        return None
+
+
+def _gemv_scratch(lib, m, k, n, packed, sms, cols, device):
+    """The streamed GEMV's scratch for its splits' partial sums (None on
+    the one-tile plan, or for one split)."""
+    plan = _served_plan(lib, m, k, n, packed, sms, 0, cols)
+    if plan is None or plan.path != 1:
+        return None
+    nbytes = stream_totals(m, plan, lib=lib)
+    return (torch.empty(nbytes, dtype=torch.uint8, device=device)
+            if nbytes else None)
 
 
 def launch(fn_name, qx, sx, zpx, qw, sw, planned: bool = False,
            gemv: bool = False, cols: int = 0) -> torch.Tensor:
     """Run entry ``fn_name`` of ``quant_matmul.cu`` -> (M, N) f32; a
     ``planned`` entry also takes the K splits of ``w8a8_plan`` and their
-    scratch, a ``gemv`` one the card's SM count and ``cols`` columns per
-    CTA (0: the plan's)."""
+    scratch, a ``gemv`` one the card's SM count, ``cols`` columns per CTA
+    (0: the plan's) and, on the GEMV's streamed plan, its totals'
+    scratch."""
     m, k = qx.shape
     n = qw.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=qx.device)
@@ -146,7 +218,9 @@ def launch(fn_name, qx, sx, zpx, qw, sw, planned: bool = False,
         extra = (splits, build.ptr(ws))
     if gemv:
         sms = build.sm_count(qx.device)
-        extra += (sms, cols)
+        gws = (_gemv_scratch(lib, m, k, n, fn_name == "quant_gemv_w4", sms,
+                             cols, qx.device) if m <= GEMV_M else None)
+        extra += (sms, cols, build.ptr(gws))
     qx, sx, zpx, qw, sw = (t.contiguous() for t in (qx, sx, zpx, qw, sw))
     code = getattr(lib, fn_name)(
         build.ptr(qx), m, k, build.ptr(sx), build.ptr(zpx), build.ptr(qw),
@@ -186,3 +260,28 @@ def quant_matmul(qx, sx, zpx, qw, sw) -> torch.Tensor:
 
 
 quant_matmul.launches = 0
+
+
+def gemv_stream(qx, sx, zpx, qw, sw, packed: bool):
+    """The streamed contraction alone (entry ``quant_gemv_stream``: the
+    code GEMV on ``ctq::stream_plan`` whatever the K, the decomposition
+    the decode linear's streamed path runs), for timing it apart from the
+    transform; CUDA tensors only -> (M, N) f32, bitwise the code GEMV's."""
+    m, k = qx.shape
+    n = qw.shape[1]
+    validate(qx, sx, zpx, qw, sw, (k + 1) // 2 if packed else k)
+    lib = build.load("quant_matmul", _SIGNATURES)
+    sms = build.sm_count(qx.device)
+    out = (ctypes.c_int * PLAN_FIELDS)()
+    lib.ctq_stream_plan(m, k, n, int(packed), 0, sms, 0, out)
+    plan = GemvPlan(*out[1:4], *out[4:9])
+    nbytes = stream_totals(m, plan, lib=lib)
+    gws = (torch.empty(nbytes, dtype=torch.uint8, device=qx.device)
+           if nbytes else None)
+    y = torch.empty((m, n), dtype=torch.float32, device=qx.device)
+    qx, sx, zpx, qw, sw = (t.contiguous() for t in (qx, sx, zpx, qw, sw))
+    build.check(lib.quant_gemv_stream(
+        build.ptr(qx), m, k, build.ptr(sx), build.ptr(zpx), build.ptr(qw),
+        int(packed), build.ptr(sw), n, sms, 0, build.ptr(gws),
+        build.ptr(y), build.stream_of(qx)), "quant_gemv_stream")
+    return y

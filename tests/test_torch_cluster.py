@@ -79,6 +79,10 @@ def plan_lib(tmp_path_factory):
                        decode_layer._SIGNATURES["ctq_prologue_plan"]),
                       ("ctq_code_gemv_plan",
                        quant_matmul._SIGNATURES["ctq_code_gemv_plan"]),
+                      ("ctq_stream_plan",
+                       quant_matmul._SIGNATURES["ctq_stream_plan"]),
+                      ("ctq_stream_totals",
+                       quant_matmul._SIGNATURES["ctq_stream_totals"]),
                       ("ctq_wide_scratch", F._SIGNATURES["ctq_wide_scratch"])):
         fn = getattr(lib, name)
         fn.argtypes = sig
@@ -155,7 +159,9 @@ def test_gemv_plan_owns_every_column_and_k_once(plan_lib, d, n, packed):
 def _owned_once(plan, n, a, b, d):
     """Every output column of an N-column linear in one CTA's columns (on
     the streamed path: one column tile), and every K of D in one CTA's K
-    set."""
+    set; every (column, K) pair of the contraction in one work item (on
+    the streamed path: one K split of its tile; on the cluster path the
+    CTA owning the column contracts all of K)."""
     col_owned = np.zeros(n, int)
     for g in range(plan.clusters):
         for rank in range(plan.cluster):
@@ -163,7 +169,37 @@ def _owned_once(plan, n, a, b, d):
     k_owned = np.zeros(d, int)
     for rank in range(plan.cluster):
         k_owned[plan.k_set(rank, a, b)] += 1
-    return (col_owned == 1).all() and (k_owned == 1).all()
+    return ((col_owned == 1).all() and (k_owned == 1).all()
+            and _splits_partition(plan, d))
+
+
+def _splits_partition(plan, d):
+    """The K splits of a tile (the same for every tile) are non-empty and
+    cover [0, D) end to end, so with every column in one tile every
+    (column, K) pair is in one work item."""
+    ks = [plan.k_range(s, d) for s in range(plan.splits)]
+    return (all(len(r) for r in ks) and ks[0].start == 0
+            and ks[-1].stop == d
+            and all(x.stop == y.start for x, y in zip(ks, ks[1:])))
+
+
+def _streamed_ok(plan, m, d, smem_optin=SMEM_OPTIN):
+    """A streamed plan's invariants: two CTAs per SM where a ring fits in
+    half an SM's shared memory, else one (cluster 1), columns per tile a
+    multiple of 4 (the plan's own: 32, 64 or 128), stages of a power of
+    two K in 32..2048 in a ring of 2..16, within the CTA's share of shared
+    memory beside the kernels' static 4 KiB, no more splits than
+    stages."""
+    assert plan.path == 1 and getattr(plan, "cluster", 1) == 1
+    assert plan.cols % 4 == 0 and 4 <= plan.cols <= 256
+    assert plan.ktile in (32, 64, 128, 256, 512, 1024, 2048)
+    assert 2 <= plan.stages <= 16 and plan.splits >= 1
+    assert plan.per_sm in (1, 2)     # CTAs per SM, in their share of it
+    share = (smem_optin if plan.per_sm == 1
+             else (smem_optin + 1024) // 2 - 1024)
+    assert plan.smem + 4096 <= share
+    steps = -(-d // plan.ktile)
+    assert plan.splits <= steps
 
 
 @pytest.mark.parametrize("d,n", FAMILY_LINEARS)
@@ -174,9 +210,12 @@ def test_family_widths_take_every_plan(plan_lib, d, n, packed):
     column (rows of the step) and every K once, fit in the H100's 227 KiB
     beside the kernels' static shared memory and keep clusters at the
     portable 8; what a cluster cannot hold takes the streamed path (one
-    CTA per SM: cluster 1, K in tiles of 64..2048 that divide the codes'
-    row), whose scratch holds the transform's two f32 planes and the
-    codes."""
+    CTA per SM: cluster 1, tiles of 32, 64 or 128 columns, each tile's K
+    split into non-empty stage runs that own every (column, K) pair once,
+    a ring of 2..16 stages of 32..2048 K), whose scratch holds the
+    transform's two f32 planes, the codes and, split, every split's int32
+    partial sums. The same header also forced to 64 KiB
+    takes every shape on a shallower ring."""
     a, b = _factors(d)
     for m in range(1, 9):
         plan = _gemv_plan(plan_lib, m, d, n, 32, packed)
@@ -184,10 +223,17 @@ def test_family_widths_take_every_plan(plan_lib, d, n, packed):
         assert plan.smem + 4096 <= SMEM_OPTIN
         assert _owned_once(plan, n, a, b, d)
         if plan.path:
-            assert plan.cluster == 1 and plan.cols in (32, 64)
-            assert plan.ktile in (64, 128, 256, 512, 1024, 2048)
-            scratch = F.wide_scratch(m, d, plan.ktile, lib=plan_lib)
-            assert scratch >= 8 * m * d + m * -(-d // plan.ktile) * plan.ktile
+            _streamed_ok(plan, m, d)
+            assert plan.cols in (32, 64, 128)
+            scratch = F.wide_scratch(m, d, plan, lib=plan_lib)
+            totals = (4 * plan.clusters * plan.splits * (m + 1)
+                      * plan.cols if plan.splits > 1 else 0)
+            assert scratch >= (8 * m * d + m * -(-d // plan.ktile)
+                               * plan.ktile + totals)
+        small = F.gemv_plan(m, d, n, a, b, 32, packed, SMS, 64 * 1024,
+                            lib=plan_lib)
+        _streamed_ok(small, m, d, 64 * 1024)
+        assert _owned_once(small, n, a, b, d)
     for m in (9, 37, 100, 128, 255):
         plan = F.tiled_plan(m, d, a, b, 32, SMEM_OPTIN, lib=plan_lib)
         assert plan.smem + 4096 <= SMEM_OPTIN and 1 <= plan.cluster <= 8
@@ -210,18 +256,23 @@ def test_family_widths_take_every_plan(plan_lib, d, n, packed):
 def test_family_qkv_take_the_prologue_plan(plan_lib, d, n, hd, packed):
     """The prologue takes the dense family's QKV at B 1..8 (mistral-nemo's
     32 + 8 + 8 heads of 128, granite's 48 + 1 + 1, gemma's and
-    paligemma's heads of 256): each head in one CTA's turn once, within
-    227 KiB."""
+    paligemma's heads of 256): each head in one tile, each (head, K) pair
+    in one work item (on the streamed path: one of the head's K splits,
+    none empty), within 227 KiB, and within 64 KiB where that is
+    forced."""
     a, b = _factors(d)
     for m in range(1, 9):
-        plan = decode_layer.prologue_plan(m, d, n, hd, a, b, 32, packed,
-                                          SMEM_OPTIN, lib=plan_lib)
-        assert plan.cols == hd and plan.smem + 4096 <= SMEM_OPTIN
-        assert 1 <= plan.cluster <= 8
-        owned = np.zeros(n // hd, int)
-        for g in range(plan.clusters):
-            owned[list(plan.heads(g))] += 1
-        assert (owned == 1).all()
+        for optin in (SMEM_OPTIN, 64 * 1024):
+            plan = decode_layer.prologue_plan(m, d, n, hd, a, b, 32, packed,
+                                              optin, lib=plan_lib, sms=SMS)
+            assert plan.cols == hd and plan.smem + 4096 <= optin
+            assert 1 <= plan.cluster <= 8
+            if plan.path:
+                _streamed_ok(plan, m, d, optin)
+            owned = np.zeros(n // hd, int)
+            for g in range(plan.clusters):
+                owned[list(plan.heads(g))] += 1
+            assert (owned == 1).all() and _splits_partition(plan, d)
 
 
 def _today_plans(lib):
@@ -229,7 +280,7 @@ def _today_plans(lib):
     plan at M 1..8 with the plan's and forced columns, the prologue at
     heads of 32 and 64, the tiled stage at ragged M with every rows per
     cluster; (return code, the first four plan fields)."""
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * F.PLAN_FIELDS)()
     rows = []
     for d, n in SERVING + RAGGED + OTHER:
         a, b = _factors(d)
@@ -245,7 +296,8 @@ def _today_plans(lib):
                 if n % hd == 0:
                     for m in range(1, 9):
                         rc = lib.ctq_prologue_plan(m, d, n, hd, a, b, 32,
-                                                   packed, SMEM_OPTIN, out)
+                                                   packed, SMS, SMEM_OPTIN,
+                                                   out)
                         rows.append(("p", d, n, hd, packed, m, rc,
                                      tuple(out)[:4] if rc == 0 else None))
                         assert rc or out[4] == 0
@@ -398,11 +450,12 @@ def test_tiled_plan_refuses_what_the_kernel_does_not_take(plan_lib):
     for m, rows in ((0, 0), (128, 9), (128, -1)):
         with pytest.raises(ValueError, match="does not take"):
             F.tiled_plan(m, 512, 32, 16, 32, SMEM_OPTIN, rows, lib=plan_lib)
-    # 32 KiB holds no cluster plan at D 1536: the streamed stage 1, which
-    # needs no dynamic shared memory, takes it (forced rows it refuses)
+    # 32 KiB holds no cluster plan at D 1536: the streamed stage 1, whose
+    # dynamic shared memory is the transform's tile (step 2's 16 rows of Y
+    # and of Hb, 49 floats each), takes it (forced rows it refuses)
     plan = F.tiled_plan(128, 1536, 32, 48, 32, 32 * 1024, lib=plan_lib)
-    assert (plan.path, plan.cluster, plan.clusters, plan.rows,
-            plan.smem) == (1, 1, 1, 128, 0)
+    assert (plan.path, plan.cluster, plan.clusters, plan.rows, plan.smem,
+            plan.per_sm) == (1, 1, 1, 128, 4 * 32 * 49, 2)
     with pytest.raises(ValueError, match="does not take"):
         F.tiled_plan(128, 1536, 32, 48, 32, 32 * 1024, 8, lib=plan_lib)
 
@@ -470,12 +523,14 @@ CODE_GEMV = [(512, 3072), (512, 1024), (512, 512), (1536, 512), (63, 40),
 
 
 def _code_gemv_fits(m, k, n, packed, cols, lib):
+    """Whether ``cols`` columns' tile of all of K fits in a CTA's shared
+    memory (the one-tile plan; else the plan streams K)."""
     try:
-        quant_matmul.gemv_plan(m, k, n, packed, SMS, SMEM_OPTIN, cols,
-                               lib=lib)
+        plan = quant_matmul.gemv_plan(m, k, n, packed, SMS, SMEM_OPTIN, cols,
+                                      lib=lib)
     except ValueError:
         return False
-    return True
+    return plan.path == 0
 
 
 @pytest.mark.parametrize("k,n", CODE_GEMV)
@@ -511,29 +566,127 @@ def test_code_gemv_plan_owns_every_column_once(plan_lib, k, n, packed):
 def test_code_gemv_plan_forced_columns_and_refusals(plan_lib):
     """Forced columns per CTA (a multiple of 4 up to 256) are taken and own
     every column; M outside 1..8, other column counts and shared memory
-    too small are refused; the plan's own columns shrink for a deep K."""
+    too small for the streamed ring are refused; the plan's own columns
+    shrink for a deep K, and a K so deep that even 4 columns' tile of all
+    of K does not fit (K 9,600 int8, 14,400 packed at M 8) takes the
+    streamed plan, as do forced columns whose tile does not fit."""
     for cols in (4, 8, 12, 16, 32, 64, 128, 256):
         plan = quant_matmul.gemv_plan(8, 512, 3072, True, SMS, SMEM_OPTIN,
                                       cols, lib=plan_lib)
         assert plan.cols == cols and plan.ctas == -(-3072 // cols)
+        assert plan.path == 0
     for m, cols, smem in ((0, 0, SMEM_OPTIN), (9, 0, SMEM_OPTIN),
                           (8, 6, SMEM_OPTIN), (8, 260, SMEM_OPTIN),
                           (8, 0, 16 * 1024)):
         with pytest.raises(ValueError, match="does not take"):
             quant_matmul.gemv_plan(m, 4096, 3072, False, SMS, smem, cols,
                                    lib=plan_lib)
-    # the plan takes fewer columns for a deep K, and refuses a K so deep
-    # that its narrowest weight tile (16 bytes a row) does not fit
     for k, packed, cols in ((9000, False, 16), (9600, False, None),
                             (13500, True, 16), (14400, True, None)):
+        plan = quant_matmul.gemv_plan(8, k, 32000, packed, SMS, SMEM_OPTIN,
+                                      lib=plan_lib)
         if cols is None:
-            with pytest.raises(ValueError, match="does not take"):
-                quant_matmul.gemv_plan(8, k, 32000, packed, SMS, SMEM_OPTIN,
-                                       lib=plan_lib)
+            _streamed_ok(plan, 8, k)
+            assert _code_gemv_owned_once(plan, k, 32000)
         else:
-            plan = quant_matmul.gemv_plan(8, k, 32000, packed, SMS,
-                                          SMEM_OPTIN, lib=plan_lib)
-            assert plan.cols == cols
+            assert (plan.path, plan.cols) == (0, cols)
+    for cols in (4, 32, 96, 256):
+        plan = quant_matmul.gemv_plan(8, 14400, 3072, True, SMS, SMEM_OPTIN,
+                                      cols, lib=plan_lib)
+        assert plan.cols == cols
+        _streamed_ok(plan, 8, 14400)
+        assert _code_gemv_owned_once(plan, 14400, 3072)
+
+
+def _code_gemv_owned_once(plan, k, n):
+    """Every output column in one column tile (one CTA on the one-tile
+    plan) and, on the streamed plan, every K of it in one of the tile's
+    splits."""
+    owned = np.zeros(n, int)
+    for i in range(plan.ctas):
+        owned[list(plan.columns(i, n))] += 1
+    return (owned == 1).all() and _splits_partition(plan, k)
+
+
+def _code_gemv_plans(lib):
+    """The code GEMV's plans at CODE_GEMV, today's widths (SERVING, RAGGED,
+    OTHER as (K, N)), the deep-K edges of the column plan and mistral-nemo
+    12B's decode widths: M 1..8, packed and int8, the plan's and forced
+    columns; (K, N, packed, M, cols, the first four plan fields) of each
+    plan on the one-tile path."""
+    shapes = []
+    for shape in (CODE_GEMV + SERVING + RAGGED + OTHER
+                  + [(9000, 32000), (13500, 32000), (5120, 6144),
+                     (4096, 5120), (5120, 28672)]):
+        if shape not in shapes:
+            shapes.append(shape)
+    out = (ctypes.c_int * quant_matmul.PLAN_FIELDS)()
+    rows, streamed = [], 0
+    for k, n in shapes:
+        for packed in (1, 0):
+            for m in range(1, 9):
+                for cols in (0, 4, 16, 32, 64):
+                    rc = lib.ctq_code_gemv_plan(m, k, n, packed, SMS,
+                                                SMEM_OPTIN, cols, out)
+                    assert rc == 0
+                    if out[4] == 0:
+                        rows.append((k, n, packed, m, cols, tuple(out)[:4]))
+                    else:
+                        streamed += 1
+    return rows, streamed
+
+
+def test_code_gemv_keeps_its_plans(plan_lib):
+    """Every shape the code GEMV's plan took before it streamed a deep K
+    keeps its plan field for field: of the 1,840 plans listed, the 1,720
+    it took then (the SHA-1 of their list, computed with the header
+    before the streamed plan was added), and the 120 it refused (a deep K
+    at 64 forced columns) are now streamed."""
+    rows, streamed = _code_gemv_plans(plan_lib)
+    assert (len(rows), streamed) == (1720, 120)
+    assert hashlib.sha1(repr(rows).encode()).hexdigest() == (
+        "7aed2525cd969bcf8c1c0d5b02a87d94f26865c4")
+
+
+# (K, N) of the code GEMV at the deep K of the dense family's wd (the
+# configs' d_ff at their d_model), and at a narrow N
+DEEP_K = [(14336, 5120), (15360, 3840), (16384, 2048), (24576, 6144),
+          (14336, 96), (24576, 96)]
+
+
+@pytest.mark.parametrize("k,n", DEEP_K)
+@pytest.mark.parametrize("packed", [True, False])
+def test_code_gemv_streams_a_deep_k(plan_lib, k, n, packed):
+    """Rows 7 and 8 take the family's deep K at every M in 1..8: where
+    the tile of all of K does not fit (always at M 8 and at 64 KiB), the
+    streamed plan (two CTAs per SM, K through a ring of stages), whose
+    tiles own every column once and whose K splits own every K of each
+    tile once, within 227 KiB and, forced, 64 KiB; the plan equals the
+    streamed contraction's own (ctq_stream_plan), which the decode
+    linear's streamed path runs."""
+    out = (ctypes.c_int * quant_matmul.PLAN_FIELDS)()
+    for m in range(1, 9):
+        for optin in (SMEM_OPTIN, 64 * 1024):
+            plan = quant_matmul.gemv_plan(m, k, n, packed, SMS, optin,
+                                          lib=plan_lib)
+            assert plan.smem + 4096 <= optin
+            assert _code_gemv_owned_once(plan, k, n)
+            if plan.path == 0:                 # all of K in one tile
+                assert m < 8 and optin == SMEM_OPTIN
+                continue
+            _streamed_ok(plan, m, k, optin)
+            assert _code_gemv_owned_once(plan, k, n)
+            assert plan_lib.ctq_stream_plan(m, k, n, int(packed), 0, SMS,
+                                            optin, out) == 0
+            assert (plan.ctas, plan.cols, plan.smem, plan.ktile,
+                    plan.splits, plan.stages) == (
+                out[1], out[2], out[3], out[5], out[6], out[7])
+            totals = ctypes.c_longlong(0)
+            plan_lib.ctq_stream_totals(m, plan.ctas, plan.cols, plan.splits,
+                                       ctypes.byref(totals))
+            assert totals.value == (
+                -(-4 * plan.ctas * plan.splits * (m + 1) * plan.cols // 16)
+                * 16 if plan.splits > 1 else 0)
 
 
 def test_code_gemv_wrappers_pass_the_card_and_columns(monkeypatch):
@@ -577,13 +730,18 @@ def test_code_gemv_wrappers_pass_the_card_and_columns(monkeypatch):
     quant_matmul.launch("quant_matmul", qx, sx, zx, w, sw, planned=True,
                         gemv=True, cols=32)
     assert allocs == ["empty", "empty"] and out.shape == (8, 40)
-    (w4, a4), (w8, a8) = lib.calls
-    assert (w4, w8) == ("quant_gemv_w4", "quant_matmul")
+    # each launch reads its plan first (a streamed plan needs a scratch)
+    assert [c[0] for c in lib.calls] == [
+        "ctq_code_gemv_plan", "quant_gemv_w4", "ctq_code_gemv_plan",
+        "quant_matmul"]
+    (w4, a4), (w8, a8) = lib.calls[1], lib.calls[3]
     assert len(a4) == len(quant_matmul._SIGNATURES[w4])
     assert len(a8) == len(quant_matmul._SIGNATURES[w8])
-    # qx, m, k, sx, zx, qw, sw, n, [splits, ws,] sms, cols, out, stream
+    # qx, m, k, sx, zx, qw, sw, n, [splits, ws,] sms, cols, gws, out,
+    # stream; no streamed-path scratch on the one-tile plan
     assert a4[1:3] == (8, 63) and a4[7:10] == (40, SMS, 0)
     assert a8[7:9] == (40, 1) and a8[10:12] == (SMS, 32)
+    assert a4[10].value is None and a8[12].value is None
 
 
 def _gemv_operands(m, d, n, seed=0):

@@ -358,6 +358,8 @@ def _check_contraction(port, kernel, oracle, args):
     (9, 64, 40),        # ragged M and N
     (130, 1536, 72),    # K > 512: three Pallas K tiles
     (33, 63, 24),       # odd K
+    (1, 14336, 96),     # M <= 8 at an LLM's deep K (row 8's code GEMV
+    (8, 24576, 96),     # streams it on the card)
 ])
 @pytest.mark.parametrize("packed", [True, False])
 def test_contractions_match_reference(m, k, n, packed):
@@ -436,7 +438,7 @@ def test_w4_extreme_codes_exact(m, k, n, pattern):
 
 
 @pytest.mark.parametrize("m", [1, 7, 8])
-@pytest.mark.parametrize("k", [512, 1535])
+@pytest.mark.parametrize("k", [512, 1535, 14336, 24576])   # deep K: wd's
 def test_gemv_matches_reference(m, k):
     args = _codes(m, k, 96, m + k, packed=True, act_bits=4)
     _check_contraction(QW.quant_gemv_w4, j_gemv, ref.quant_gemv_w4, args)
