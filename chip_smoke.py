@@ -83,8 +83,10 @@ Phases (any failure exits non-zero before the final line):
              ``scaled_dot_product_attention`` on K and V gathered and
              dequantized outside the timed call; both also at
              granite-34b's heads (1 KV head of 128, 48 query heads) and
-             mistral-nemo-12b's (8 of 128, 4 each). Rows 1, 2 and 5 at
-             every serving linear of the dense family's five configs
+             mistral-nemo-12b's (8 of 128, 4 each), and timed at the moe
+             family's (16 KV heads of 128, 1 each; 8 of 64, 2 each).
+             Rows 1, 2 and 5 at every serving linear of the dense and moe
+             families' seven configs
              (``check_family_widths``: M 1..8, 37, 128, packed and int8,
              the QKV heads for row 5; the streamed path where no cluster
              fits), bitwise on f32 with their plans and one kernel per
@@ -136,11 +138,12 @@ Phases (any failure exits non-zero before the final line):
              step shapes pick), compared bit for bit.
    Then training (``train_phase``): full-width catlm-60m, 120 AdamW
              steps, a bitwise resume, the trained model served.
-   Then the dense family at full width and depth (``families_phase``):
+   Then the dense family at full width (``families_phase``):
              seeded weights drawn, calibrated and CAT-W4A4-quantized one
              layer at a time on the card, served through (b)'s engine:
-             (g) mistral-nemo-12b on (b)'s 8 requests, through all five
-             serving kernels at its widths; (h) gemma2-2b on them and a
+             (g) mistral-nemo-12b (10 of its 40 layers) on (b)'s 8
+             requests, through all five serving kernels at its widths;
+             (h) gemma2-2b (14 of 26 layers) on them and a
              4,160-token prompt past its 4096-token window (its attention
              on the gathered path, rows 1 and 2 for its linears). Printed:
              PTQ seconds, peak device memory, tok/s, TTFT, ITL, launches,
@@ -155,7 +158,16 @@ Phases (any failure exits non-zero before the final line):
              (full depth, and the first layer alone served through the
              engine, whose served tokens are in the reference's top 5 at
              >= 0.9 of positions); (h) also teacher-forced agreement >=
-             0.9.
+             0.9. Then the moe family the same way: (i)
+             granite-moe-1b-a400m and (j) moonshot-v1-16b-a3b (capacity
+             factor 1.25: tokens drop, as in the reference) through all
+             five serving kernels (their attention; the experts are
+             batched GEMMs on codes dequantized per call, timed apart by
+             ``expert_ms``), the dispatch half's synchronising calls held
+             at 0; (i) also served dropless (capacity factor E/k), with
+             the prefix cache and speculative decoding with and without
+             drops (token shares printed, not held), and its dropless
+             model held by ``batch_shape_probe``.
 5. composed — ``ops.cat_transform_matmul`` (block-CAT -> Hadamard ->
              dynamic quant -> W4A8 GEMV / tiled or W8A8 contraction, four
              launches) on all 32 serving linears of the served CAT-W4A4
@@ -501,7 +513,7 @@ def profiled_kernels(fn) -> list:
 
 
 def check_attention(name, run, plain, items, nq, card, gen, dev, decode,
-                    label=""):
+                    label="", heads=(4, 2, 64)):
     """Hold a paged-attention entry point against its plain version on the
     valid query rows (length 0 decode rows and ragged padding rows:
     zeros). Tolerance: 4 bf16 ulps of the output's scale (1.6e-2
@@ -510,12 +522,15 @@ def check_attention(name, run, plain, items, nq, card, gen, dev, decode,
     same bits; f32 queries within 1e-4 of the scale; one kernel node per
     call (CUDA graph); its plan. Decode also: the device ms of every
     forced split (``SPLITS``), each within the tolerance. The library
-    yardstick is ``sdpa_yardstick``."""
+    yardstick is ``sdpa_yardstick``. ``heads``: (KV heads, query heads
+    per KV head, head_dim)."""
     import torch
 
     from repro_torch.kernels import build
     from repro_torch.kernels import fused_cat_matmul as F
-    args, dims = attention_operands(items, nq, gen, dev, decode)
+    kvh, g, hd = heads
+    args, dims = attention_operands(items, nq, gen, dev, decode, kvh=kvh,
+                                    g=g, hd=hd)
     call = args[:7] if decode else args
     got = run(*call)
     want = plain(*call)
@@ -529,7 +544,7 @@ def check_attention(name, run, plain, items, nq, card, gen, dev, decode,
     plain_ms = device_ms(lambda: plain(*call))
     b_ms, b_by = attention_bound(items, dims, 1 if decode else nq)
     rec = {"kernel": name, "shape": label, "items": len(items),
-           "q_block": 1 if decode else nq,
+           "heads": list(heads), "q_block": 1 if decode else nq,
            "max_len": max(ln for _, ln in items), "max_err": err,
            "tol": tol, "bf16_bitwise_share":
            (got == want)[valid].float().mean().item(),
@@ -618,10 +633,17 @@ def time_decode_lengths(P, gen, dev) -> list:
 # (KV heads, head_dim, query heads per KV head, page size) of the
 # attentions' edge grids, and the dense family's heads at page 16:
 # granite-34b (MQA: 1 KV head of 128 for 48 query heads) and
-# mistral-nemo-12b (8 of 128, 4 each)
+# mistral-nemo-12b (8 of 128, 4 each); and the moe family's:
+# moonshot-v1-16b-a3b (multi-head: 16 KV heads of 128, 1 each) and
+# granite-moe-1b-a400m (8 of 64, 2 each)
 ATTENTION_EDGE_HEADS = ([(2, hd, g, ps) for hd in (32, 64, 128)
                          for g in (1, 2, 4, 8) for ps in (8, 16, 32)]
-                        + [(1, 128, 48, 16), (8, 128, 4, 16)])
+                        + [(1, 128, 48, 16), (8, 128, 4, 16),
+                           (16, 128, 1, 16), (8, 64, 2, 16)])
+# rows 3 and 4 timed at the moe family's heads (KV heads, query heads per
+# KV head, head_dim), at the served shapes
+MOE_HEADS = {"moonshot-v1-16b-a3b": (16, 1, 128),
+             "granite-moe-1b-a400m": (8, 2, 64)}
 
 
 def check_decode_edges(gen, dev):
@@ -1149,20 +1171,28 @@ def check_prologue(card, gen, dev):
 
 # the dense family's configs whose serving linears rows 1, 2 and 5 take
 FAMILY_ARCHS = ("mistral_nemo_12b", "granite_34b", "gemma2_2b",
-                "gemma3_12b", "paligemma_3b")
+                "gemma3_12b", "paligemma_3b", "granite_moe_1b_a400m",
+                "moonshot_v1_16b_a3b")
+# the configs whose linears and QKV are timed for rows 1, 2 and 5
+TIMED_ARCHS = ("mistral_nemo_12b", "granite_moe_1b_a400m",
+               "moonshot_v1_16b_a3b")
 FAMILY_TILED_ROWS = (128, 37)   # a unified step's rows, and ragged ones
 
 
 def family_linears(arch) -> list:
-    """(name, D, N) of the serving linears of ``arch`` at full width: the
-    concatenated wqkv, wo, wgu (wu where the MLP is ungated), wd."""
+    """(name, D, N) of the serving linears of ``arch`` at full width that
+    rows 1 and 2 serve: the concatenated wqkv, wo, wgu (wu where the MLP
+    is ungated), wd; of an moe config wqkv and wo (its experts are
+    batched GEMMs on dequantized weights, as in the reference)."""
     from repro_torch.configs import get_config
     cfg = get_config(arch)
+    attn = [("wqkv", cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim),
+            ("wo", cfg.q_dim, cfg.d_model)]
+    if cfg.n_experts:
+        return attn
     up = (("wgu", cfg.d_model, 2 * cfg.d_ff) if cfg.gated_mlp
           else ("wu", cfg.d_model, cfg.d_ff))
-    return [("wqkv", cfg.d_model, cfg.q_dim + 2 * cfg.kv_dim),
-            ("wo", cfg.q_dim, cfg.d_model), up,
-            ("wd", cfg.d_ff, cfg.d_model)]
+    return attn + [up, ("wd", cfg.d_ff, cfg.d_model)]
 
 
 def wide_operands(m, d, n, dev, seed, packed):
@@ -1227,9 +1257,10 @@ def check_family_widths(card, dev, archs=FAMILY_ARCHS,
     of the contraction's split scratch). The plain versions compute each
     row alone (in-order fma chains, a per-row quant, an exact integer
     product), so one plain call over the largest M gives every smaller
-    M's rows. With ``timed``, mistral-nemo-12b's four linears are timed
-    for rows 1 and 2 (M 8 and 128, bf16 rows) and its QKV for row 5 (B
-    8), beside their plain versions and bounds. -> {kernel: records}."""
+    M's rows. With ``timed``, the linears of ``TIMED_ARCHS`` (mistral-
+    nemo-12b's four, the moe configs' wqkv and wo) are timed for rows 1
+    and 2 (M 8 and 128, bf16 rows) and their QKV for row 5 (B 8), beside
+    their plain versions and bounds. -> {kernel: records}."""
     import torch
 
     from repro_torch.configs import get_config
@@ -1282,7 +1313,7 @@ def check_family_widths(card, dev, archs=FAMILY_ARCHS,
                             ("wide_gemv_kernel" if plan.path else
                              "fused_cat_gemv_kernel") if m <= 8
                             else (stage1, "mma_kernel", *zeroed))
-                    if timed and packed and arch == "mistral_nemo_12b" \
+                    if timed and packed and arch in TIMED_ARCHS \
                             and m in (8, 128):
                         xb = (args[0][:m].to(torch.bfloat16), *args[1:])
                         call = lambda: run(  # noqa: E731
@@ -1320,7 +1351,7 @@ def check_family_widths(card, dev, archs=FAMILY_ARCHS,
         for packed in (True, False):
             out["decode_qkv_prologue"] += family_prologue(
                 cfg, packed, card, dev, seed, timed and packed
-                and arch == "mistral_nemo_12b")
+                and arch in TIMED_ARCHS)
     print("family widths: " + json.dumps(
         {k: len(v) for k, v in out.items()}))
     return out
@@ -2453,11 +2484,13 @@ def reference_run(model, params, reqs, kw):
                            paged_kernel=False, **kw).run(reqs)
 
 
-def profile_serving(engine, reqs) -> dict:
+def profile_serving(engine, reqs, cpu: bool = True) -> dict:
     """One more drained pass under ``torch.profiler``: device time of the
     port's kernels (by CUDA kernel name) and of everything else, against
     the pass's wall time. Device time of 0 means the profiler saw no
-    device activity here: reported as not measured."""
+    device activity here: reported as not measured. ``cpu=False`` records
+    the device activity alone (the host's ops of a full-width model's pass
+    take a minute or more to trace)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2470,8 +2503,8 @@ def profile_serving(engine, reqs) -> dict:
               "paged_attn_decode": "paged attention decode",
               "paged_attn_ragged": "paged attention ragged"}
     engine.reset()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         engine.run(reqs)
         torch.cuda.synchronize()
@@ -3106,13 +3139,16 @@ def model_identity(model, params, gen, dev) -> dict:
     return out
 
 
-def batch_shape_probe(model, params, gen, dev) -> dict:
+def batch_shape_probe(model, params, gen, dev,
+                      parts=("attention", "layers", "model")) -> dict:
     """A query row's bits may not depend on the step shape that carried
     it: ``attention_identity``, ``layer_identity`` and
-    ``model_identity``, each held (its ``ok``)."""
-    out = {"attention": attention_identity(gen, dev),
-           "layers": layer_identity(gen, dev),
-           "model": model_identity(model, params, gen, dev)}
+    ``model_identity`` (those of ``parts``; the kernels' two do not
+    depend on the model), each held (its ``ok``)."""
+    probes = {"attention": lambda: attention_identity(gen, dev),
+              "layers": lambda: layer_identity(gen, dev),
+              "model": lambda: model_identity(model, params, gen, dev)}
+    out = {part: probes[part]() for part in parts}
     out["ok"] = all(v["ok"] for v in out.values())
     return out
 
@@ -3375,7 +3411,8 @@ FAMILY_LONG_PROMPT = 4160   # (h): 4 pages of 16 past gemma2-2b's window
 
 
 def serve_family(arch, counters, card, rows, long_prompt=0, warm=True,
-                  min_agreement=None):
+                 min_agreement=None, tag=None, syncs=False, extra=None,
+                 layers=None):
     """One dense-family config at full width on the card: seeded random
     init and CAT-W4A4 int4-packed RTN PTQ drawn and quantized one layer
     at a time (``build_served_model``, which takes that path for these
@@ -3399,8 +3436,14 @@ def serve_family(arch, counters, card, rows, long_prompt=0, warm=True,
     ``ulp_logit_rel``, at full depth and on the first layer alone, where
     the served token is also in the reference's top 5 at >=
     ``WITNESS_TOP5`` of the positions. With ``min_agreement``, the
-    teacher-forced agreement at full depth is held at it too. -> the
-    record."""
+    teacher-forced agreement at full depth is held at it too. With
+    ``syncs``, the pipelined engine's synchronising calls in the dispatch
+    half (``count_dispatch_syncs``) are counted over a pass and held at 0.
+    ``extra(cfg, model, params, reqs, kw, res, out)`` runs last, on the
+    quantized params. ``tag`` names the cell. The profiled pass records
+    the device activity alone (``profile_serving``'s ``cpu=False``).
+    ``layers`` cuts the depth to that many layers (the full config's
+    first layers: the same draws). -> the record."""
     import os
 
     import numpy as np
@@ -3414,7 +3457,8 @@ def serve_family(arch, counters, card, rows, long_prompt=0, warm=True,
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     cfg, model, params, mem = build_served_model(
-        arch, "cat", 4, 4, 8, smoke=False, seed=0, device="cuda")
+        arch, "cat", 4, 4, 8, smoke=False, seed=0, device="cuda",
+        cfg_overrides=None if layers is None else {"n_layers": layers})
     torch.cuda.synchronize()
     ptq_s = time.perf_counter() - t0
     ptq_peak = torch.cuda.max_memory_allocated()
@@ -3426,7 +3470,7 @@ def serve_family(arch, counters, card, rows, long_prompt=0, warm=True,
     max_len = max(len(r["tokens"]) + r["max_new_tokens"] for r in reqs) + 8
     kw = dict(n_slots=8, max_len=max_len, schedule="unified",
               max_batch_tokens=128, page_size=16, device="cuda")
-    label = f"({'g' if arch.startswith('mistral') else 'h'}) {cfg.name}"
+    label = f"({tag}) {cfg.name}"
     print(f"families: {label} full width ({cfg.n_layers} layers, d "
           f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
           f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}), layerwise "
@@ -3441,12 +3485,21 @@ def serve_family(arch, counters, card, rows, long_prompt=0, warm=True,
         engine.reset()
     for fn in counters:
         fn.launches = 0
+    t_warm = time.perf_counter()
     res = engine.run(reqs)
     torch.cuda.synchronize()
     launches = {fn.__name__: fn.launches for fn in counters}
     summ = engine.summary()
+    stages = {"ptq": ptq_s, "warm_up": t_warm - t0 - ptq_s}
+    t_last = [time.perf_counter()]
+    stages["counted"] = t_last[0] - t_warm
+
+    def stage(name):
+        now = time.perf_counter()
+        stages[name] = now - t_last[0]
+        t_last[0] = now
     out = {"config": label, "arch": arch, "layers": cfg.n_layers,
-           "depth_cut": None, "ptq_s": ptq_s,
+           "depth_cut": layers, "ptq_s": ptq_s,
            "ptq_peak_gib": ptq_peak / 2**30,
            "weight_gib": mem["weight_bytes"] / 2**30,
            "requests": len(reqs), "max_len": max_len,
@@ -3465,14 +3518,24 @@ def serve_family(arch, counters, card, rows, long_prompt=0, warm=True,
         if launches[name] <= 0:
             fail(f"{label}: kernel {name} never launched")
     if warm:
-        out["profile"] = profile_serving(engine, reqs)
+        out["profile"] = profile_serving(engine, reqs, cpu=False)
         print(f"families: {label} profiled pass "
               + json.dumps(out["profile"]), flush=True)
+        stage("profiled")
+    if syncs:
+        out["dispatch_syncs"] = count_dispatch_syncs(engine, reqs)
+        stage("sync_count")
+        print(f"families: {label} synchronising calls in the dispatch "
+              f"half " + json.dumps(out["dispatch_syncs"]), flush=True)
+        if out["dispatch_syncs"]["total"]:
+            fail(f"{label}: {out['dispatch_syncs']['total']} synchronising "
+                 f"calls in the pipelined loop's dispatch half")
     del engine
     sync = ServeEngine(model, params, paged_kernel=True, pipeline=False,
                        **kw)
     res_sync = sync.run(reqs)
     s_sync = sync.summary()
+    stage("synchronous")
     out["sync"] = {k: s_sync[k] for k in ("tok_per_s", "ttft_s_mean",
                                           "itl_p50_s", "itl_p95_s")}
     del sync
@@ -3484,12 +3547,14 @@ def serve_family(arch, counters, card, rows, long_prompt=0, warm=True,
         fail(f"{label}: pipelined and synchronous tokens differ for {diff}")
     torch.cuda.empty_cache()
     tf = teacher_forced_stats(model, params, reqs, res)
+    stage("teacher_forced")
     out["teacher_forced"] = tf
     out["reference_agreement_teacher_forced"] = tf["agreement"]
     print(f"families: {label} pipelined == sync: {not diff}; sync pass "
           f"{json.dumps(out['sync'])}; teacher-forced "
           + json.dumps(tf), flush=True)
     out["depth"] = depth_divergence(model, params, reqs, res)
+    stage("depth")
     print(f"families: {label} depth " + json.dumps(out["depth"]),
           flush=True)
     cut = build(cfg.scaled(n_layers=1))
@@ -3499,16 +3564,28 @@ def serve_family(arch, counters, card, rows, long_prompt=0, warm=True,
     res_cut = engine.run(reqs)
     del engine
     out["first_layer"] = teacher_forced_stats(cut, cut_params, reqs, res_cut)
+    stage("first_layer")
     print(f"families: {label} first layer alone teacher-forced "
           + json.dumps(out["first_layer"]), flush=True)
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     print(f"families: {label} peak {out['peak_gib']:.2f} GiB", flush=True)
     hold_family(label, out, min_agreement)
+    if extra is not None:
+        extra(cfg, model, params, reqs, kw, res, out)
+        stage("extra")
+    out["stage_s"] = stages
+    print(f"families: {label} seconds by stage " + json.dumps(stages),
+          flush=True)
     del params, model
     torch.cuda.empty_cache()
     return out
 
 
+# (g) and (h) cut in depth to keep the whole script within half its time
+# limit beside (i) and (j), which keep theirs; (h) keeps 14 of 26 layers,
+# so both kinds of its alternating layers and the layer-at-a-time PTQ
+# (its fp32 layers above LAYERWISE_BYTES)
+FAMILY_DEPTH_CUT = {"g": 10, "h": 14}
 NOISE_FACTOR = 1.5   # the served path against the reference's ulp response
 WITNESS_TOP5 = 0.9   # served tokens in the reference's top 5, cut model
 
@@ -3537,22 +3614,204 @@ def hold_family(label, out, min_agreement=None) -> None:
         fail(f"{label}: teacher-forced agreement {agree} < {min_agreement}")
 
 
+def dequant_on_card(dev) -> dict:
+    """The experts' per-call dequant on the card: ``quantizers.unpack_int4``
+    (arithmetic shifts of the int8 byte) against the nibbles' two's-
+    complement values for every byte, computed on the host in int32; and
+    ``moe.dequant`` of a stacked int4-packed and an int8 QLinear against
+    the reference's formulation (codes cast, times the scale cast), in
+    bf16 and f32, bitwise."""
+    import torch
+
+    from repro_torch.core import transforms as T
+    from repro_torch.core.qlinear import QLinear, unpacked_qweight
+    from repro_torch.core.quantizers import pack_int4, unpack_int4
+    from repro_torch.models import moe
+    p = torch.arange(-128, 128, dtype=torch.int8).reshape(16, 16)
+    pi = p.to(torch.int32)
+    want = torch.stack([((pi & 0xF) ^ 8) - 8, (((pi >> 4) & 0xF) ^ 8) - 8],
+                       1).reshape(32, 16).to(torch.int8)
+    out = {"unpack_bytes": 256, "unpack": bool(torch.equal(
+        unpack_int4(p.to(dev), 32, axis=0).cpu(), want))}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    codes = torch.randint(-8, 8, (4, 63, 40), generator=gen, device=dev,
+                          dtype=torch.int8)
+    scale = torch.rand((4, 1, 40), generator=gen, device=dev)
+    for name, q in (("packed", QLinear(pack_int4(codes, -2), scale,
+                                        T.Identity(), w_bits=4, d_in=63)),
+                    ("int8", QLinear(codes * 16, scale, T.Identity()))):
+        for cd in (torch.bfloat16, torch.float32):
+            ref = unpacked_qweight(q).to(cd) * q.scale.to(cd)
+            out[f"dequant_{name}_{cd}"] = bool(torch.equal(
+                moe.dequant(q, cd), ref))
+    if not all(out[k] for k in out if k != "unpack_bytes"):
+        fail(f"the experts' dequant on the card: {json.dumps(out)}")
+    return out
+
+
+def expert_ms(cfg, params, dev, card) -> dict:
+    """The experts' device time, apart from the five kernels: layer 0's
+    ``moe.moe_mlp`` (routing, dispatch, the three expert linears with
+    their codes dequantized on every call, the combine) on 8 decode rows
+    of bf16, and the three expert linears alone (``moe._expert_dense``)
+    at the capacity 8 rows give, each by CUDA-graph replay; per decode
+    step (x the layers). ``floor_ms``: the reference formulation's bytes
+    per layer (the int4 codes read, the bf16 weights written and read
+    back) over 3.35 TB/s."""
+    import torch
+
+    from repro_torch.models import moe
+    lp = params["layers"][0]
+    gen = torch.Generator(device=dev).manual_seed(7)
+    cap = moe.group_capacity(cfg, 8)
+
+    def rows(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+    x = rows(8, 1, cfg.d_model)
+    xe = rows(1, cfg.n_experts, cap, cfg.d_model)
+    he = rows(1, cfg.n_experts, cap, cfg.d_ff)
+
+    def linears():
+        moe._expert_dense(lp["we_g"], xe)
+        moe._expert_dense(lp["we_u"], xe)
+        moe._expert_dense(lp["we_d"], he)
+    with torch.no_grad():
+        mlp = device_ms(lambda: moe.moe_mlp(cfg, lp, x), calls=5,
+                        replays=4)
+        lin = device_ms(linears, calls=5, replays=4)
+    weights = 3 * cfg.n_experts * cfg.d_model * cfg.d_ff
+    floor = 1e3 * weights * (0.5 + 2 + 2) / HBM_BYTES_S
+    return {"capacity_at_8_rows": cap, "moe_mlp_ms": mlp,
+            "expert_linears_ms": lin, "floor_ms": floor,
+            "moe_mlp_ms_per_step": mlp * cfg.n_layers,
+            "expert_linears_ms_per_step": lin * cfg.n_layers,
+            "floor_ms_per_step": floor * cfg.n_layers, "card": card}
+
+
+def moe_experts(cfg, model, params, reqs, kw, res, out) -> None:
+    """(j)'s extra: the experts' device ms (``expert_ms``)."""
+    import torch
+    out["experts"] = expert_ms(cfg, params, torch.device("cuda"),
+                               out["card"])
+    print(f"families: {out['config']} experts " + json.dumps(
+        out["experts"]), flush=True)
+
+
+def moe_diagnostics(cfg, model, params, reqs, kw, res, out) -> None:
+    """(i)'s extras on its quantized params: the experts' device ms; the
+    same weights served with ``capacity_factor`` E/k, which drops no
+    (token, slot) pair (a diagnostic, printed and not held: its tokens
+    against the cell's, the teacher-forced stats against the reference
+    routes); ``model_identity`` on that dropless model, held (a row's
+    bits may not depend on the step shape); and the token shares of
+    prefix-cached serving (40 shared tokens, cache on against off) and
+    of speculative serving (k 4, ``build_draft_model``'s CAT-W4A8 draft,
+    against the cell's counted pass), with drops and without, printed and
+    not held: with drops the reference's own output depends on the
+    batch."""
+    import torch
+
+    from repro_torch.data import request_workload
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.serve import build_draft_model
+    from repro_torch.models import build
+    dev = torch.device("cuda")
+    moe_experts(cfg, model, params, reqs, kw, res, out)
+    label = out["config"]
+    dropless = build(cfg.scaled(capacity_factor=cfg.n_experts / cfg.top_k))
+    engine = ServeEngine(dropless, params, paged_kernel=True, pipeline=None,
+                         **kw)
+    res_dl = engine.run(reqs)
+    check_well_formed(f"{label} dropless", reqs, res_dl, cfg.vocab)
+    summ = engine.summary()
+    del engine
+    diag = {"capacity_factor": dropless.cfg.capacity_factor,
+            "tokens_equal_cell": token_share(reqs, res_dl, res),
+            **{k: summ[k] for k in ("tok_per_s", "itl_p50_s",
+                                    "ttft_s_mean")},
+            "teacher_forced": teacher_forced_stats(dropless, params, reqs,
+                                                   res_dl)}
+    print(f"families: {label} dropless diagnostic " + json.dumps(diag),
+          flush=True)
+    probe = batch_shape_probe(dropless, params,
+                              torch.Generator().manual_seed(1), dev,
+                              parts=("model",))
+    diag["batch_shape_probe"] = probe
+    print(f"families: {label} dropless batch-shape probe (model) "
+          + json.dumps(probe), flush=True)
+    if not probe["ok"]:
+        fail(f"{label} dropless: a row's bits depend on the step shape "
+             f"that carried it")
+    shared = request_workload(cfg, 8, gen=32, seed=0, shared_prefix=40)
+    skw = dict(kw, max_len=max(len(r["tokens"]) + r["max_new_tokens"]
+                               for r in shared) + 8)
+    t0 = time.perf_counter()
+    draft = build_draft_model(out["arch"], smoke=False, seed=0,
+                              device="cuda")
+    diag["draft_ptq_s"] = time.perf_counter() - t0
+    shares = {}
+    for name, m, base in (("drops", model, res), ("dropless", dropless,
+                                                  res_dl)):
+        off = ServeEngine(m, params, paged_kernel=True, **skw).run(shared)
+        on_eng = ServeEngine(m, params, paged_kernel=True,
+                             prefix_cache=True, **skw)
+        on = on_eng.run(shared)
+        spec_eng = ServeEngine(m, params, paged_kernel=True,
+                               speculative_k=4, draft=draft, **kw)
+        spec = spec_eng.run(reqs)
+        for lbl, r_, rs in (("prefix", shared, on), ("speculative", reqs,
+                                                     spec)):
+            check_well_formed(f"{label} {name} {lbl}", r_, rs, cfg.vocab)
+        shares[name] = {
+            "prefix_cache": dict(token_share(shared, on, off), **{
+                k: on_eng.summary()[k] for k in ("prefix_hits",
+                                                 "prefix_hit_tokens")}),
+            "speculative": dict(token_share(reqs, spec, base), **{
+                k: spec_eng.summary()[k] for k in (
+                    "spec_acceptance_rate", "spec_drafted_tokens")})}
+        del on_eng, spec_eng
+    diag["token_shares"] = shares
+    out["dropless"] = diag
+    print(f"families: {label} token shares (not held) " + json.dumps(
+        shares), flush=True)
+
+
 def families_phase(counters, card) -> dict:
-    """(g) mistral-nemo-12b at full width through all five serving
-    kernels; (h) gemma2-2b at full width (its windowed, softcapped
+    """(g) mistral-nemo-12b at full width (10 of its 40 layers,
+    ``FAMILY_DEPTH_CUT``) through all five serving kernels; (h) gemma2-2b
+    at full width (14 of 26 layers) (its windowed, softcapped
     attention on the gathered path, rows 1 and 2 for its linears) with a
     prompt past its 4096-token window; each gathered step reads the
     whole 263-page table of every row, so (h) runs its counted and
     synchronous passes only (no warm-up or profiled pass). (h), whose
     embeddings are tied, is also held at a teacher-forced agreement >=
     0.9; (g)'s untied random head has top-2 margins of ~0.15 and is not
-    (``serve_family``)."""
+    (``serve_family``). The moe family: (i) granite-moe-1b-a400m and (j)
+    moonshot-v1-16b-a3b at full width and depth through all five serving
+    kernels (their attention linears, QKV prologue and attentions; the
+    experts are batched GEMMs on codes dequantized per call, as in the
+    reference), (i)'s dispatch half's synchronising calls held at 0 (the
+    two run the same step code), the
+    experts' device ms (``expert_ms``), and (i)'s diagnostics
+    (``moe_diagnostics``). (i), whose embeddings are tied, is also held
+    at a teacher-forced agreement >= 0.9, as (h); (j)'s head is untied
+    and random, as (g)'s, and is not."""
     rows_all = [fn.__name__ for fn in counters]
-    return {"g": serve_family("mistral_nemo_12b", counters, card, rows_all),
-            "h": serve_family("gemma2_2b", counters, card,
-                              ["fused_cat_gemv_w4", "fused_cat_matmul_w4"],
-                              long_prompt=FAMILY_LONG_PROMPT, warm=False,
-                              min_agreement=0.9)}
+    out = {"g": serve_family("mistral_nemo_12b", counters, card, rows_all,
+                             tag="g", layers=FAMILY_DEPTH_CUT["g"]),
+           "h": serve_family("gemma2_2b", counters, card,
+                             ["fused_cat_gemv_w4", "fused_cat_matmul_w4"],
+                             long_prompt=FAMILY_LONG_PROMPT, warm=False,
+                             min_agreement=0.9, tag="h",
+                             layers=FAMILY_DEPTH_CUT["h"])}
+    out["dequant_on_card"] = dequant_on_card("cuda")
+    out["i"] = serve_family("granite_moe_1b_a400m", counters, card,
+                            rows_all, min_agreement=0.9, tag="i",
+                            syncs=True, extra=moe_diagnostics)
+    out["j"] = serve_family("moonshot_v1_16b_a3b", counters, card,
+                            rows_all, tag="j", extra=moe_experts)
+    return out
 
 
 def composed_plain(x, blocks, ha, hb, sign, qw, sw, act_bits, packed):
@@ -4234,6 +4493,12 @@ def main() -> None:
                 "paged_attention_ragged", P.paged_attention_ragged,
                 P.paged_attention_ragged_plain, items, RAGGED_Q, card, gen,
                 dev, decode=False, label=label)]
+        + [rec for name, heads in MOE_HEADS.items()
+           for rec in check_attention(
+               "paged_attention_ragged", P.paged_attention_ragged,
+               P.paged_attention_ragged_plain, RAGGED_SHAPES[1][1],
+               RAGGED_Q, card, gen, dev, decode=False,
+               label=f"{name}, {RAGGED_SHAPES[1][0]}", heads=heads)]
         + check_ragged_edges(gen, dev),
         "paged_attention_decode": [
             rec for label, lens in DECODE_SHAPES
@@ -4241,6 +4506,13 @@ def main() -> None:
                 "paged_attention_decode", P.paged_attention_decode,
                 P.paged_attention_decode_plain, [(1, ln) for ln in lens], 1,
                 card, gen, dev, decode=True, label=label)]
+        + [rec for name, heads in MOE_HEADS.items()
+           for rec in check_attention(
+               "paged_attention_decode", P.paged_attention_decode,
+               P.paged_attention_decode_plain,
+               [(1, ln) for ln in DECODE_SHAPES[1][1]], 1, card, gen, dev,
+               decode=True, label=f"{name}, {DECODE_SHAPES[1][0]}",
+               heads=heads)]
         + check_decode_edges(gen, dev)
         + [dict(rec, plan=dataclasses.asdict(P.decode_plan(
             8, 4, 2, 64, 16, -(-rec["length"] // 16), build.sm_count(0))))

@@ -116,12 +116,15 @@ class ArchConfig:
 ARCH_IDS = [
     # the paper's own evaluation model (a small LM used by benchmarks)
     "catlm_60m",
-    # the dense and vlm family of the reference's registry
+    # the dense and vlm families of the reference's registry
     "gemma2_2b",
     "mistral_nemo_12b",
     "granite_34b",
     "gemma3_12b",
     "paligemma_3b",
+    # the moe family
+    "granite_moe_1b_a400m",
+    "moonshot_v1_16b_a3b",
 ]
 
 

@@ -1,14 +1,17 @@
 """End-to-end PTQ pipeline — counterpart of ``repro.core.pipeline`` for the
-dense and vlm families:
+dense, moe and vlm families:
 
   calibrate -> build one transform per layer group -> fuse T⁻¹ into the
   weights -> quantize weights (RTN or GPTQ, L2.4 ranges) -> QLinears
   (int4 nibble-packed at w_bits=4).
 
 Groups follow the paper: projections sharing an input activation (q/k/v;
-gate/up) share one transform. Every transform of the reference's
-``QuantizeConfig`` is built: none, smoothquant, hadamard, rotation, cat
-and cat_nohad. The loop order (groups outer, layers inner) matches the
+gate/up; every expert's gate/up) share one transform. An MoE layer's
+expert stacks (E, d_in, d_out) are one group member each: one transform
+aligns the dispatched activation with Σ_w summed over all E experts, and
+every expert is fused and quantized on its own. Every transform of the
+reference's ``QuantizeConfig`` is built: none, smoothquant, hadamard,
+rotation, cat and cat_nohad. The loop order (groups outer, layers inner) matches the
 reference so the shared numpy rng draws the same Hadamard signs and
 rotations. ``eval_quantized`` is the paper's Table-1 metric: held-out CE
 and perplexity of fp against quantized params.
@@ -42,6 +45,11 @@ class GroupSpec:
 
 
 def layer_groups(cfg) -> List[GroupSpec]:
+    if cfg.family == "moe":
+        return [GroupSpec("attn_in", ("wq", "wk", "wv")),
+                GroupSpec("o_in", ("wo",)),
+                GroupSpec("expert_in", ("we_g", "we_u")),
+                GroupSpec("down_in", ("we_d",))]
     if cfg.family not in ("dense", "vlm"):
         raise NotImplementedError(f"family {cfg.family!r} PTQ is a later "
                                   f"slice of the port")
@@ -66,26 +74,42 @@ class QuantizeConfig:
 
 
 def _sigma_w_of(ws: List[np.ndarray]) -> np.ndarray:
-    """Σ_w of a group: Σ over members of V Vᵀ for input-major V."""
-    d = ws[0].shape[0]
+    """Σ_w of a group: Σ over members of V Vᵀ for input-major V (d_in,
+    d_out), over every expert of an (E, d_in, d_out) stack."""
+    d = ws[0].shape[-2]
     sw = np.zeros((d, d), np.float64)
     for v in ws:
         v2 = np.asarray(v, np.float64)
-        sw += v2 @ v2.T
+        for ve in (v2 if v2.ndim == 3 else [v2]):
+            sw += ve @ ve.T
     return sw
+
+
+def smooth_wmax(ws: List[np.ndarray]) -> np.ndarray:
+    """SmoothQuant's weight maxima of a group, by the reference's rule: a
+    (d_in, d_out) member's per-input-channel absmax; an (E, d_in, d_out)
+    expert stack's absmax over its experts and input channels, which is
+    per output channel."""
+    return np.max([np.abs(np.asarray(w, np.float64)).max(axis=(0, 1))
+                   if w.ndim == 3 else np.abs(np.asarray(w)).max(axis=1)
+                   for w in ws], axis=0)
 
 
 def build_transform(qcfg: QuantizeConfig, cfg, stats, ws: List[np.ndarray],
                     rng: np.random.Generator, device):
-    d = ws[0].shape[0]
+    d = ws[0].shape[-2]
     kind = qcfg.transform
     f32 = dict(dtype=torch.float32, device=device)
     if kind == "none":
         return T.Identity()
     if kind == "smoothquant":
-        # the group's per-input-channel weight absmax
-        wmax = np.max([np.abs(np.asarray(w)).max(axis=1) for w in ws],
-                      axis=0)
+        wmax = smooth_wmax(ws)
+        if wmax.shape != stats.absmax.shape:
+            # the reference fails here too, on the broadcast of the two
+            raise ValueError(
+                f"smoothquant: weight maxima {wmax.shape} do not match the "
+                f"activation's {stats.absmax.shape} (an expert stack's "
+                f"maxima are per output channel, as in the reference)")
         return T.make_smoothquant(torch.tensor(stats.absmax, **f32),
                                   torch.tensor(wmax, **f32),
                                   alpha=qcfg.smooth_alpha)
@@ -113,14 +137,28 @@ def _make_qlinear(codes, scale, t, qcfg: QuantizeConfig) -> QLinear:
 def _quantize_weight(v: torch.Tensor, sigma_t: Optional[torch.Tensor],
                      qcfg: QuantizeConfig):
     """v (d_in, d_out) -> (codes (d_in, d_out), scale (1, d_out)); GPTQ
-    takes the transformed activations' Σ, ``sigma_t`` = T Σ_x Tᵀ."""
+    takes the transformed activations' Σ, ``sigma_t`` = T Σ_x Tᵀ. An
+    expert stack (E, d_in, d_out) is quantized expert by expert (RTN's
+    per-channel rows in one call) -> (E, d_in, d_out), (E, 1, d_out)."""
     spec = weight_spec(qcfg.w_bits, qcfg.range_p)
-    w = v.T                     # (d_out, d_in), the quantizers' convention
+    w = v.transpose(-1, -2)     # (d_out, d_in), the quantizers' convention
     if qcfg.w_method == "gptq" and sigma_t is not None:
-        q, s = gptq_quantize(w, sigma_t, spec)
+        if v.ndim == 3:
+            qs = [gptq_quantize(we, sigma_t, spec) for we in w]
+            q, s = (torch.stack(t) for t in zip(*qs))
+        else:
+            q, s = gptq_quantize(w, sigma_t, spec)
     else:
         q, s = rtn_quantize(w, spec)
-    return q.T, s.T
+    return q.transpose(-1, -2), s.transpose(-1, -2)
+
+
+def _fuse(t, v: torch.Tensor) -> torch.Tensor:
+    """``fuse_weight_in`` of a (d_in, d_out) weight, or of each expert of
+    an (E, d_in, d_out) stack."""
+    if v.ndim == 3:
+        return torch.stack([fuse_weight_in(t, ve) for ve in v])
+    return fuse_weight_in(t, v)
 
 
 @torch.no_grad()
@@ -146,7 +184,7 @@ def quantize_model(model, params, qcfg: QuantizeConfig,
                 sigma_t = T.fuse_cov(t, torch.tensor(
                     stats.sigma, dtype=torch.float32, device=device))
             for name in group.weights:
-                vf = fuse_weight_in(t, lp[name].to(torch.float32))
+                vf = _fuse(t, lp[name].to(torch.float32))
                 codes, scale = _quantize_weight(vf, sigma_t, qcfg)
                 lp[name] = _make_qlinear(codes, scale, t, qcfg)
     return dict(params, layers=layers)
@@ -192,9 +230,15 @@ class BlockTaps:
 
 def _weight_blocks(ws, k: int) -> torch.Tensor:
     """The k x k diagonal blocks of Σ_w = Σ V Vᵀ over a group's input-major
-    weights V (d_in, d_out), in f64."""
+    weights V (d_in, d_out), summed over every expert of an (E, d_in,
+    d_out) stack, in f64 on the weights' device."""
     out = 0
     for v in ws:
+        if v.ndim == 3:
+            e, d_in, d_out = v.shape
+            vb = v.to(torch.float64).reshape(e, d_in // k, k, d_out)
+            out = out + torch.einsum("enid,enjd->nij", vb, vb)
+            continue
         vb = v.to(torch.float64).reshape(v.shape[0] // k, k, v.shape[1])
         out = out + torch.einsum("nid,njd->nij", vb, vb)
     return out
@@ -203,8 +247,8 @@ def _weight_blocks(ws, k: int) -> torch.Tensor:
 @torch.no_grad()
 def quantize_model_layerwise(model, qcfg: QuantizeConfig, calib_batches,
                              rest: dict, draw_layer) -> dict:
-    """CAT PTQ (``transform`` "cat" or "cat_nohad", RTN) of a dense model
-    one layer at a time: ``rest`` holds the model's other params on the
+    """CAT PTQ (``transform`` "cat" or "cat_nohad", RTN) of a dense or moe
+    model one layer at a time: ``rest`` holds the model's other params on the
     device (embed, final_norm, unembed), ``draw_layer(i)`` returns layer
     i's fp params there, called once per layer in order. Each layer is
     calibrated on the fp activations of the layers before it (the taps of
@@ -222,7 +266,8 @@ def quantize_model_layerwise(model, qcfg: QuantizeConfig, calib_batches,
     device = rest["embed"].device
     k = qcfg.cat_block or cfg.cat_block
     in_dim = {"attn_in": cfg.d_model, "o_in": cfg.q_dim,
-              "mlp_in": cfg.d_model, "down_in": cfg.d_ff}
+              "mlp_in": cfg.d_model, "expert_in": cfg.d_model,
+              "down_in": cfg.d_ff}
     groups = layer_groups(cfg)
     hads = {}
     if kind == "cat":
@@ -245,7 +290,7 @@ def quantize_model_layerwise(model, qcfg: QuantizeConfig, calib_batches,
         xs = [dense.layer_forward(cfg, x, lp, i, taps=taps) for x in xs]
         for group in groups:
             ws = [lp[name].to(torch.float32) for name in group.weights]
-            d = ws[0].shape[0]
+            d = ws[0].shape[-2]
             kk = T.cat_block_size(d, k)
             sx = taps.sigma_blocks(f"layers.{i}.{group.tap}")
             mt = T.cat_from_blocks(_weight_blocks(ws, kk).float(),
@@ -253,8 +298,7 @@ def quantize_model_layerwise(model, qcfg: QuantizeConfig, calib_batches,
             t = mt if kind == "cat_nohad" else T.Compose(
                 (mt, hads[group.tap, i]))
             for name, v in zip(group.weights, ws):
-                codes, scale = _quantize_weight(fuse_weight_in(t, v), None,
-                                                qcfg)
+                codes, scale = _quantize_weight(_fuse(t, v), None, qcfg)
                 lp[name] = _make_qlinear(codes, scale, t, qcfg)
         layers.append(lp)
     return dict(rest, layers=layers)

@@ -24,8 +24,9 @@ from .quantizers import (act_spec, fake_quant, int_matmul,
 @dataclasses.dataclass(frozen=True)
 class QLinear:
     qweight: torch.Tensor         # int8 codes (d_in, d_out); int4-packed:
-                                  # (ceil(d_in/2), d_out), two nibbles/byte
-    scale: torch.Tensor           # f32, (1, d_out)
+                                  # (ceil(d_in/2), d_out), two nibbles/byte;
+                                  # an moe expert stack: (E, ...) leading
+    scale: torch.Tensor           # f32, (1, d_out) [(E, 1, d_out)]
     transform: Any                # transform acting on the input dim
     # serving-only precomputes (``make_serving``): Σ_k codes (f32,
     # (1, d_out)) for the zero-point epilogue, and the dequantized

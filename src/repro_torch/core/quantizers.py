@@ -203,15 +203,16 @@ def pack_int4(q: torch.Tensor, axis: int = -2) -> torch.Tensor:
 def unpack_int4(packed: torch.Tensor, n: Optional[int] = None,
                 axis: int = -2) -> torch.Tensor:
     """Inverse of :func:`pack_int4`: -> int8 codes in [-8, 7], sized ``n``
-    along ``axis`` (pass the original size to strip odd-size padding)."""
-    p = packed.to(torch.int32)
+    along ``axis`` (pass the original size to strip odd-size padding).
+    Each nibble is sign-extended by arithmetic shifts of the int8 byte."""
+    p = packed.to(torch.int8)
     axis = axis % p.ndim
-    lo = ((p & 0xF) ^ 8) - 8
-    hi = (((p >> 4) & 0xF) ^ 8) - 8
+    lo = torch.bitwise_right_shift(torch.bitwise_left_shift(p, 4), 4)
+    hi = torch.bitwise_right_shift(p, 4)
     q = torch.stack([lo, hi], dim=axis + 1)
     shape = list(p.shape)
     shape[axis] *= 2
-    q = q.reshape(shape).to(torch.int8)
+    q = q.reshape(shape)
     if n is not None:
         q = q.narrow(axis, 0, n)
     return q

@@ -107,9 +107,8 @@ class ServeEngine:
     """Continuous-batching greedy-decode engine (see module docstring).
     ``max_len`` bounds prompt + generated tokens per slot."""
 
-    # families with per-slot position vectors in decode: the reference's
-    # ("dense", "moe", "vlm"), less moe, a later slice of the port
-    _SLOT_FAMILIES = ("dense", "vlm")
+    # families with per-slot position vectors in decode, as the reference's
+    _SLOT_FAMILIES = ("dense", "moe", "vlm")
 
     def __init__(self, model, params, *, n_slots: int = 4,
                  max_len: int = 256, eos_id: Optional[int] = None,
@@ -139,6 +138,10 @@ class ServeEngine:
         if adaptive_spec and not speculative_k:
             raise ValueError("adaptive_spec needs speculative_k > 0 "
                              "(it tunes the per-slot draft depth)")
+        if mesh is not None and model.cfg.n_experts:
+            # as the reference's executor: no expert parallelism
+            raise NotImplementedError("mesh serving covers the dense "
+                                      "(non-MoE) family")
         if mesh is not None:
             raise _later_slice("mesh (tensor-parallel) serving")
         if model.cfg.family not in self._SLOT_FAMILIES:

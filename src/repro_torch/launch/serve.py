@@ -89,15 +89,19 @@ def run_steady(engine: ServeEngine, requests, passes: int = 1) -> tuple:
 
 
 # fp32 layer weights above this many bytes are drawn, calibrated and
-# quantized one layer at a time (mistral-nemo-12b's are 43.6 GB)
+# quantized one layer at a time (mistral-nemo-12b's are 43.6 GB,
+# moonshot-v1-16b-a3b's 109.5 GB)
 LAYERWISE_BYTES = 4 << 30
 
 
 def layer_weight_bytes(cfg) -> int:
-    """The fp32 bytes of the dense layers' linear weights."""
+    """The fp32 bytes of the layers' linear weights (an MoE layer's: the
+    router and every expert)."""
     d, f = cfg.d_model, cfg.d_ff
-    per_layer = (d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d
-                 + (3 if cfg.gated_mlp else 2) * d * f)
+    mlp = (3 if cfg.gated_mlp else 2) * d * f
+    if cfg.n_experts:
+        mlp = d * cfg.n_experts + 3 * cfg.n_experts * d * f
+    per_layer = d * (cfg.q_dim + 2 * cfg.kv_dim) + cfg.q_dim * d + mlp
     return 4 * cfg.n_layers * per_layer
 
 

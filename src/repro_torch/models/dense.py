@@ -1,9 +1,10 @@
 """Dense decoder-only transformer — counterpart of ``repro.models.dense``
 for the dense and vlm families: catlm-60m, mistral-nemo-12b, granite-34b
 (MQA, ungated GELU MLP), gemma2-2b (local/global alternation, both
-softcaps, sandwich norms), gemma3-12b (5:1 local/global, qk-norm) and the
-paligemma-3b backbone (a prefix of patch embeddings). The MoE variants
-are a later slice.
+softcaps, sandwich norms), gemma3-12b (5:1 local/global, qk-norm), the
+paligemma-3b backbone (a prefix of patch embeddings), and the MoE family
+(granite-moe-1b-a400m, moonshot-v1-16b-a3b: the same skeleton with
+``models.moe``'s expert MLP).
 
 Params are a dict ``{"embed" (V, D), "final_norm" (D,), ["unembed" (D,
 V),] "layers": [one dict per layer]}``; layers run as a Python loop. A
@@ -28,6 +29,7 @@ import math
 import torch
 
 from repro_torch.core import qlinear
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import (_paged_indices, activation,
                                        add_rms_norm, cache_update,
                                        cache_update_quantized,
@@ -37,24 +39,20 @@ from repro_torch.models.layers import (_paged_indices, activation,
                                        paged_cache_update_quantized,
                                        rms_norm, rope, softcap)
 
-_UNPORTED = ("n_experts",)
-
-
 def compute_dtype(cfg):
     return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
+FAMILIES = ("dense", "moe", "vlm")
+
+
 def check_supported(cfg) -> None:
-    """The port serves the dense and vlm families; MoE is a later slice."""
-    if cfg.family not in ("dense", "vlm"):
+    """The port serves the dense, moe and vlm families; the ssm, hybrid
+    and encdec families are later slices."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet "
-                                  f"(the port covers the dense and vlm "
-                                  f"families)")
-    used = [f for f in _UNPORTED if getattr(cfg, f)]
-    if used:
-        raise NotImplementedError(f"dense features {used} are not ported "
-                                  f"yet (mixture-of-experts layers are a "
-                                  f"later slice)")
+                                  f"(the port covers the families "
+                                  f"{FAMILIES})")
 
 
 def is_global_flags(cfg) -> list:
@@ -74,7 +72,8 @@ def _init_linear(gen, d_in, d_out, device="cpu"):
 
 def init_layer(cfg, gen: torch.Generator, device="cpu") -> dict:
     """One layer's seeded f32 params, drawn by ``gen`` on its device, in
-    the order ``init`` draws them."""
+    the order ``init`` draws them: the MoE family's router and experts
+    (``moe.init_layer``) in place of the MLP."""
     D, F = cfg.d_model, cfg.d_ff
     dev = gen.device
     lp = {"ln1": torch.zeros(D), "ln2": torch.zeros(D),
@@ -88,10 +87,13 @@ def init_layer(cfg, gen: torch.Generator, device="cpu") -> dict:
     if cfg.qk_norm:
         lp["q_norm"] = torch.zeros(cfg.head_dim)
         lp["k_norm"] = torch.zeros(cfg.head_dim)
-    if cfg.gated_mlp:
-        lp["wg"] = _init_linear(gen, D, F, dev)
-    lp["wu"] = _init_linear(gen, D, F, dev)
-    lp["wd"] = _init_linear(gen, F, D, dev)
+    if cfg.n_experts:
+        lp.update(moe_lib.init_layer(cfg, gen))
+    else:
+        if cfg.gated_mlp:
+            lp["wg"] = _init_linear(gen, D, F, dev)
+        lp["wu"] = _init_linear(gen, D, F, dev)
+        lp["wd"] = _init_linear(gen, F, D, dev)
     return {k: v.to(device) for k, v in lp.items()}
 
 
@@ -275,6 +277,8 @@ def _fused_decode_attn(cfg, fd, h, cache_sl, page_table, pos, b):
 def _layer_body(cfg, x, lp, cache_sl, pos, positions, taps=None,
                 layer_idx=None, page_table=None, paged_kernel=False,
                 ragged_desc=None, is_global=True):
+    """-> (x, aux): the layer's output and its MoE load-balance loss (0
+    for a dense MLP)."""
     b, s, _ = x.shape
     h = rms_norm(x, lp["ln1"])
     _tap(taps, layer_idx, "attn_in", h)
@@ -300,6 +304,19 @@ def _layer_body(cfg, x, lp, cache_sl, pos, positions, taps=None,
         x = x + a
         h2 = rms_norm(x, lp["ln2"])
     _tap(taps, layer_idx, "mlp_in", h2)
+    if cfg.n_experts:
+        mlp_out, aux = moe_lib.moe_mlp(cfg, lp, h2, taps=taps,
+                                       layer_idx=layer_idx)
+    else:
+        mlp_out, aux = _mlp(cfg, lp, h2, taps, layer_idx), torch.zeros(
+            (), device=x.device)
+    if cfg.post_norms:
+        mlp_out = rms_norm(mlp_out, lp["ln2_post"])
+    return x + mlp_out, aux
+
+
+def _mlp(cfg, lp, h2, taps, layer_idx):
+    """The dense MLP: act(gate) * up (or act(up)), then down."""
     if "wgu" in lp:
         gu = qlinear.dense(lp["wgu"], h2)
         f = gu.shape[-1] // 2
@@ -310,10 +327,7 @@ def _layer_body(cfg, x, lp, cache_sl, pos, positions, taps=None,
     else:
         hmid = _gate(cfg, qlinear.dense(lp["wu"], h2), None)
     _tap(taps, layer_idx, "down_in", hmid)
-    mlp_out = qlinear.dense(lp["wd"], hmid)
-    if cfg.post_norms:
-        mlp_out = rms_norm(mlp_out, lp["ln2_post"])
-    return x + mlp_out
+    return qlinear.dense(lp["wd"], hmid)
 
 
 def _gate(cfg, g, u):
@@ -376,7 +390,7 @@ def layer_forward(cfg, x, lp, layer_idx, taps=None):
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     return _layer_body(cfg, x, lp, None, 0, positions, taps=taps,
                        layer_idx=layer_idx,
-                       is_global=is_global_flags(cfg)[layer_idx])
+                       is_global=is_global_flags(cfg)[layer_idx])[0]
 
 
 def forward(cfg, params, tokens, *, extra_embed=None, cache=None,
@@ -401,26 +415,41 @@ def forward(cfg, params, tokens, *, extra_embed=None, cache=None,
         pools = {k: v for k, v in cache.items()
                  if k not in ("pos", "page_table")}
     flags = is_global_flags(cfg)
+    aux = torch.zeros((), device=x.device)
     for i, lp in enumerate(params["layers"]):
         csl = ({k: v[i] for k, v in pools.items()}
                if pools is not None else None)
-        x = _layer_body(cfg, x, lp, csl, pos, positions, taps=taps,
-                        layer_idx=i, page_table=page_table,
-                        paged_kernel=paged_kernel, ragged_desc=ragged_desc,
-                        is_global=flags[i])
+        x, a = _layer_body(cfg, x, lp, csl, pos, positions, taps=taps,
+                           layer_idx=i, page_table=page_table,
+                           paged_kernel=paged_kernel,
+                           ragged_desc=ragged_desc, is_global=flags[i])
+        aux = aux + a
     new_cache = None
     if cache is not None:
         new_cache = dict(pools, pos=pos + s)
         if page_table is not None:
             new_cache["page_table"] = page_table
     x = rms_norm(x, params["final_norm"])
-    return x, torch.zeros((), device=x.device), new_cache
+    return x, aux, new_cache
 
 
 def logits_fn(cfg, params, hidden):
-    unembed = (params["embed"].T if cfg.tie_embeddings
-               else params["unembed"])
-    return softcap(hidden @ unembed.to(hidden.dtype), cfg.logit_softcap)
+    """hidden @ unembed (the embedding's transpose when tied), softcapped.
+    A tied vocabulary that is not a multiple of 8 (granite-moe-1b-a400m's
+    49155) is padded with zero rows for the product and cut after it: at
+    such a width a cuBLAS GEMM's bits for a row depend on how many rows
+    it takes (held on the card, ``chip_smoke.model_identity``), at a
+    multiple of 8 they do not."""
+    if not cfg.tie_embeddings:
+        return softcap(hidden @ params["unembed"].to(hidden.dtype),
+                       cfg.logit_softcap)
+    pad = -cfg.vocab % 8
+    w = params["embed"]
+    if pad:
+        w = torch.nn.functional.pad(w, (0, 0, 0, pad))
+    logits = hidden @ w.T.to(hidden.dtype)
+    return softcap(logits[..., :cfg.vocab] if pad else logits,
+                   cfg.logit_softcap)
 
 
 def loss(cfg, params, batch, *, loss_chunk: int = 512):
@@ -447,10 +476,9 @@ def loss(cfg, params, batch, *, loss_chunk: int = 512):
 
 def make_serving_params(cfg, params, keep_packed=None) -> dict:
     """Fused-serving params: wq|wk|wv -> ``wqkv`` and, where the MLP is
-    gated, wg|wu -> ``wgu`` column concats (exact), and every QLinear
-    gains ``colsum`` (plus
-    ``w_eff`` where route 1 will not serve it; see
-    ``qlinear.make_serving``)."""
+    gated and dense, wg|wu -> ``wgu`` column concats (exact), and every
+    QLinear (the stacked experts too) gains ``colsum`` (plus ``w_eff``
+    where route 1 will not serve it; see ``qlinear.make_serving``)."""
     from repro_torch.core.qlinear import QLinear, concat_out, make_serving
 
     cd = compute_dtype(cfg)
@@ -469,7 +497,7 @@ def make_serving_params(cfg, params, keep_packed=None) -> dict:
             layers[out_name] = cat
 
         try_concat(("wq", "wk", "wv"), "wqkv")
-        if cfg.gated_mlp:
+        if cfg.gated_mlp and not cfg.n_experts:
             try_concat(("wg", "wu"), "wgu")
         out_layers.append({
             k: (make_serving(v, keep_packed, cd)

@@ -27,9 +27,15 @@ KV_QUANT_GROUP = 1
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
+    """x * rsqrt(mean(x²) + eps) * (1 + scale), in f32, rounded to x's
+    dtype. The f32 squares are summed in f64 and the mean rounded to f32:
+    the order of an f32 sum moves its last bit, and a reduction kernel's
+    order on the card changes with the number of rows, so a row's bits
+    would depend on the step that carries it."""
     dt = x.dtype
     xf = x.to(torch.float32)
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    var = torch.mean((xf * xf).to(torch.float64), dim=-1,
+                     keepdim=True).to(torch.float32)
     out = xf * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
     return out.to(dt)
 

@@ -1,7 +1,8 @@
 """Unified model API — counterpart of ``repro.models.model``:
 ``build(cfg) -> Model``, a bundle of functions over (params, tensors).
-It builds the dense and vlm families (``models.dense``); the MoE family
-is refused with ``NotImplementedError``."""
+It builds the dense, moe and vlm families (``models.dense``, the moe
+family's expert MLP in ``models.moe``); the ssm, hybrid and encdec
+families are refused with ``NotImplementedError``."""
 from __future__ import annotations
 
 import dataclasses
@@ -50,6 +51,38 @@ def build(cfg) -> Model:
         make_serving_params=lambda params, **kw: dense.make_serving_params(
             cfg, params, **kw),
     )
+
+
+def _tensors(node):
+    """Every tensor of a params tree (dicts, lists, QLinears: codes,
+    scales, transform and serving tensors)."""
+    import torch
+
+    from repro_torch.core.qlinear import QLinear
+
+    if isinstance(node, dict):
+        return [t for v in node.values() for t in _tensors(v)]
+    if isinstance(node, (list, tuple)):
+        return [t for v in node for t in _tensors(v)]
+    if isinstance(node, QLinear):
+        out = []
+        node.map_tensors(lambda t: out.append(t) or t)
+        return out
+    return [node] if isinstance(node, torch.Tensor) else []
+
+
+def param_count(params) -> int:
+    return sum(t.numel() for t in _tensors(params))
+
+
+def active_param_count(cfg, params) -> int:
+    """MoE: routed experts count only top_k/E of expert params."""
+    total = param_count(params)
+    if not cfg.n_experts:
+        return total
+    expert = sum(param_count(lp[name]) for lp in params.get("layers", [])
+                 for name in ("we_g", "we_u", "we_d") if name in lp)
+    return total - expert + int(expert * cfg.top_k / cfg.n_experts)
 
 
 def to_device(params, device):

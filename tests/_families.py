@@ -1,7 +1,7 @@
 """Shared cases and checks of ``test_torch_families.py`` and
-``test_torch_families_2.py``: the dense family's five configs through the
-port against the live JAX reference, on the CPU (see the former's
-docstring).
+``test_torch_families_2.py``: the dense family's five configs and the moe
+family's two through the port against the live JAX reference, on the CPU
+(see the former's docstring).
 """
 import dataclasses
 import json
@@ -136,20 +136,69 @@ def check_engine_tokens(cases, arch, schedule):
                                       err_msg=f"{arch} rid={r['rid']}")
 
 
+# the moe family's serving features, held the same way: the unified
+# schedule with the prefix cache on a workload sharing 12 tokens, and with
+# speculative decoding (k 2, the reference's CAT-W4A8 draft of the same
+# checkpoint, converted)
+MOE_FEATURES = {
+    "prefix": dict(schedule="unified", pipeline=False, page_size=8,
+                   max_batch_tokens=16, prefix_cache=True),
+    "speculative": dict(schedule="unified", pipeline=False, page_size=8,
+                        max_batch_tokens=16, speculative_k=2),
+}
+
+
+def check_engine_feature(cases, arch, feature):
+    """The engine's tokens with ``MOE_FEATURES[feature]`` equal the live
+    JAX engine's, and the feature ran (prefix hits; drafted tokens)."""
+    from repro.launch.serve import build_draft_model as j_build_draft_model
+    cfg, _, qparams = cases(arch)
+    cfg = cfg.scaled(kv_quant_bits=8)
+    kw = dict(ENGINE_KW, **MOE_FEATURES[feature])
+    jkw, tkw = dict(kw), dict(kw)
+    if feature == "speculative":
+        dmodel, dparams = j_build_draft_model(arch, True, 0)
+        dcfg = dmodel.cfg.scaled(dtype="float32")
+        jkw["draft"] = (j_build(dcfg), dparams)
+        tkw["draft"] = (t_build(_port_cfg(dcfg)), from_reference(dparams))
+    reqs = request_workload(cfg, 3, gen=6, lengths=(6, 9), seed=0,
+                            shared_prefix=12 if feature == "prefix" else 0)
+    jeng = JEngine(j_build(cfg), qparams, **jkw)
+    jres = jeng.run(reqs)
+    teng = ServeEngine(t_build(_port_cfg(cfg)), from_reference(qparams),
+                       device="cpu", **tkw)
+    tres = teng.run(reqs)
+    for r in reqs:
+        np.testing.assert_array_equal(tres[r["rid"]].tokens,
+                                      jres[r["rid"]].tokens,
+                                      err_msg=f"{arch} {feature} "
+                                              f"rid={r['rid']}")
+    ts, js = teng.summary(), jeng.summary()
+    keys = (("prefix_hits", "prefix_hit_tokens") if feature == "prefix"
+            else ("spec_drafted_tokens", "spec_accepted_tokens"))
+    for key in keys:
+        assert ts[key] == js[key], key
+    assert ts[keys[0]] > 0
+
+
+def port_leaves(tree):
+    """The tensors of a port tree, dict keys sorted and dataclass fields in
+    order (the reference's flattening order)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in port_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in port_leaves(v)]
+    if dataclasses.is_dataclass(tree):
+        return [x for f in dataclasses.fields(tree)
+                for x in port_leaves(getattr(tree, f.name))]
+    return []
+
+
 def _same_torch(a, b):
     """The port trees' tensors bitwise equal, in one walk."""
-    def leaves(tree):
-        if isinstance(tree, torch.Tensor):
-            return [tree]
-        if isinstance(tree, dict):
-            return [x for k in sorted(tree) for x in leaves(tree[k])]
-        if isinstance(tree, (list, tuple)):
-            return [x for v in tree for x in leaves(v)]
-        if dataclasses.is_dataclass(tree):
-            return [x for f in dataclasses.fields(tree)
-                    for x in leaves(getattr(tree, f.name))]
-        return []
-    la, lb = leaves(a), leaves(b)
+    la, lb = port_leaves(a), port_leaves(b)
     assert len(la) == len(lb) and la
     for x, y in zip(la, lb):
         assert x.dtype == y.dtype and x.shape == y.shape

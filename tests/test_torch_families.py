@@ -1,7 +1,8 @@
-"""The dense family's five configs through the port against the live JAX
-reference, on the CPU: mistral-nemo-12b, granite-34b and gemma2-2b here,
-gemma3-12b and paligemma-3b in ``test_torch_families_2.py`` (the checks
-are ``_families.py``'s), and the port's layer-at-a-time PTQ.
+"""The dense family's five configs and the moe family's two through the
+port against the live JAX reference, on the CPU: mistral-nemo-12b,
+granite-34b, gemma2-2b and granite-moe-1b-a400m here, gemma3-12b,
+paligemma-3b and moonshot-v1-16b-a3b in ``test_torch_families_2.py``
+(the checks are ``_families.py``'s), and the port's layer-at-a-time PTQ.
 
 mistral-nemo-12b (untied embeddings), granite-34b (MQA, ungated GELU
 MLP), gemma2-2b (local/global alternation, attention and logit softcaps,
@@ -22,16 +23,22 @@ The same seeded params (the reference's ``init``, converted with
 - greedy tokens of the unified (paged, int8 KV, chunked prompts) and the
   legacy (slot cache, bucketed prefill) engines on the CAT-W4A4 params,
   exactly equal to the live JAX engine's, with prompts of 18-24 tokens so
-  local layers mask, and more requests than slots.
+  local layers mask, and more requests than slots;
+- for the moe configs (4 experts, top-2, dropless at ``smoke()``), also
+  the unified engine with the prefix cache and with speculative decoding
+  (k 2, the reference's CAT-W4A8 draft converted): tokens, prefix hits
+  and drafted/accepted counts equal the live JAX engine's
+  (``MOE_FEATURES``).
 """
 import dataclasses
 
 import pytest
 import torch
 
-from _families import (SCHEDULES, check_cat_w4a4_logits,
-                       check_checkpoint_round_trip, check_engine_tokens,
-                       check_fp_logits, check_loss, make_cases)
+from _families import (MOE_FEATURES, SCHEDULES, check_cat_w4a4_logits,
+                       check_checkpoint_round_trip, check_engine_feature,
+                       check_engine_tokens, check_fp_logits, check_loss,
+                       make_cases)
 
 from repro.configs import get_config as j_get_config
 from repro_torch.configs import ArchConfig, get_config
@@ -40,12 +47,14 @@ from repro_torch.core.pipeline import (QuantizeConfig, quantize_model,
 from repro_torch.core.qlinear import iter_qlinear
 from repro_torch.data import calibration_batches
 from repro_torch.launch import serve
+from repro_torch.launch.engine import ServeEngine
 from repro_torch.models import build as t_build
 from repro_torch.models import dense
 
 torch.set_num_threads(1)
 
-ARCHS = ["mistral_nemo_12b", "granite_34b", "gemma2_2b"]
+ARCHS = ["mistral_nemo_12b", "granite_34b", "gemma2_2b",
+         "granite_moe_1b_a400m"]
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +77,8 @@ def test_loss_matches_live_jax(cases, arch):
     check_loss(cases, arch)
 
 
-@pytest.mark.parametrize("arch", ["mistral_nemo_12b", "gemma2_2b"])
+@pytest.mark.parametrize("arch", ["mistral_nemo_12b", "gemma2_2b",
+                                  "granite_moe_1b_a400m"])
 def test_checkpoint_round_trips_on_the_reference_layout(cases, arch,
                                                         tmp_path):
     check_checkpoint_round_trip(cases, arch, tmp_path)
@@ -80,15 +90,25 @@ def test_engine_tokens_equal_live_jax(cases, arch, schedule):
     check_engine_tokens(cases, arch, schedule)
 
 
+@pytest.mark.parametrize("feature", sorted(MOE_FEATURES))
+def test_moe_engine_features_equal_live_jax(cases, feature):
+    check_engine_feature(cases, "granite_moe_1b_a400m", feature)
+
+
 def test_moe_is_refused_loudly():
+    """What the port still refuses for the moe family is what the
+    reference refuses: serving it on a mesh (no expert parallelism)."""
     cfg = ArchConfig(**dataclasses.asdict(
         j_get_config("granite_moe_1b_a400m").smoke()))
-    with pytest.raises(NotImplementedError, match="moe"):
-        t_build(cfg)
+    model = t_build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(NotImplementedError, match="non-MoE"):
+        ServeEngine(model, params, mesh=object(), device="cpu")
 
 
 @pytest.mark.parametrize("arch", ["mistral_nemo_12b", "gemma2_2b",
-                                  "paligemma_3b"])
+                                  "paligemma_3b", "granite_moe_1b_a400m",
+                                  "moonshot_v1_16b_a3b"])
 def test_layerwise_ptq_matches_quantize_model(arch):
     """``quantize_model_layerwise`` (draw, calibrate, quantize and free
     one layer at a time, Σ_x and Σ_w kept as their CAT diagonal blocks)
