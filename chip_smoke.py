@@ -580,7 +580,11 @@ def check_attention(name, run, plain, items, nq, card, gen, dev, decode,
     ok = ok and rec["one_call"]["ok"]
     if decode:
         rec["split_sweep_ms"], rec["split_sweep_max_err"] = {}, {}
-        for split in SPLITS:
+        # the most splits whose layout fits this head shape (a table wide
+        # enough for 8)
+        most = P.decode_plan(1, kvh, g, hd, ps, 1024, build.sm_count(0)
+                             ).split
+        for split in [s for s in SPLITS if s <= most]:
             out = P._launch_decode(*call, split=split)
             e = (out.float() - want.float()).abs()[valid].max().item()
             rec["split_sweep_max_err"][split] = e
@@ -639,11 +643,27 @@ def time_decode_lengths(P, gen, dev) -> list:
 ATTENTION_EDGE_HEADS = ([(2, hd, g, ps) for hd in (32, 64, 128)
                          for g in (1, 2, 4, 8) for ps in (8, 16, 32)]
                         + [(1, 128, 48, 16), (8, 128, 4, 16),
-                           (16, 128, 1, 16), (8, 64, 2, 16)])
+                           (16, 128, 1, 16), (8, 64, 2, 16)]
+                        # the head dims the kernels take at a padded
+                        # width: paligemma-3b's (1 KV head of 256, group
+                        # 8), 256 at other groups, 112, and widths built
+                        # at 32, 64 and 256
+                        + [(1, 256, 8, 16), (1, 256, 8, 8), (2, 256, 1, 32),
+                           (2, 256, 4, 16), (4, 112, 1, 16), (2, 112, 2, 8),
+                           (2, 40, 2, 16), (2, 24, 4, 8), (2, 8, 8, 16),
+                           (2, 200, 3, 32)])
 # rows 3 and 4 timed at the moe family's heads (KV heads, query heads per
 # KV head, head_dim), at the served shapes
 MOE_HEADS = {"moonshot-v1-16b-a3b": (16, 1, 128),
              "granite-moe-1b-a400m": (8, 2, 64)}
+# and at head dims the kernels take at a padded width: paligemma-3b's,
+# 112 (4 KV heads of 1 query head), and 40 (built at 64)
+HEADDIM_HEADS = {"paligemma-3b": (1, 8, 256), "hd 112": (4, 1, 112),
+                 "hd 40": (2, 2, 40)}
+# paligemma's heads also at long prefixes: row 4 on 8 items of 2048
+# positions, row 3 on a prefill chunk of 128 rows and 7 decode rows, each
+# item ending at 2048
+HEADDIM_LONG = ("long, 8 x 2048", [(128, 2048)] + [(1, 2048)] * 7)
 
 
 def check_decode_edges(gen, dev):
@@ -2930,11 +2950,14 @@ def routed_desc(packed, desc, dev):
             else v for k, v in route_rows(packed, desc).items()}
 
 
-def attention_identity(gen, dev) -> dict:
+def attention_identity(gen, dev, heads=(4, 2, 64)) -> dict:
     """Rows 4 and 3 on the same query rows: 8 sequences at the served
     lengths (<= 56) and at long prefixes (130..2048, the table 128 pages
-    wide, so row 4 splits 8 ways), 5 query rows each (a k 4 verify item's
-    positions), bf16 q. The yardstick is row 4 at 8 rows, one launch per
+    wide, so row 4 splits as many ways as its layout fits, up to 8), 5
+    query rows each (a k 4 verify item's positions), bf16 q, ``heads``
+    (KV heads, query heads per KV head, head_dim) as
+    ``attention_operands`` takes them. The yardstick is row 4 at 8 rows,
+    one launch per
     query position. Held bitwise: row 4 at 1 and at 40 rows a launch; a
     unified step's attention (``ops.step_paged_attention`` on
     ``route_rows``) for one-row items, for 5-row verify items and for
@@ -2950,7 +2973,9 @@ def attention_identity(gen, dev) -> dict:
                         ("long", (130, 257, 513, 700, 1025, 1500, 2047,
                                   2048))):
         items = [(5, ln) for ln in lens] + [(64, 64)]
-        args, _ = attention_operands(items, 64, gen, dev, decode=False)
+        kvh, g, hd = heads
+        args, _ = attention_operands(items, 64, gen, dev, decode=False,
+                                     kvh=kvh, g=g, hd=hd)
         q, kp, ks, vp, vs, table, lengths, qpos = args
         pools = (kp, ks, vp, vs)
         want = torch.stack([P.paged_attention_decode(
@@ -2963,7 +2988,7 @@ def attention_identity(gen, dev) -> dict:
             for i in range(8) for j in range(5)]).reshape(want.shape)
         rec["row4_1_row_launches"] = _compare(one, want)
         forty = P.paged_attention_decode(
-            q[:8, :5].reshape(40, 4, 2, 64), *pools,
+            q[:8, :5].reshape(40, kvh, g, hd), *pools,
             table[:8].repeat_interleave(5, 0),
             (qpos[:8, :5].reshape(-1) + 1).to(torch.int32))
         rec["row4_40_rows"] = _compare(forty.reshape(want.shape), want)
@@ -3140,12 +3165,13 @@ def model_identity(model, params, gen, dev) -> dict:
 
 
 def batch_shape_probe(model, params, gen, dev,
-                      parts=("attention", "layers", "model")) -> dict:
+                      parts=("attention", "layers", "model"),
+                      heads=(4, 2, 64)) -> dict:
     """A query row's bits may not depend on the step shape that carried
-    it: ``attention_identity``, ``layer_identity`` and
+    it: ``attention_identity`` (at ``heads``), ``layer_identity`` and
     ``model_identity`` (those of ``parts``; the kernels' two do not
     depend on the model), each held (its ``ok``)."""
-    probes = {"attention": lambda: attention_identity(gen, dev),
+    probes = {"attention": lambda: attention_identity(gen, dev, heads),
               "layers": lambda: layer_identity(gen, dev),
               "model": lambda: model_identity(model, params, gen, dev)}
     out = {part: probes[part]() for part in parts}
@@ -3581,11 +3607,12 @@ def serve_family(arch, counters, card, rows, long_prompt=0, warm=True,
     return out
 
 
-# (g) and (h) cut in depth to keep the whole script within half its time
-# limit beside (i) and (j), which keep theirs; (h) keeps 14 of 26 layers,
-# so both kinds of its alternating layers and the layer-at-a-time PTQ
-# (its fp32 layers above LAYERWISE_BYTES)
-FAMILY_DEPTH_CUT = {"g": 10, "h": 14}
+# (g), (h) and (j) cut in depth to keep the whole script well inside its
+# time limit beside (i) and (k), which keep theirs; each cut keeps its
+# fp32 layers above LAYERWISE_BYTES, so the layer-at-a-time PTQ (at 12 of
+# its 24 layers (i) would fall below it and take the other PTQ path), and
+# (h) keeps 14 of 26 layers, both kinds of its alternating layers
+FAMILY_DEPTH_CUT = {"g": 10, "h": 14, "j": 16}
 NOISE_FACTOR = 1.5   # the served path against the reference's ulp response
 WITNESS_TOP5 = 0.9   # served tokens in the reference's top 5, cut model
 
@@ -3777,6 +3804,57 @@ def moe_diagnostics(cfg, model, params, reqs, kw, res, out) -> None:
         shares), flush=True)
 
 
+def prefix_and_probe(cfg, model, params, reqs, kw, res, out) -> None:
+    """(k)'s extras on its quantized params: (b)'s engine with the prefix
+    cache on 8 requests sharing 40 tokens, beside the same engine with the
+    cache off (as (e)): held, a hit and a copy-on-write split, the pool
+    drained to the trie's pages, and every token equal to the cache-off
+    run's (share 1.000: the model is dense, nothing depends on the
+    batch); and ``batch_shape_probe`` at the config's heads (rows 4 and 3
+    on the same query rows; the whole model's logits and pools across
+    step shapes), held."""
+    import torch
+
+    from repro_torch.data import request_workload
+    from repro_torch.launch.engine import ServeEngine
+    label = out["config"]
+    shared = request_workload(cfg, 8, gen=32, seed=0, shared_prefix=40)
+    skw = dict(kw, max_len=-(-(max(len(r["tokens"]) for r in shared)
+                               + 32 + 8) // 16) * 16)
+    off = ServeEngine(model, params, paged_kernel=True, **skw).run(shared)
+    engine = ServeEngine(model, params, paged_kernel=True,
+                         prefix_cache=True, **skw)
+    on = engine.run(shared)
+    summ = engine.summary()
+    check_well_formed(f"{label} prefix", shared, on, cfg.vocab)
+    rec = {"tokens_equal_cache_off": token_share(shared, on, off),
+           "pool_in_use": engine.pool.in_use,
+           "trie_resident": engine.prefix.resident,
+           **{k: summ[k] for k in PREFIX_KEYS if k in summ}}
+    del engine
+    out["prefix_cache"] = rec
+    print(f"families: {label} prefix cache " + json.dumps(rec), flush=True)
+    if not (summ["prefix_hit_tokens"] and summ["cow_copies"]):
+        fail(f"{label} prefix cache: no hit or no copy-on-write split")
+    if rec["pool_in_use"] != rec["trie_resident"]:
+        fail(f"{label} prefix cache: {rec['pool_in_use']} pages live after "
+             f"the drain, the trie holds {rec['trie_resident']}")
+    if rec["tokens_equal_cache_off"]["share"] != 1.0:
+        fail(f"{label} prefix cache: tokens equal to the cache-off run's "
+             f"on {json.dumps(rec['tokens_equal_cache_off'])}, not 1.000")
+    heads = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim)
+    probe = batch_shape_probe(model, params,
+                              torch.Generator().manual_seed(1),
+                              torch.device(kw["device"]),
+                              parts=("attention", "model"), heads=heads)
+    out["batch_shape_probe"] = dict(probe, heads=list(heads))
+    print(f"families: {label} batch-shape probe at heads {heads} "
+          + json.dumps(probe), flush=True)
+    if not probe["ok"]:
+        fail(f"{label}: a row's bits depend on the step shape that carried "
+             f"it")
+
+
 def families_phase(counters, card) -> dict:
     """(g) mistral-nemo-12b at full width (10 of its 40 layers,
     ``FAMILY_DEPTH_CUT``) through all five serving kernels; (h) gemma2-2b
@@ -3788,7 +3866,8 @@ def families_phase(counters, card) -> dict:
     embeddings are tied, is also held at a teacher-forced agreement >=
     0.9; (g)'s untied random head has top-2 margins of ~0.15 and is not
     (``serve_family``). The moe family: (i) granite-moe-1b-a400m and (j)
-    moonshot-v1-16b-a3b at full width and depth through all five serving
+    moonshot-v1-16b-a3b at full width (all 24 layers; 16 of 48,
+    ``FAMILY_DEPTH_CUT``) through all five serving
     kernels (their attention linears, QKV prologue and attentions; the
     experts are batched GEMMs on codes dequantized per call, as in the
     reference), (i)'s dispatch half's synchronising calls held at 0 (the
@@ -3796,7 +3875,11 @@ def families_phase(counters, card) -> dict:
     experts' device ms (``expert_ms``), and (i)'s diagnostics
     (``moe_diagnostics``). (i), whose embeddings are tied, is also held
     at a teacher-forced agreement >= 0.9, as (h); (j)'s head is untied
-    and random, as (g)'s, and is not."""
+    and random, as (g)'s, and is not. (k) paligemma-3b's text backbone
+    at full width and depth (1 KV head of 256 for 8 query heads) through
+    all five serving kernels, tied, held at >= 0.9 too, with the prefix
+    cache and ``batch_shape_probe`` at its heads (``prefix_and_probe``).
+    """
     rows_all = [fn.__name__ for fn in counters]
     out = {"g": serve_family("mistral_nemo_12b", counters, card, rows_all,
                              tag="g", layers=FAMILY_DEPTH_CUT["g"]),
@@ -3810,7 +3893,11 @@ def families_phase(counters, card) -> dict:
                             rows_all, min_agreement=0.9, tag="i",
                             syncs=True, extra=moe_diagnostics)
     out["j"] = serve_family("moonshot_v1_16b_a3b", counters, card,
-                            rows_all, tag="j", extra=moe_experts)
+                            rows_all, tag="j", extra=moe_experts,
+                            layers=FAMILY_DEPTH_CUT["j"])
+    out["k"] = serve_family("paligemma_3b", counters, card, rows_all,
+                            min_agreement=0.9, tag="k",
+                            extra=prefix_and_probe)
     return out
 
 
@@ -4251,6 +4338,38 @@ def stream_split(tag: str, dev) -> list:
     return recs
 
 
+def attention_bits(P, dev) -> dict:
+    """The bits of rows 3 and 4 of the package ``P`` (its
+    ``paged_attention`` module) at the edge grid's head dims 32, 64 and
+    128 (``ATTENTION_EDGE_HEADS``), bf16 and f32 queries, on inputs drawn
+    from one seed in one order: {case: sha1 of the outputs' bytes}, so
+    two packages' outputs compare bit for bit."""
+    import hashlib
+
+    import torch
+    gen = torch.Generator().manual_seed(5)
+    bits = {}
+    for kvh, hd, g, ps in ATTENTION_EDGE_HEADS:
+        if hd not in (32, 64, 128):
+            continue
+        items = [(1, ps), (ps + 2, ps + 2), (0, 0), (5, 3 * ps + 5),
+                 (1, 2048)]
+        args, _ = attention_operands(items, ps + 5, gen, dev, False,
+                                     kvh=kvh, g=g, hd=hd, ps=ps)
+        dec = [args[0][:, 0].contiguous(), *args[1:6],
+               (args[7][:, 0] + 1).clamp_min(0).to(torch.int32)]
+        for q_dt in (torch.bfloat16, torch.float32):
+            for name, out in (
+                    ("ragged", P.paged_attention_ragged(
+                        args[0].to(q_dt), *args[1:])),
+                    ("decode", P.paged_attention_decode(
+                        dec[0].to(q_dt), *dec[1:]))):
+                key = f"{name} kvh {kvh} hd {hd} g {g} ps {ps} {q_dt}"
+                bits[key] = hashlib.sha1(
+                    out.float().cpu().numpy().tobytes()).hexdigest()
+    return bits
+
+
 def compare_rows(src: Path, card: str, out_dir: Path) -> None:
     """Time rows 1-5, 7, 8 and 9 of the port package under ``src`` (another
     checkout's ``src``, such as the parent commit's, or this one's) at
@@ -4259,7 +4378,8 @@ def compare_rows(src: Path, card: str, out_dir: Path) -> None:
     have: the decode attention (row 4) at ``DECODE_SHAPES`` and each
     length of ``DECODE_LENGTHS`` and the ragged one (row 3) at
     ``RAGGED_SHAPES`` (max error against the plain version on valid
-    rows); the tiled fused linear (row 2) at every main-path (D, N) and
+    rows), both also at the served shapes at ``MOE_HEADS``; the tiled
+    fused linear (row 2) at every main-path (D, N) and
     ``TILED_ROWS`` and the decode fused linear (row 1) at 8 rows (f32
     outputs differing from the plain version); the decode prologue (row
     5) at 8 rows; the code GEMV of rows 7 and 8 (``quant_gemv_w4``,
@@ -4267,9 +4387,9 @@ def compare_rows(src: Path, card: str, out_dir: Path) -> None:
     differing from the plain version); the dynamic quant (row 9) at the
     composed phase's shapes (M 8 and 128, D 512 and 1536, bf16; codes,
     scales and zero points differing); and the streamed path's halves at
-    mistral-nemo-12b's widths (``stream_split``). Run it for two packages
-    in one
-    call, in turns, for a before/after; writes
+    mistral-nemo-12b's widths (``stream_split``); and the bits of rows 3
+    and 4 at head dims 32, 64 and 128 (``attention_bits``). Run it for two
+    packages in one call, in turns, for a before/after; writes
     ``chiprun_out/compare_<tag>.json`` and, for the libraries it built,
     the compiler's output ``chiprun_out/nvcc_<tag>.log``."""
     import hashlib
@@ -4300,6 +4420,8 @@ def compare_rows(src: Path, card: str, out_dir: Path) -> None:
                      "kernel_ms": device_ms(
                          lambda: P.paged_attention_decode(*args))})
     recs += time_decode_lengths(P, gen, dev)
+    recs.append({"kernel": "paged_attention", "bits": attention_bits(P,
+                                                                      dev)})
     for label, items in RAGGED_SHAPES:
         args = attention_operands(items, RAGGED_Q, gen, dev, False)[0]
         got = P.paged_attention_ragged(*args)
@@ -4310,6 +4432,19 @@ def compare_rows(src: Path, card: str, out_dir: Path) -> None:
                      .max().item(),
                      "kernel_ms": device_ms(
                          lambda: P.paged_attention_ragged(*args))})
+    # both attentions at the moe heads (head dim 128 and 64), served
+    for name, (kvh, g, hd) in MOE_HEADS.items():
+        for decode, items, nq in (
+                (True, [(1, ln) for ln in DECODE_SHAPES[1][1]], 1),
+                (False, RAGGED_SHAPES[1][1], RAGGED_Q)):
+            args = attention_operands(items, nq, gen, dev, decode, kvh=kvh,
+                                      g=g, hd=hd)[0]
+            run = (P.paged_attention_decode if decode
+                   else P.paged_attention_ragged)
+            call = args[:7] if decode else args
+            recs.append({"kernel": run.__name__, "shape": f"{name}, served",
+                         "heads": [kvh, g, hd], "kernel_ms": device_ms(
+                             lambda: run(*call))})
     for d, n in LINEAR_SHAPES:
         for run, rows in ((F.fused_cat_matmul_w4, TILED_ROWS),
                           (F.fused_cat_gemv_w4, (8,))):
@@ -4420,6 +4555,11 @@ def serve_g(src: Path, card: str, out_dir: Path) -> None:
     (out_dir / f"serve_g_{tag}.json").write_text(json.dumps(rec, indent=1))
 
 
+# a timed record's fields in the summary line's ``shapes``
+SHAPE_KEYS = ("shape", "heads", "length", "m", "d", "n", "kernel_ms",
+              "plain_ms", "bound_ms", "library_ms", "max_err")
+
+
 def main() -> None:
     compare = mode = None
     if sys.argv[1:2] in (["--rows-2-4"], ["--serve-g"]):
@@ -4499,6 +4639,18 @@ def main() -> None:
                P.paged_attention_ragged_plain, RAGGED_SHAPES[1][1],
                RAGGED_Q, card, gen, dev, decode=False,
                label=f"{name}, {RAGGED_SHAPES[1][0]}", heads=heads)]
+        + [rec for name, heads in HEADDIM_HEADS.items()
+           for rec in check_attention(
+               "paged_attention_ragged", P.paged_attention_ragged,
+               P.paged_attention_ragged_plain, RAGGED_SHAPES[1][1],
+               RAGGED_Q, card, gen, dev, decode=False,
+               label=f"{name}, {RAGGED_SHAPES[1][0]}", heads=heads)]
+        + check_attention(
+            "paged_attention_ragged", P.paged_attention_ragged,
+            P.paged_attention_ragged_plain, HEADDIM_LONG[1], RAGGED_Q, card,
+            gen, dev, decode=False,
+            label=f"paligemma-3b, {HEADDIM_LONG[0]}",
+            heads=HEADDIM_HEADS["paligemma-3b"])
         + check_ragged_edges(gen, dev),
         "paged_attention_decode": [
             rec for label, lens in DECODE_SHAPES
@@ -4512,6 +4664,14 @@ def main() -> None:
                P.paged_attention_decode_plain,
                [(1, ln) for ln in DECODE_SHAPES[1][1]], 1, card, gen, dev,
                decode=True, label=f"{name}, {DECODE_SHAPES[1][0]}",
+               heads=heads)]
+        + [rec for name, heads in HEADDIM_HEADS.items()
+           for label, lens in (DECODE_SHAPES[1],) + (
+               (DECODE_SHAPES[3],) if name == "paligemma-3b" else ())
+           for rec in check_attention(
+               "paged_attention_decode", P.paged_attention_decode,
+               P.paged_attention_decode_plain, [(1, ln) for ln in lens], 1,
+               card, gen, dev, decode=True, label=f"{name}, {label}",
                heads=heads)]
         + check_decode_edges(gen, dev)
         + [dict(rec, plan=dataclasses.asdict(P.decode_plan(
@@ -4600,7 +4760,10 @@ def main() -> None:
             "max_abs_err": max(r["max_err"] for r in recs),
             "ms": rep["kernel_ms"], "plain_ms": rep["plain_ms"],
             "bound_ms": rep["bound_ms"], "bound_by": rep["bound_by"],
-            "library_ms": rep["library_ms"]})
+            "library_ms": rep["library_ms"],
+            # every timed shape of the kernel beside the main path's
+            "shapes": [{k: r[k] for k in SHAPE_KEYS if k in r}
+                       for r in recs if "kernel_ms" in r]})
     (out_dir / "chip_smoke.json").write_text(json.dumps(
         {"card": card, "kernels": results, "summary": kernels,
          "serving": serving, "composed": composed}, indent=1))

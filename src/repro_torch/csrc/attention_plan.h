@@ -4,10 +4,12 @@
 // This header is the one owner of how the decode kernel splits an item's
 // key positions over the CTAs of a cluster (split_range), of the number of
 // splits (decode_plan), of how the ragged kernel tiles an item's query
-// rows (ragged_rows, ragged_plan), of the chunk and tile sizes and of every
-// shared-memory region's offset (DecodeLayout, RaggedLayout). It is plain
-// C++ apart from the __host__ __device__ marks, so the kernels, their C
-// entries and a host C++ build (the CPU tests) compile the same rules;
+// rows (ragged_rows, ragged_plan), of the head dims the kernels take and
+// the width each is built for (padded_hd), of the chunk and tile sizes and
+// of every shared-memory region's offset (DecodeLayout, RaggedLayout). It
+// is plain C++ apart from the __host__ __device__ marks, so the kernels,
+// their C entries and a host C++ build (the CPU tests) compile the same
+// rules;
 // Python reads them through pa_decode_plan, pa_split_range and
 // pa_ragged_plan, exported by the CUDA library.
 #pragma once
@@ -36,8 +38,37 @@ constexpr int kRaggedGroups = 2;  // ragged: warp groups splitting the chunks
 constexpr int kRaggedThreads = kThreads * kRaggedGroups;
 constexpr int kRaggedStages = 2 * kRaggedGroups;   // int8 chunk ring
 constexpr int kDefaultSmem = 48 * 1024;   // dynamic smem without opt-in
+constexpr int kMaxHd = 256;       // the widest head dim the kernels take
+// the shared memory the decode split rule fits its layout into: the
+// H100's opt-in (227 KiB), a constant, so the split does not hang on the
+// card
+constexpr int kSplitSmem = 227 * 1024;
 
 PA_HD inline int imin(int a, int b) { return a < b ? a : b; }
+
+// The width the kernels are built for that holds head dim hd: the least
+// of 32, 64, 128 and 256 at or above it; 0 for a head dim they do not take
+// (other than a multiple of 8 from 8 to kMaxHd). The kernels keep each
+// K and V row at that width in shared memory, the query's dims past hd
+// zero, so the pad adds exact zeros to every score, and write hd dims.
+PA_HD inline int padded_hd(int hd) {
+  if (hd < 8 || hd > kMaxHd || hd % 8 != 0) return 0;
+  int p = 32;
+  while (p < hd) p *= 2;
+  return p;
+}
+
+// The ragged kernel at a padded width above 128 splits the head dims
+// between its warp groups (each holds half of every query row's dims and
+// of its outputs, the partial scores exchanged through shared memory),
+// where at 128 and below each group takes every other chunk with all the
+// dims: a thread's query fragments and outputs of 256 dims do not fit in
+// its registers. Its query fragments then wait in shared memory, and its
+// int8 ring holds 2 chunks, not 4, to fit.
+PA_HD constexpr bool ragged_split_dd(int hp) { return hp > 128; }
+PA_HD constexpr int ragged_stages(int hp) {
+  return ragged_split_dd(hp) ? 2 : kRaggedStages;
+}
 
 PA_HD inline size_t align16(size_t v) {
   return (v + 15) & ~static_cast<size_t>(15);
@@ -67,8 +98,9 @@ PA_HD inline int slot_floats(int gl, int hd) {
 }
 
 // Byte offsets of the kernel's regions in dynamic shared memory for gl
-// query rows per CTA (gl <= kMaxG), head dim hd and `split` CTAs per
-// cluster: two stages of a chunk (int8 K and V codes, row stride hd,
+// query rows per CTA (gl <= kMaxG), padded head dim hd (padded_hd) and
+// `split` CTAs per cluster: two stages of a chunk (int8 K and V codes, row
+// stride hd,
 // their f32 scales and the positions' token rows in the pools), the
 // scaled query rows, each warp's probabilities of its 32 positions, each
 // warp's partial softmax state and, when split > 1, that of every split
@@ -104,16 +136,19 @@ struct DecodePlan {
 // opt into `smem_optin` bytes of shared memory. `split` 0 takes the plan's
 // own: the largest power of two up to kMaxSplit that leaves each split at
 // least kMinUnits units of the longest prefix the table holds; so a short
-// prefix takes one split. The split depends on the table's width only,
-// never on b or the card: it sets the order in which a row's partial
-// softmax states combine, so an engine's rows (every launch of which
-// passes the same table width) get the same bits whatever the batch
-// that carries them. -> false for a shape the kernel does not take.
+// prefix takes one split; and whose layout fits kSplitSmem (at a padded
+// head dim of 256 and 8 rows, 4 splits). The split depends on the table's
+// width and the head shape only, never on b or the card: it sets the
+// order in which a row's partial softmax states combine, so an engine's
+// rows (every launch of which passes the same table width) get the same
+// bits whatever the batch that carries them. -> false for a shape the
+// kernel does not take.
 PA_HD inline bool decode_plan(int b, int kvh, int g, int hd, int page_size,
                               int n_ptab, int sms, int smem_optin, int split,
                               DecodePlan* p) {
+  const int hp = padded_hd(hd);
   if (b < 1 || kvh < 1 || g < 1 || page_size < 1 || n_ptab < 1 || sms < 1
-      || (hd != 32 && hd != 64 && hd != 128))
+      || hp == 0)
     return false;
   const int groups = (g + kMaxG - 1) / kMaxG, gl = imin(g, kMaxG);
   const int base = b * kvh * groups;
@@ -121,11 +156,13 @@ PA_HD inline bool decode_plan(int b, int kvh, int g, int hd, int page_size,
     const int u = split_unit(page_size);
     const long long units = ((long long)n_ptab * page_size + u - 1) / u;
     split = 1;
-    while (split * 2 <= kMaxSplit && units >= (long long)kMinUnits * split * 2)
+    while (split * 2 <= kMaxSplit && units >= (long long)kMinUnits * split * 2
+           && DecodeLayout(gl, hp, split * 2).end + kStaticSmem
+                  <= (size_t)kSplitSmem)
       split *= 2;
   }
   if (split < 1 || split > kMaxSplit) return false;
-  const DecodeLayout lay(gl, hd, split);
+  const DecodeLayout lay(gl, hp, split);
   if (lay.end + kStaticSmem > (size_t)smem_optin) return false;
   p->split = split;
   p->ctas = base * split;
@@ -133,27 +170,39 @@ PA_HD inline bool decode_plan(int b, int kvh, int g, int hd, int page_size,
   return true;
 }
 
-// Byte offsets of the ragged kernel's regions for head dim hd:
-// kRaggedStages stages of a chunk of kRaggedChunk positions (the fields
-// of DecodeLayout's stages: int8 K and V codes, row stride hd, their f32
-// scales and the positions' token rows), then per warp group (`group`
-// bytes apart) its chunk's codes as bf16 for the tensor cores: K
-// (kRaggedChunk rows of hd) and V transposed (hd rows of kRaggedChunk
-// positions, for the P.V product's B operand). After the chunks, the
-// stages hold the groups' softmax states for their combine.
+// Byte offsets of the ragged kernel's regions for padded head dim hd
+// (padded_hd): ragged_stages(hd) stages of a chunk of kRaggedChunk
+// positions (the fields of DecodeLayout's stages: int8 K and V codes, row
+// stride hd, their f32 scales and the positions' token rows), then per
+// warp group (`group` bytes apart) its chunk's codes as bf16 for the
+// tensor cores: K (kRaggedChunk rows of the group's hg dims) and V
+// transposed (hg rows of kRaggedChunk positions, for the P.V product's B
+// operand), hg = hd, or hd / kRaggedGroups where the groups split the dims
+// (ragged_split_dd); then, there, each group's partial scores of a chunk
+// (kRaggedRows x kRaggedChunk f32, `x`) and each thread's query fragments
+// (`q`: 16 bytes per bf16 part, of which an f32 query has two, and k-step
+// of its group's hg dims). After the chunks, the stages hold the groups'
+// softmax states for their combine (groups that split the dims need
+// none).
 struct RaggedLayout {
-  size_t stage, k, v, ks, vs, tok, kb, vt, group, end;
+  size_t stage, k, v, ks, vs, tok, kb, vt, group, x, q, end;
   PA_HD explicit RaggedLayout(int hd) {
+    const bool split_dd = ragged_split_dd(hd);
+    const size_t hg = split_dd ? hd / kRaggedGroups : hd;
     k = 0;
     v = k + (size_t)kRaggedChunk * hd;
     ks = v + (size_t)kRaggedChunk * hd;
     vs = ks + 4 * (size_t)kRaggedChunk;
     tok = vs + 4 * (size_t)kRaggedChunk;
     stage = align16(tok + 4 * (size_t)kRaggedChunk);   // stage s at s stage
-    kb = kRaggedStages * stage;
-    vt = kb + 2 * (size_t)kRaggedChunk * hd;
-    group = 4 * (size_t)kRaggedChunk * hd;             // K and V^T, bf16
-    end = kb + kRaggedGroups * group;
+    kb = ragged_stages(hd) * stage;
+    vt = kb + 2 * (size_t)kRaggedChunk * hg;
+    group = 4 * (size_t)kRaggedChunk * hg;             // K and V^T, bf16
+    x = kb + kRaggedGroups * group;
+    q = x + (split_dd ? (size_t)kRaggedGroups * 4 * kRaggedRows
+                            * kRaggedChunk : 0);
+    end = q + (split_dd ? (size_t)kRaggedGroups * 2 * (hg / 16) * kThreads
+                              * 16 : 0);
   }
 };
 
@@ -178,17 +227,17 @@ struct RaggedPlan {
 // the kernel does not take.
 PA_HD inline bool ragged_plan(int n_items, int nq, int kvh, int g, int hd,
                               int page_size, int smem_optin, RaggedPlan* p) {
-  if (n_items < 1 || nq < 1 || kvh < 1 || g < 1 || page_size < 1
-      || (hd != 32 && hd != 64 && hd != 128))
+  const int hp = padded_hd(hd);
+  if (n_items < 1 || nq < 1 || kvh < 1 || g < 1 || page_size < 1 || hp == 0)
     return false;
   const long long tiles =
       ((long long)nq * g + kRaggedRows - 1) / kRaggedRows;
   const long long ctas = (long long)n_items * kvh * tiles;
-  const RaggedLayout lay(hd);
+  const RaggedLayout lay(hp);
   // the stages also hold the groups' states for the combine: per lane of
-  // a group but the first, m and l of two rows and hd / 2 outputs
-  const size_t states =
-      4 * (size_t)(kRaggedGroups - 1) * kThreads * (4 + hd / 2);
+  // a group but the first, m and l of two rows and hp / 2 outputs
+  const size_t states = ragged_split_dd(hp) ? 0
+      : 4 * (size_t)(kRaggedGroups - 1) * kThreads * (4 + hp / 2);
   if (ctas > 0x7fffffffLL || states > lay.kb
       || lay.end + kStaticSmem > (size_t)smem_optin)
     return false;

@@ -100,6 +100,11 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
                "l"(src));
 }
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+               "l"(src));
+}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
@@ -110,6 +115,11 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::);
+}
+// Wait until at most N of this thread's newest copy groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
@@ -126,11 +136,17 @@ __device__ __forceinline__ float code_f32(unsigned wx, int k) {
 
 // The 16-byte piece jc of K row j is stored at piece jc ^ kswz(j): the
 // rows a quarter-warp reads (8 consecutive j, at one jc) then cover eight
-// distinct 16-byte bank groups.
+// distinct 16-byte bank groups. A row of 128 bytes or more starts a bank
+// line, so its pieces are XORed with j & 7; shorter rows share a line.
 template <int HD>
 __device__ __forceinline__ int kswz(int j) {
-  constexpr int cpr = HD / 16, per_line = 8 / cpr;
-  return (j / per_line) & (cpr - 1);
+  constexpr int cpr = HD / 16;
+  if constexpr (cpr >= 8) {
+    return j & 7;
+  } else {
+    constexpr int per_line = 8 / cpr;
+    return (j / per_line) & (cpr - 1);
+  }
 }
 
 // The token-head row of key position pos: ((page * page_size + row) *
@@ -142,50 +158,67 @@ __device__ __forceinline__ int token_row(int page_id, int pos, int page_size,
 
 // Issue the cp.async copies of the n positions of stage `st`, whose token
 // rows are the stage's tok[]: K rows swizzled, V rows as they are, and the
-// f32 scales; by pa::kThreads threads, this one t of them. Layout:
-// pa::DecodeLayout or pa::RaggedLayout (the same stage fields).
-template <int HD, typename Layout>
+// f32 scales; by NT threads, this one t of them. Layout: pa::DecodeLayout
+// or pa::RaggedLayout (the same stage fields). The pools' rows hold hd
+// bytes, the stage's HD (hd's padded_hd): at hd == HD by 16-byte pieces,
+// else by 8-byte halves of them (hd is a multiple of 8), the pad past hd
+// left as it is (the query's dims there are zero).
+template <int HD, int NT = pa::kThreads, typename Layout>
 __device__ __forceinline__ void stage_chunk(
-    char* smem, const Layout& lay, int st, int n,
+    char* smem, const Layout& lay, int st, int n, int hd,
     const int8_t* __restrict__ k_pages, const float* __restrict__ k_scale,
     const int8_t* __restrict__ v_pages, const float* __restrict__ v_scale,
     int t) {
-  constexpr int cpr = HD / 16;
   char* base = smem + st * lay.stage;
   int8_t* s_k = reinterpret_cast<int8_t*>(base + lay.k);
   int8_t* s_v = reinterpret_cast<int8_t*>(base + lay.v);
   float* s_ks = reinterpret_cast<float*>(base + lay.ks);
   float* s_vs = reinterpret_cast<float*>(base + lay.vs);
   const int* s_tok = reinterpret_cast<const int*>(base + lay.tok);
-  for (int e = t; e < n * cpr; e += pa::kThreads) {
-    const int j = e / cpr, jc = e - j * cpr;
-    const size_t row = (size_t)s_tok[j] * HD + jc * 16;
-    cp_async16(s_k + j * HD + ((jc ^ kswz<HD>(j)) << 4), k_pages + row);
-    cp_async16(s_v + j * HD + (jc << 4), v_pages + row);
+  if (hd == HD) {
+    constexpr int cpr = HD / 16;
+    for (int e = t; e < n * cpr; e += NT) {
+      const int j = e / cpr, jc = e - j * cpr;
+      const size_t row = (size_t)s_tok[j] * HD + jc * 16;
+      cp_async16(s_k + j * HD + ((jc ^ kswz<HD>(j)) << 4), k_pages + row);
+      cp_async16(s_v + j * HD + (jc << 4), v_pages + row);
+    }
+  } else {
+    const int cpr = hd / 8;
+    for (int e = t; e < n * cpr; e += NT) {
+      const int j = e / cpr, hc = e - j * cpr, jc = hc >> 1;
+      const size_t row = (size_t)s_tok[j] * hd + hc * 8;
+      cp_async8(s_k + j * HD + ((jc ^ kswz<HD>(j)) << 4) + 8 * (hc & 1),
+                k_pages + row);
+      cp_async8(s_v + j * HD + 8 * hc, v_pages + row);
+    }
   }
-  for (int j = t; j < n; j += pa::kThreads) {
+  for (int j = t; j < n; j += NT) {
     cp_async4(s_ks + j, k_scale + s_tok[j]);
     cp_async4(s_vs + j, v_scale + s_tok[j]);
   }
 }
 
-// q, out: (B, kvh, g, HD); pages, scales, table and lengths as the ragged
-// kernel's. Grid (B * kvh * groups * split) in clusters of split along x,
-// pa::kThreads threads; CTA x is split rank x % split of (item, head,
-// group) x / split, its rows g0 .. g0 + gl - 1 (gl <= G). Warp w takes
-// positions [32 w, 32 w + 32) of every chunk: lane = position for the
-// scores, its own running (m, l) per row, and for P.V lane owns word
-// lane % (HD / 4) (four dd) of the rows lane / (HD / 4) + k * 128 / HD.
+// q, out: (B, kvh, g, hd); pages, scales, table and lengths as the ragged
+// kernel's; HD = pa::padded_hd(hd), the width of the staged K and V rows
+// and of the query rows in shared memory (zeros past hd). Grid (B * kvh *
+// groups * split) in clusters of split along x, pa::kThreads threads; CTA
+// x is split rank x % split of (item, head, group) x / split, its rows g0
+// .. g0 + gl - 1 (gl <= G). Warp w takes positions [32 w, 32 w + 32) of
+// every chunk: lane = position for the scores, its own running (m, l) per
+// row, and for P.V lane owns words lane % kWordLanes + u kWordLanes (u <
+// kLaneWords; four dd each) of the rows lane / kWordLanes + k kRowGroups.
 // Dynamic shared memory: pa::DecodeLayout(gl, HD, split).
 template <typename T, int HD, int G>
 __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
     const T* __restrict__ q, const int8_t* __restrict__ k_pages,
     const float* __restrict__ k_scale, const int8_t* __restrict__ v_pages,
     const float* __restrict__ v_scale, const int32_t* __restrict__ table,
-    int n_ptab, const int32_t* __restrict__ lengths, int kvh, int g,
+    int n_ptab, const int32_t* __restrict__ lengths, int kvh, int g, int hd,
     int page_size, int split, float q_scale, T* __restrict__ out) {
   constexpr int kWarps = pa::kThreads / 32;
-  constexpr int kWordLanes = HD / 4;                 // lanes per row: 8..32
+  constexpr int kLaneWords = HD / 4 > 32 ? HD / 128 : 1;   // words per lane
+  constexpr int kWordLanes = HD / 4 / kLaneWords;    // lanes per row: 8..32
   constexpr int kRowGroups = 32 / kWordLanes;        // rows side by side
   constexpr int kRows = (G + kRowGroups - 1) / kRowGroups;   // per lane
   constexpr int kQ = (G * HD + pa::kThreads - 1) / pa::kThreads;
@@ -199,12 +232,13 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
   const int g0 = grp * G, gl = min(G, g - g0);         // this CTA's rows
   const pa::DecodeLayout lay(min(g, G), HD, split);
   // the query rows' loads first: nothing they need waits on another load
-  const size_t q_off = ((size_t)ih * g + g0) * HD;
+  const size_t q_off = ((size_t)ih * g + g0) * hd;
   float qv[kQ];
 #pragma unroll
   for (int k = 0; k < kQ; ++k) {
-    const int i = tid + k * pa::kThreads;
-    qv[k] = i < gl * HD ? to_f32(q[q_off + i]) : 0.f;
+    const int i = tid + k * pa::kThreads, dd = i % HD;
+    qv[k] = i < gl * HD && dd < hd ? to_f32(q[q_off + (i / HD) * hd + dd])
+                                   : 0.f;
   }
   if (split > 1)   // every CTA has started before a peer stores into it
     asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
@@ -235,7 +269,7 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
   }
   __syncthreads();
   if (n_chunks > 0)
-    stage_chunk<HD>(smem, lay, 0, min(pa::kChunk, hi - lo), k_pages,
+    stage_chunk<HD>(smem, lay, 0, min(pa::kChunk, hi - lo), hd, k_pages,
                     k_scale, v_pages, v_scale, tid);
   cp_async_commit();
 
@@ -250,21 +284,23 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
   }
 
   // this warp's running max and sum of each row (the same in every
-  // lane), and this lane's sums of its rows' four dd
+  // lane), and this lane's sums of its rows' words (four dd each)
   const int word = lane % kWordLanes, row0 = lane / kWordLanes;
-  float m[G], l[G], acc[kRows][4];
+  float m[G], l[G], acc[kRows][kLaneWords][4];
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) { m[gi] = -INFINITY; l[gi] = 0.f; }
 #pragma unroll
   for (int k = 0; k < kRows; ++k)
-    acc[k][0] = acc[k][1] = acc[k][2] = acc[k][3] = 0.f;
+#pragma unroll
+    for (int u = 0; u < kLaneWords; ++u)
+      acc[k][u][0] = acc[k][u][1] = acc[k][u][2] = acc[k][u][3] = 0.f;
 
   for (int c = 0; c < n_chunks; ++c) {
     const int p0 = lo + c * pa::kChunk, n = min(pa::kChunk, hi - p0);
     __syncthreads();   // the stage of chunk c - 1 is free again
     if (c + 1 < n_chunks)
       stage_chunk<HD>(smem, lay, (c + 1) & 1,
-                      min(pa::kChunk, hi - p0 - pa::kChunk), k_pages,
+                      min(pa::kChunk, hi - p0 - pa::kChunk), hd, k_pages,
                       k_scale, v_pages, v_scale, tid);
     cp_async_commit();
     // the table entry of chunk c + 2's position tid, in flight while this
@@ -348,8 +384,8 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
         }
       }
       __syncwarp();
-      // P.V: each of this lane's rows, four fmaf chains over the warp's
-      // positions from 0, then acc = acc * corr + chain
+      // P.V: each of this lane's rows and words, four fmaf chains over
+      // the warp's positions from 0, then acc = acc * corr + chain
 #pragma unroll
       for (int k = 0; k < kRows; ++k) {
         const int gi = row0 + k * kRowGroups;
@@ -359,22 +395,28 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
           for (int r = 0; r < G; ++r)
             if (r == gi) cr = corr[r];
           const float* pr = s_p + gi * 32;
-          float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
+          float a[kLaneWords][4];
+#pragma unroll
+          for (int u = 0; u < kLaneWords; ++u)
+            a[u][0] = a[u][1] = a[u][2] = a[u][3] = 0.f;
 #pragma unroll 4
           for (int j = 0; j < nw; ++j) {
-            const unsigned vw =
-                *reinterpret_cast<const unsigned*>(s_v + j * HD + 4 * word)
-                ^ 0x80808080u;
             const float pj = pr[j], vsc = s_vs[j];
-            a0 = fmaf(pj, __fmul_rn(code_f32(vw, 0), vsc), a0);
-            a1 = fmaf(pj, __fmul_rn(code_f32(vw, 1), vsc), a1);
-            a2 = fmaf(pj, __fmul_rn(code_f32(vw, 2), vsc), a2);
-            a3 = fmaf(pj, __fmul_rn(code_f32(vw, 3), vsc), a3);
+#pragma unroll
+            for (int u = 0; u < kLaneWords; ++u) {
+              const unsigned vw = *reinterpret_cast<const unsigned*>(
+                  s_v + j * HD + 4 * (word + u * kWordLanes)) ^ 0x80808080u;
+              a[u][0] = fmaf(pj, __fmul_rn(code_f32(vw, 0), vsc), a[u][0]);
+              a[u][1] = fmaf(pj, __fmul_rn(code_f32(vw, 1), vsc), a[u][1]);
+              a[u][2] = fmaf(pj, __fmul_rn(code_f32(vw, 2), vsc), a[u][2]);
+              a[u][3] = fmaf(pj, __fmul_rn(code_f32(vw, 3), vsc), a[u][3]);
+            }
           }
-          acc[k][0] = __fadd_rn(__fmul_rn(acc[k][0], cr), a0);
-          acc[k][1] = __fadd_rn(__fmul_rn(acc[k][1], cr), a1);
-          acc[k][2] = __fadd_rn(__fmul_rn(acc[k][2], cr), a2);
-          acc[k][3] = __fadd_rn(__fmul_rn(acc[k][3], cr), a3);
+#pragma unroll
+          for (int u = 0; u < kLaneWords; ++u)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              acc[k][u][e] = __fadd_rn(__fmul_rn(acc[k][u][e], cr), a[u][e]);
         }
       }
     }
@@ -400,8 +442,12 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
   for (int k = 0; k < kRows; ++k) {
     const int gi = row0 + k * kRowGroups;
     if (gi < gl)
-      *reinterpret_cast<float4*>(mine + gi * HD + 4 * word) =
-          make_float4(acc[k][0], acc[k][1], acc[k][2], acc[k][3]);
+#pragma unroll
+      for (int u = 0; u < kLaneWords; ++u)
+        *reinterpret_cast<float4*>(
+            mine + gi * HD + 4 * (word + u * kWordLanes)) =
+            make_float4(acc[k][u][0], acc[k][u][1], acc[k][u][2],
+                        acc[k][u][3]);
   }
   __syncthreads();
   // combine `parts` slots of (m, l, acc) at `src` for output o of row gi
@@ -423,12 +469,15 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
     *l_out = den;
     *a_out = a;
   };
+  // output o of the slots is dim o % HD of row o / HD; dims past hd
+  // (the pad) are neither combined nor written
   T* dst = out + q_off;
   if (split == 1) {
     for (int o = tid; o < gl * HD; o += pa::kThreads) {
+      if (o % HD >= hd) continue;
       float mx, den, a;
       combine(wpart, kWarps, o, o / HD, &mx, &den, &a);
-      store(dst + o, a / fmaxf(den, 1e-30f));
+      store(dst + (o / HD) * hd + o % HD, a / fmaxf(den, 1e-30f));
     }
     return;
   }
@@ -439,6 +488,7 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
   float* slot = cluster.map_shared_rank(part, 0) + rank * slot_len;
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
   for (int o = tid; o < gl * HD; o += pa::kThreads) {
+    if (o % HD >= hd) continue;
     const int gi = o / HD;
     float mx, den, a;
     combine(wpart, kWarps, o, gi, &mx, &den, &a);
@@ -451,9 +501,10 @@ __global__ void __launch_bounds__(pa::kThreads) paged_attn_decode_kernel(
   cluster.sync();
   if (rank != 0) return;
   for (int o = tid; o < gl * HD; o += pa::kThreads) {
+    if (o % HD >= hd) continue;
     float mx, den, a;
     combine(part, split, o, o / HD, &mx, &den, &a);
-    store(dst + o, a / fmaxf(den, 1e-30f));
+    store(dst + (o / HD) * hd + o % HD, a / fmaxf(den, 1e-30f));
   }
 }
 
@@ -518,31 +569,33 @@ __device__ __forceinline__ int vtswz(int dd) {
   return ((dd >> 2) & 7) ^ (dd & 1);
 }
 
-// A staged chunk's int8 codes as bf16 for the tensor cores (exact): K rows
-// into s_kb (row j, dd at byte 2 dd of its row, pieces swizzled by
-// kbswz) and V transposed into s_vt (row dd, position p at byte 2 p,
-// pieces swizzled by vtswz), by 4 x 4 byte blocks of (positions 4 pb ..
-// 4 pb + 3, dd 4 db .. 4 db + 3); by pa::kThreads threads, this one t.
-template <int HD>
+// A staged chunk's int8 codes of dims [dd0, dd0 + HG) as bf16 for the
+// tensor cores (exact): K rows into s_kb (row j, dim dd0 + d at byte 2 d
+// of its row, pieces swizzled by kbswz) and V transposed into s_vt (row d,
+// position p at byte 2 p, pieces swizzled by vtswz), by 4 x 4 byte blocks
+// of (positions 4 pb .. 4 pb + 3, d 4 db .. 4 db + 3); the staged rows
+// hold HD bytes; by pa::kThreads threads, this one t.
+template <int HD, int HG>
 __device__ __forceinline__ void convert_chunk(const int8_t* s_k,
                                               const int8_t* s_v,
                                               char* s_kb, char* s_vt,
-                                              int t) {
-  constexpr int kW = HD / 4;   // 4-byte words per int8 row
+                                              int dd0, int t) {
+  constexpr int kW = HG / 4;   // 4-byte words per converted row
+  const int w0 = dd0 / 4;
   for (int e = t; e < pa::kRaggedChunk * kW; e += pa::kThreads) {
-    const int w = e % kW, j = e / kW;
+    const int w = e % kW, j = e / kW, ws = w0 + w;
     const unsigned wx = *reinterpret_cast<const unsigned*>(
-        s_k + j * HD + (((w >> 2) ^ kswz<HD>(j)) << 4) + 4 * (w & 3))
+        s_k + j * HD + (((ws >> 2) ^ kswz<HD>(j)) << 4) + 4 * (ws & 3))
         ^ 0x80808080u;
     const int piece = w >> 1;
     *reinterpret_cast<uint2*>(
-        s_kb + j * 2 * HD + ((piece ^ kbswz(j, piece)) << 4)
+        s_kb + j * 2 * HG + ((piece ^ kbswz(j, piece)) << 4)
         + 8 * (w & 1)) = make_uint2(codes_bf16x2(wx, 0),
                                     codes_bf16x2(wx, 2));
   }
   for (int e = t; e < pa::kRaggedChunk * kW / 4; e += pa::kThreads) {
     const int db = e % kW, pb = e / kW;
-    const int8_t* src = s_v + (4 * pb) * HD + 4 * db;
+    const int8_t* src = s_v + (4 * pb) * HD + dd0 + 4 * db;
     unsigned col[4];
     transpose4(*reinterpret_cast<const unsigned*>(src),
                *reinterpret_cast<const unsigned*>(src + HD),
@@ -584,22 +637,27 @@ __device__ __forceinline__ void group_sync(int id) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(pa::kThreads) : "memory");
 }
 
-// q, out: (R, nq, kvh, g, HD); pages, scales, table and lengths as the
-// decode kernel's; q_pos (R, nq). Grid pa::ragged_plan's ctas, CTA x tile
-// x % tiles of (item, head) x / tiles, pa::kRaggedThreads threads in
-// pa::kRaggedGroups warp groups: group G takes chunks c = G, G + groups,
-// ... of the tile (stage c % kRaggedStages, its own bf16 buffers) with its
-// own online softmax, and the groups' states are combined at the end in
-// group order. Warp w of a group owns the tile's rows 16 w .. 16 w + 15,
-// lane (gq = lane / 4, tq = lane % 4) the fragment rows gq and gq + 8
-// (rows rA, rB). Fragments (m16n8k16): the scores' inner index k of step
-// s is dd tq HD / 4 + 4 s + {0, 1} for k = 2 tq, 2 tq + 1 and + {2, 3}
-// for k = 2 tq + 8, 2 tq + 9; score column c of n-tile j is position 16
-// (c / 2) + 2 j + c % 2 of the chunk, so lane (gq, tq) holds the scores
-// of positions 16 tq + 2 j + {0, 1}; the P.V inner index of step s is
-// position 16 tq + 4 s + {0, 1} (k = 2 tq, 2 tq + 1) and + {2, 3} (k = 2
-// tq + 8, 2 tq + 9): n-tiles 2 s and 2 s + 1 of the scores. Dynamic
-// shared memory: pa::RaggedLayout(HD).
+// q, out: (R, nq, kvh, g, hd); pages, scales, table and lengths as the
+// decode kernel's; q_pos (R, nq); HD = pa::padded_hd(hd), the width of the
+// staged rows (the query's dims past hd zero). Grid pa::ragged_plan's
+// ctas, CTA x tile x % tiles of (item, head) x / tiles,
+// pa::kRaggedThreads threads in pa::kRaggedGroups warp groups. Up to HD
+// 128 group G takes chunks c = G, G + groups, ... of the tile (stage c %
+// kStages, its own bf16 buffers) with all HG = HD dims and its own online
+// softmax, and the groups' states are combined at the end in group order.
+// Above 128 (pa::ragged_split_dd) both groups take every chunk, group G
+// the HG = HD / 2 dims from dd0 = G HG of its rows' queries, codes and
+// outputs: each adds its partial scores to the other's (through shared
+// memory, so both hold the same sums) and runs the same softmax. Warp w of
+// a group owns the tile's rows 16 w .. 16 w + 15, lane (gq = lane / 4, tq
+// = lane % 4) the fragment rows gq and gq + 8 (rows rA, rB). Fragments
+// (m16n8k16): the scores' inner index k of step s is dim dd0 + tq HG / 4 +
+// 4 s + {0, 1} for k = 2 tq, 2 tq + 1 and + {2, 3} for k = 2 tq + 8, 2 tq
+// + 9; score column c of n-tile j is position 16 (c / 2) + 2 j + c % 2 of
+// the chunk, so lane (gq, tq) holds the scores of positions 16 tq + 2 j +
+// {0, 1}; the P.V inner index of step s is position 16 tq + 4 s + {0, 1}
+// (k = 2 tq, 2 tq + 1) and + {2, 3} (k = 2 tq + 8, 2 tq + 9): n-tiles 2 s
+// and 2 s + 1 of the scores. Dynamic shared memory: pa::RaggedLayout(HD).
 template <typename T, int HD>
 __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
     paged_attn_ragged_kernel(
@@ -608,13 +666,22 @@ __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
         const int8_t* __restrict__ v_pages,
         const float* __restrict__ v_scale, const int32_t* __restrict__ table,
         int n_ptab, const int32_t* __restrict__ lengths,
-        const int32_t* __restrict__ q_pos, int nq, int kvh, int g,
+        const int32_t* __restrict__ q_pos, int nq, int kvh, int g, int hd,
         int page_size, float q_scale, T* __restrict__ out) {
-  constexpr int kSteps = HD / 16;   // k-steps of the scores
-  constexpr int kQd = HD / 4;       // dd of a lane's fragment run
-  constexpr int kDt = HD / 8;       // n-tiles of the output
+  constexpr bool kSplitDd = pa::ragged_split_dd(HD);
+  constexpr int kGroups = pa::kRaggedGroups;
+  constexpr int HG = kSplitDd ? HD / kGroups : HD;   // a group's dims
+  constexpr int kSteps = HG / 16;   // k-steps of the scores
+  constexpr int kQd = HG / 4;       // dd of a lane's fragment run
+  constexpr int kDt = HG / 8;       // n-tiles of the output
   constexpr int kC = pa::kRaggedChunk;
-  constexpr int kGroups = pa::kRaggedGroups, kStages = pa::kRaggedStages;
+  constexpr int kStages = pa::ragged_stages(HD);
+  // chunks between a group's turns, chunks staged ahead of the one a
+  // turn computes, and the threads that stage a chunk: a group's own
+  // chunks, or every chunk by the whole CTA
+  constexpr int kStride = kSplitDd ? 1 : kGroups;
+  constexpr int kAhead = kSplitDd ? kStages - 1 : kGroups;
+  constexpr int kTeam = kSplitDd ? pa::kRaggedThreads : pa::kThreads;
   constexpr int kParts = sizeof(T) == 4 ? 2 : 1;   // bf16 parts of q
   extern __shared__ float4 pa_smem[];
   char* smem = reinterpret_cast<char*>(pa_smem);
@@ -624,6 +691,13 @@ __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
   const int gt = tid - grp * pa::kThreads;   // thread within its group
   const int lane = tid & 31, warp = gt >> 5;
   const int gq = lane >> 2, tq = lane & 3;
+  const int st = kSplitDd ? tid : gt;        // thread within its team
+  const int dd0 = kSplitDd ? grp * HG : 0;   // this group's first dim
+  // the barrier of the threads that share a stage
+  auto team_sync = [grp]() {
+    if constexpr (kSplitDd) __syncthreads();
+    else group_sync(1 + grp);
+  };
   const int tiles = (nq * g + pa::kRaggedRows - 1) / pa::kRaggedRows;
   const int tile = blockIdx.x % tiles, ih = blockIdx.x / tiles;
   int r_lo, r_hi;   // this tile's query rows
@@ -633,7 +707,8 @@ __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
   const int width = n_ptab * page_size;   // positions the table holds
   // the first kStages chunks' table entries (position tid + k
   // kRaggedThreads) load beside the length and the rows' positions
-  constexpr int kPre = kStages * kC / pa::kRaggedThreads;
+  constexpr int kPre =
+      (kStages * kC + pa::kRaggedThreads - 1) / pa::kRaggedThreads;
   int pre[kPre];
 #pragma unroll
   for (int k = 0; k < kPre; ++k) {
@@ -652,11 +727,11 @@ __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
     const int qi = live[i] ? r / g : 0, gi = live[i] ? r - qi * g : 0;
     const int qp = live[i] ? q_pos[(size_t)item * nq + qi] : -1;
     hz[i] = qp >= 0 ? min(qp + 1, len) : 0;
-    off[i] = ((((size_t)item * nq + qi) * kvh + h) * g + gi) * HD;
+    off[i] = ((((size_t)item * nq + qi) * kvh + h) * g + gi) * hd;
   }
   // the rows' A fragments, scaled in f32 and rounded to T (an f32 row as
-  // bf16 high and low parts); a0a1 / a2a3 rows rA / rB at dd d0 + {0, 1},
-  // a4a5 / a6a7 at d0 + {2, 3}, d0 = tq HD / 4 + 4 s
+  // bf16 high and low parts), zeros past hd; a0a1 / a2a3 rows rA / rB at
+  // dims d0 + {0, 1}, a4a5 / a6a7 at d0 + {2, 3}, d0 = dd0 + tq HG / 4 + 4 s
   unsigned qa[kParts][kSteps][4];
   T* round_tag = nullptr;
 #pragma unroll
@@ -664,8 +739,9 @@ __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
 #pragma unroll
     for (int s = 0; s < kSteps; ++s) {
       float v[4] = {0.f, 0.f, 0.f, 0.f};
-      if (live[i]) {
-        const T* src = q + off[i] + tq * kQd + 4 * s;
+      const int d0 = dd0 + tq * kQd + 4 * s;
+      if (live[i] && d0 < hd) {
+        const T* src = q + off[i] + d0;
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           v[e] = round_to(to_f32(src[e]) * q_scale, round_tag);
@@ -678,6 +754,20 @@ __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
         qa[0][s][2 + i] = bf16x2(v[2], v[3]);
       }
     }
+  }
+  // where the groups split the dims, the fragments wait in shared memory
+  // (each thread's own 16 bytes per part and step), so that a thread's
+  // registers hold its outputs and the chunk's operands
+  uint4* const qs = reinterpret_cast<uint4*>(smem + lay.q)
+                    + grp * kParts * kSteps * pa::kThreads + gt;
+  if constexpr (kSplitDd) {
+#pragma unroll
+    for (int part = 0; part < kParts; ++part)
+#pragma unroll
+      for (int s = 0; s < kSteps; ++s)
+        qs[(part * kSteps + s) * pa::kThreads] =
+            make_uint4(qa[part][s][0], qa[part][s][1], qa[part][s][2],
+                       qa[part][s][3]);
   }
 
   // the tile's horizon: each warp's largest (both groups hold the same
@@ -693,23 +783,34 @@ __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
   for (int w = 0; w < pa::kWarps; ++w) th = max(th, s_hmax[w]);
   const int n_chunks = (th + kC - 1) / kC;
   // the token rows of the first kStages chunks (chunk c into stage c),
-  // then each group's first chunk's copies
+  // then the first chunks' copies: each group's first, or the first
+  // kAhead
 #pragma unroll
   for (int k = 0; k < kPre; ++k) {
     const int pos = tid + k * pa::kRaggedThreads;
-    if (pos < th)
+    if (pos < th && pos < kStages * kC)
       reinterpret_cast<int*>(smem + (pos / kC) * lay.stage + lay.tok)[
           pos % kC] = token_row(pre[k], pos, page_size, kvh, h);
   }
   __syncthreads();
-  if (grp < n_chunks)
-    stage_chunk<HD>(smem, lay, grp, min(kC, th - grp * kC), k_pages,
-                    k_scale, v_pages, v_scale, gt);
-  cp_async_commit();
+  if constexpr (kSplitDd) {
+#pragma unroll
+    for (int c = 0; c < kAhead; ++c) {
+      if (c < n_chunks)
+        stage_chunk<HD, kTeam>(smem, lay, c, min(kC, th - c * kC), hd,
+                               k_pages, k_scale, v_pages, v_scale, st);
+      cp_async_commit();
+    }
+  } else {
+    if (grp < n_chunks)
+      stage_chunk<HD>(smem, lay, grp, min(kC, th - grp * kC), hd, k_pages,
+                      k_scale, v_pages, v_scale, gt);
+    cp_async_commit();
+  }
 
   // running max and (this lane's partial) sum of rows rA, rB over this
-  // group's chunks; the output fragments: o[nt][2 i + e] is row i's dd
-  // nt * 8 + 2 tq + e
+  // group's chunks; the output fragments: o[nt][2 i + e] is row i's dim
+  // dd0 + nt * 8 + 2 tq + e
   float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
   float o[kDt][4];
 #pragma unroll
@@ -718,57 +819,109 @@ __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
   char* s_kb = smem + lay.kb + grp * lay.group;
   char* s_vt = smem + lay.vt + grp * lay.group;
 
-  for (int c = grp; c < n_chunks + grp; c += kGroups) {
+  const int c_first = kSplitDd ? 0 : grp;
+  for (int c = c_first; c < n_chunks + c_first; c += kStride) {
     // c may pass the last chunk on a group's last turn: it then computes
     // nothing but keeps the group's barriers in step
     const int p0 = c * kC;
-    group_sync(1 + grp);   // chunk c - kGroups's stage and bf16 codes free
-    const int next = c + kGroups;
+    team_sync();   // chunk c - kStride's stage and bf16 codes free
+    const int next = c + kAhead;
     if (next < n_chunks)
-      stage_chunk<HD>(smem, lay, next % kStages, min(kC, th - next * kC),
-                      k_pages, k_scale, v_pages, v_scale, gt);
+      stage_chunk<HD, kTeam>(smem, lay, next % kStages,
+                             min(kC, th - next * kC), hd, k_pages, k_scale,
+                             v_pages, v_scale, st);
     cp_async_commit();
-    // the table entry of chunk c + kStages's position gt, in flight while
+    // the table entry of chunk c + kStages's position st, in flight while
     // this chunk computes; its token row goes to stage c % kStages at the
     // end
-    const int pos2 = (c + kStages) * kC + gt;
-    const int page2 = gt < kC && pos2 < th ? trow[pos2 / page_size] : 0;
-    cp_async_wait_prior();   // chunk c has landed (this group's copies)
-    group_sync(1 + grp);
+    const int pos2 = (c + kStages) * kC + st;
+    const int page2 = st < kC && pos2 < th ? trow[pos2 / page_size] : 0;
+    cp_async_wait<kSplitDd ? kAhead : 1>();   // chunk c has landed
+    team_sync();
     if (c < n_chunks) {
       const char* base = smem + (c % kStages) * lay.stage;
       const float* s_ks = reinterpret_cast<const float*>(base + lay.ks);
       const float* s_vs = reinterpret_cast<const float*>(base + lay.vs);
-      convert_chunk<HD>(reinterpret_cast<const int8_t*>(base + lay.k),
-                        reinterpret_cast<const int8_t*>(base + lay.v), s_kb,
-                        s_vt, gt);
+      convert_chunk<HD, HG>(reinterpret_cast<const int8_t*>(base + lay.k),
+                            reinterpret_cast<const int8_t*>(base + lay.v),
+                            s_kb, s_vt, dd0, gt);
       group_sync(1 + grp);
 
-      // scores: n-tile j's column gq is this lane's K row, whose bf16 dd
-      // [tq HD / 4, (tq + 1) HD / 4) are its HD / 32 pieces from tq HD /
-      // 32: words 2 s, 2 s + 1 the B registers of step s
-      // (four n-tiles at a time, their products interleaved, so that no
-      // product waits on the one before it)
+      // scores: n-tile j's column gq is this lane's K row, whose bf16 dims
+      // [tq HG / 4, (tq + 1) HG / 4) of the group's are its HG / 32
+      // pieces from tq HG / 32: words 2 s, 2 s + 1 the B registers of
+      // step s (four n-tiles at a time, their products interleaved, so
+      // that no product waits on the one before it)
       float sc[8][4];
 #pragma unroll
       for (int j0 = 0; j0 < 8; j0 += 4) {
-        unsigned kw[4][2 * kSteps];
+        if constexpr (kSplitDd) {
+          // one piece of each n-tile's run at a time (piece pc: steps 2
+          // pc, 2 pc + 1), each step's fragment loaded from shared memory
 #pragma unroll
-        for (int j = j0; j < j0 + 4; ++j) {
-          sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
-          const int kr = 16 * (gq >> 1) + 2 * j + (gq & 1);
-          load_run<HD / 32>(s_kb + kr * 2 * HD, tq * (HD / 32),
-                            [kr](int piece) { return kbswz(kr, piece); },
-                            kw[j - j0]);
+          for (int j = j0; j < j0 + 4; ++j)
+            sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+#pragma unroll
+          for (int pc = 0; pc < HG / 32; ++pc) {
+            unsigned kw[4][4];
+#pragma unroll
+            for (int j = j0; j < j0 + 4; ++j) {
+              const int kr = 16 * (gq >> 1) + 2 * j + (gq & 1);
+              load_run<1>(s_kb + kr * 2 * HG, tq * (HG / 32) + pc,
+                          [kr](int piece) { return kbswz(kr, piece); },
+                          kw[j - j0]);
+            }
+#pragma unroll
+            for (int s = 2 * pc; s < 2 * pc + 2; ++s)
+#pragma unroll
+              for (int part = 0; part < kParts; ++part) {
+                const uint4 f = qs[(part * kSteps + s) * pa::kThreads];
+                const unsigned a[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+                for (int j = j0; j < j0 + 4; ++j)
+                  mma_bf16(sc[j], a, kw[j - j0][2 * (s - 2 * pc)],
+                           kw[j - j0][2 * (s - 2 * pc) + 1]);
+              }
+          }
+        } else {
+          unsigned kw[4][2 * kSteps];
+#pragma unroll
+          for (int j = j0; j < j0 + 4; ++j) {
+            sc[j][0] = sc[j][1] = sc[j][2] = sc[j][3] = 0.f;
+            const int kr = 16 * (gq >> 1) + 2 * j + (gq & 1);
+            load_run<HG / 32>(s_kb + kr * 2 * HG, tq * (HG / 32),
+                              [kr](int piece) { return kbswz(kr, piece); },
+                              kw[j - j0]);
+          }
+#pragma unroll
+          for (int s = 0; s < kSteps; ++s)
+#pragma unroll
+            for (int part = 0; part < kParts; ++part)
+#pragma unroll
+              for (int j = j0; j < j0 + 4; ++j)
+                mma_bf16(sc[j], qa[part][s], kw[j - j0][2 * s],
+                         kw[j - j0][2 * s + 1]);
         }
+      }
+      if constexpr (kSplitDd) {
+        // each group's partial scores through shared memory, then each
+        // lane adds its peer's (the same rows and positions) to its own:
+        // IEEE addition commutes, so both groups hold the same sums
+        float* xs = reinterpret_cast<float*>(smem + lay.x);
+        float* mine = xs + grp * (32 * pa::kThreads);
+        const float* peer = xs + (1 - grp) * (32 * pa::kThreads);
 #pragma unroll
-        for (int s = 0; s < kSteps; ++s)
+        for (int j = 0; j < 8; ++j)
 #pragma unroll
-          for (int part = 0; part < kParts; ++part)
+          for (int e = 0; e < 4; ++e)
+            mine[(4 * j + e) * pa::kThreads + gt] = sc[j][e];
+        __syncthreads();
 #pragma unroll
-            for (int j = j0; j < j0 + 4; ++j)
-              mma_bf16(sc[j], qa[part][s], kw[j - j0][2 * s],
-                       kw[j - j0][2 * s + 1]);
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sc[j][e] = __fadd_rn(sc[j][e],
+                                 peer[(4 * j + e) * pa::kThreads + gt]);
       }
       // this lane's 16 positions' K and V scales
       const float* ksc = s_ks + 16 * tq;
@@ -852,52 +1005,55 @@ __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
                        vw[nt - n0][2 * s + 1]);
       }
     }
-    if (gt < kC && pos2 < th)
-      reinterpret_cast<int*>(smem + (c % kStages) * lay.stage + lay.tok)[gt] =
+    if (st < kC && pos2 < th)
+      reinterpret_cast<int*>(smem + (c % kStages) * lay.stage + lay.tok)[st] =
           token_row(page2, pos2, page_size, kvh, h);
   }
 
-  // the groups' states, combined in group order by group 0: group G > 0
-  // leaves (m, l, o) of its lanes in the stage memory, no copy in flight
-  cp_async_wait_all();
-  __syncthreads();
-  constexpr int kSlot = 4 + 4 * kDt;   // floats of one lane's state
-  float* part = reinterpret_cast<float*>(smem);
-  if (grp > 0) {
-    float* mine = part + ((grp - 1) * pa::kThreads + gt) * kSlot;
-    mine[0] = m_run[0];
-    mine[1] = m_run[1];
-    mine[2] = l_run[0];
-    mine[3] = l_run[1];
-#pragma unroll
-    for (int nt = 0; nt < kDt; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mine[4 + 4 * nt + e] = o[nt][e];
-  }
-  __syncthreads();
-  if (grp > 0) return;
-#pragma unroll
-  for (int gr = 1; gr < kGroups; ++gr) {
-    const float* peer = part + ((gr - 1) * pa::kThreads + gt) * kSlot;
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float mp = peer[i], mx = fmaxf(m_run[i], mp);
-      const float e0 = mx == -INFINITY ? 0.f : __expf(m_run[i] - mx);
-      const float e1 = mx == -INFINITY ? 0.f : __expf(mp - mx);
-      l_run[i] = __fadd_rn(__fmul_rn(l_run[i], e0),
-                           __fmul_rn(peer[2 + i], e1));
+  if constexpr (!kSplitDd) {
+    // the groups' states, combined in group order by group 0: group G > 0
+    // leaves (m, l, o) of its lanes in the stage memory, no copy in flight
+    cp_async_wait_all();
+    __syncthreads();
+    constexpr int kSlot = 4 + 4 * kDt;   // floats of one lane's state
+    float* part = reinterpret_cast<float*>(smem);
+    if (grp > 0) {
+      float* mine = part + ((grp - 1) * pa::kThreads + gt) * kSlot;
+      mine[0] = m_run[0];
+      mine[1] = m_run[1];
+      mine[2] = l_run[0];
+      mine[3] = l_run[1];
 #pragma unroll
       for (int nt = 0; nt < kDt; ++nt)
 #pragma unroll
-        for (int e = 0; e < 2; ++e)
-          o[nt][2 * i + e] =
-              __fadd_rn(__fmul_rn(o[nt][2 * i + e], e0),
-                        __fmul_rn(peer[4 + 4 * nt + 2 * i + e], e1));
-      m_run[i] = mx;
+        for (int e = 0; e < 4; ++e) mine[4 + 4 * nt + e] = o[nt][e];
+    }
+    __syncthreads();
+    if (grp > 0) return;
+#pragma unroll
+    for (int gr = 1; gr < kGroups; ++gr) {
+      const float* peer = part + ((gr - 1) * pa::kThreads + gt) * kSlot;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float mp = peer[i], mx = fmaxf(m_run[i], mp);
+        const float e0 = mx == -INFINITY ? 0.f : __expf(m_run[i] - mx);
+        const float e1 = mx == -INFINITY ? 0.f : __expf(mp - mx);
+        l_run[i] = __fadd_rn(__fmul_rn(l_run[i], e0),
+                             __fmul_rn(peer[2 + i], e1));
+#pragma unroll
+        for (int nt = 0; nt < kDt; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            o[nt][2 * i + e] =
+                __fadd_rn(__fmul_rn(o[nt][2 * i + e], e0),
+                          __fmul_rn(peer[4 + 4 * nt + 2 * i + e], e1));
+        m_run[i] = mx;
+      }
     }
   }
   // each row: the quad's sum (the same tree in every lane), then out =
-  // acc / max(l, 1e-30), zeros for a row with no valid position
+  // acc / max(l, 1e-30) at this group's dims below hd, zeros for a row
+  // with no valid position
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float l = l_run[i];
@@ -907,7 +1063,9 @@ __global__ void __launch_bounds__(pa::kRaggedThreads, 1)
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int nt = 0; nt < kDt; ++nt) {
-      T* dst = out + off[i] + nt * 8 + 2 * tq;
+      const int dd = dd0 + nt * 8 + 2 * tq;
+      if (dd >= hd) continue;
+      T* dst = out + off[i] + dd;
       store(dst, hz[i] > 0 ? o[nt][2 * i] / den : 0.f);
       store(dst + 1, hz[i] > 0 ? o[nt][2 * i + 1] / den : 0.f);
     }
@@ -932,7 +1090,7 @@ template <typename T, int HD, int G>
 cudaError_t launch_decode(const void* q, const void* kp, const void* ks,
                           const void* vp, const void* vs, const void* table,
                           int n_ptab, const void* lengths, int kvh, int g,
-                          int page_size, float q_scale,
+                          int hd, int page_size, float q_scale,
                           const pa::DecodePlan& p, void* out,
                           cudaStream_t stream) {
   auto kernel = paged_attn_decode_kernel<T, HD, G>;
@@ -956,12 +1114,12 @@ cudaError_t launch_decode(const void* q, const void* kp, const void* ks,
       &cfg, kernel, static_cast<const T*>(q), static_cast<const int8_t*>(kp),
       static_cast<const float*>(ks), static_cast<const int8_t*>(vp),
       static_cast<const float*>(vs), static_cast<const int32_t*>(table),
-      n_ptab, static_cast<const int32_t*>(lengths), kvh, g, page_size,
+      n_ptab, static_cast<const int32_t*>(lengths), kvh, g, hd, page_size,
       p.split, q_scale, static_cast<T*>(out));
 }
 
-// The kernel for head dim hd and a CTA's rows: up to 2 (the serving
-// shapes, g 2) or up to pa::kMaxG.
+// The kernel for head dim hd (built at its pa::padded_hd) and a CTA's
+// rows: up to 2 (the serving shapes, g 2) or up to pa::kMaxG.
 template <typename T>
 cudaError_t launch_decode_hd(int hd, const void* q, const void* kp,
                              const void* ks, const void* vp, const void* vs,
@@ -971,15 +1129,16 @@ cudaError_t launch_decode_hd(int hd, const void* q, const void* kp,
                              const pa::DecodePlan& p, void* out,
                              cudaStream_t stream) {
 #define REPRO_DECODE_ARGS                                                  \
-  q, kp, ks, vp, vs, table, n_ptab, lengths, kvh, g, page_size, q_scale, p, \
-      out, stream
+  q, kp, ks, vp, vs, table, n_ptab, lengths, kvh, g, hd, page_size,        \
+      q_scale, p, out, stream
 #define REPRO_DECODE_G(HD)                                                 \
   (g <= 2 ? launch_decode<T, HD, 2>(REPRO_DECODE_ARGS)                     \
           : launch_decode<T, HD, pa::kMaxG>(REPRO_DECODE_ARGS))
-  switch (hd) {
+  switch (pa::padded_hd(hd)) {
     case 32: return REPRO_DECODE_G(32);
     case 64: return REPRO_DECODE_G(64);
     case 128: return REPRO_DECODE_G(128);
+    case 256: return REPRO_DECODE_G(256);
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_DECODE_G
@@ -990,7 +1149,7 @@ template <typename T, int HD>
 cudaError_t launch_ragged(const void* q, const void* kp, const void* ks,
                           const void* vp, const void* vs, const void* table,
                           int n_ptab, const void* lengths, const void* q_pos,
-                          int nq, int kvh, int g, int page_size,
+                          int nq, int kvh, int g, int hd, int page_size,
                           float q_scale, const pa::RaggedPlan& p, void* out,
                           cudaStream_t stream) {
   // opt in above the default 48 KiB once per size reached, so a steady
@@ -1008,7 +1167,7 @@ cudaError_t launch_ragged(const void* q, const void* kp, const void* ks,
       static_cast<const float*>(ks), static_cast<const int8_t*>(vp),
       static_cast<const float*>(vs), static_cast<const int32_t*>(table),
       n_ptab, static_cast<const int32_t*>(lengths),
-      static_cast<const int32_t*>(q_pos), nq, kvh, g, page_size, q_scale,
+      static_cast<const int32_t*>(q_pos), nq, kvh, g, hd, page_size, q_scale,
       static_cast<T*>(out));
   return cudaGetLastError();
 }
@@ -1022,12 +1181,13 @@ cudaError_t launch_ragged_hd(int hd, const void* q, const void* kp,
                              const pa::RaggedPlan& p, void* out,
                              cudaStream_t stream) {
 #define REPRO_RAGGED_ARGS                                                  \
-  q, kp, ks, vp, vs, table, n_ptab, lengths, q_pos, nq, kvh, g, page_size, \
-      q_scale, p, out, stream
-  switch (hd) {
+  q, kp, ks, vp, vs, table, n_ptab, lengths, q_pos, nq, kvh, g, hd,        \
+      page_size, q_scale, p, out, stream
+  switch (pa::padded_hd(hd)) {
     case 32: return launch_ragged<T, 32>(REPRO_RAGGED_ARGS);
     case 64: return launch_ragged<T, 64>(REPRO_RAGGED_ARGS);
     case 128: return launch_ragged<T, 128>(REPRO_RAGGED_ARGS);
+    case 256: return launch_ragged<T, 256>(REPRO_RAGGED_ARGS);
     default: return cudaErrorInvalidValue;
   }
 #undef REPRO_RAGGED_ARGS

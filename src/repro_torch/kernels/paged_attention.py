@@ -30,6 +30,13 @@ The CUDA source is ``src/repro_torch/csrc/paged_attention.cu``.
   ``ragged_rows`` read them); every sum has a fixed order, so equal
   inputs give equal bits.
 
+Both take every head dim that is a multiple of 8 from 8 to 256, built at
+32, 64, 128 or 256 (``padded_hd`` in the header): K and V rows are staged
+at that width, the query's dims past hd are zero (so the pad adds exact
+zeros to every score) and only hd dims are written. Above 128 the ragged
+kernel's two warp groups split the head dims instead of the chunks. The
+plans refuse any other head dim, and so does the launch (no fallback).
+
 What bounds both on the H100 is the page bytes of the attended prefix
 (int8 codes + f32 scales) over HBM bandwidth: decode reads each once per
 (item, KV head), the ragged kernel once per (item, head, row tile).
@@ -123,9 +130,9 @@ def decode_plan(b: int, kvh: int, g: int, hd: int, page_size: int,
                           split, out):
         raise ValueError(f"the decode attention does not take B={b}, "
                          f"KVH={kvh}, g={g}, hd={hd}, page_size={page_size},"
-                         f" n_ptab={n_ptab}, split={split}: it needs hd in "
-                         f"(32, 64, 128), a split in 1..8 and its shared "
-                         f"memory to fit (csrc/attention_plan.h)")
+                         f" n_ptab={n_ptab}, split={split}: it needs hd a "
+                         f"multiple of 8 from 8 to 256, a split in 1..8 and "
+                         f"its shared memory to fit (csrc/attention_plan.h)")
     return DecodePlan(*out)
 
 
@@ -166,8 +173,9 @@ def ragged_plan(n_items: int, nq: int, kvh: int, g: int, hd: int,
                           out):
         raise ValueError(f"the ragged attention does not take R={n_items}, "
                          f"Q={nq}, KVH={kvh}, g={g}, hd={hd}, page_size="
-                         f"{page_size}: it needs hd in (32, 64, 128) and its "
-                         f"shared memory to fit (csrc/attention_plan.h)")
+                         f"{page_size}: it needs hd a multiple of 8 from 8 "
+                         f"to 256 and its shared memory to fit "
+                         f"(csrc/attention_plan.h)")
     return RaggedPlan(*out)
 
 
@@ -301,8 +309,6 @@ def _validate(q, k_pages, k_scale, v_pages, v_scale, page_table, lengths,
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"q must be f32 or bf16, got {q.dtype}")
     hd = q.shape[-1]
-    if hd not in (32, 64, 128):
-        raise ValueError(f"head_dim {hd} not in (32, 64, 128)")
     for name, t in (("k_pages", k_pages), ("v_pages", v_pages)):
         if t.dtype != torch.int8 or t.ndim != 4 or t.shape[2:] != (kvh, hd):
             raise TypeError(f"{name} must be int8 (n_pages, G, {kvh}, {hd}),"

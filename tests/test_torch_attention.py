@@ -113,10 +113,12 @@ def test_plan_takes_one_split_for_short_prefixes(plan_lib):
                                           plan(128, 8, g=8).smem)  # groups
     for split in range(1, 9):
         assert plan(10, split).split == split
-    for hd in (32, 64, 128):
+    for hd in range(8, 257, 8):
         for g in (1, 2, 4, 8):
-            assert plan(128, 8, g=g, hd=hd).smem <= SMEM_OPTIN
-    for bad in (dict(split=9), dict(split=-1), dict(hd=48),
+            assert plan(128, 0, g=g, hd=hd).smem <= SMEM_OPTIN
+            if hd <= 128 or g < 8:      # 8 splits' states fit
+                assert plan(128, 8, g=g, hd=hd).smem <= SMEM_OPTIN
+    for bad in (dict(split=9), dict(split=-1), dict(hd=20),
                 dict(n_ptab=0), dict(ps=0)):
         kw = dict(n_ptab=10) | bad
         with pytest.raises(ValueError, match="does not take"):
@@ -215,7 +217,8 @@ def test_decode_wrapper_passes_the_card_and_the_split(monkeypatch):
 def test_ragged_plan_owns_every_row_once(plan_lib, nq, g):
     """Every query row r = qi·g + gi of an item lies in one tile of 64
     rows, in order, with no empty tile; one CTA per (item, KV head,
-    tile); shared memory within the card's at hd 32, 64 and 128."""
+    tile); shared memory within the card's at every head dim taken (a
+    multiple of 8 up to 256)."""
     plan = P.ragged_plan(8, nq, 4, g, 64, 16, SMEM_OPTIN, lib=plan_lib)
     assert plan.tiles == -(-nq * g // 64)
     assert plan.ctas == 8 * 4 * plan.tiles
@@ -225,13 +228,13 @@ def test_ragged_plan_owns_every_row_once(plan_lib, nq, g):
         assert len(rows) and rows.start == 64 * tile
         owned[list(rows)] += 1
     assert (owned == 1).all()
-    for hd in (32, 64, 128):
+    for hd in range(8, 257, 8):
         assert P.ragged_plan(8, nq, 4, g, hd, 16, SMEM_OPTIN,
                              lib=plan_lib).smem <= SMEM_OPTIN
 
 
 def test_ragged_plan_refuses_what_the_kernel_does_not_take(plan_lib):
-    for bad in (dict(hd=48), dict(hd=256), dict(nq=0), dict(g=0),
+    for bad in (dict(hd=20), dict(hd=264), dict(nq=0), dict(g=0),
                 dict(ps=0), dict(n=0), dict(smem=32 * 1024)):
         kw = dict(n=8, nq=128, g=2, hd=64, ps=16, smem=SMEM_OPTIN) | bad
         with pytest.raises(ValueError, match="does not take"):
